@@ -11,15 +11,21 @@ Phases, in order; any failure exits non-zero:
    as ``nvidia-smi --query-gpu=name,power.limit`` gives them.
 2. Build: compiles both CUDA kernels from ``nornicdb_tpu_torch/csrc``.
 3. Kernel vs plain version on the card, on seeded inputs: the fused
-   cosine top-k (B1) against a matmul + mask + stable top-k, and flash
-   attention (B2) against the materializing softmax.
+   cosine top-k (B1) against a matmul + mask + stable top-k (D in {160,
+   1024} x B in {1, 2, 3, 4, 5, 7, 64, 256} x k in {1, 10, 30, 128, 256},
+   D = 33 and a misaligned base on the scalar path, C = 5, an all-masked
+   index, fewer valid rows than k, and two calls bitwise equal), and flash
+   attention (B2) against the materializing softmax in f32 and bf16.
 4. Main path through the public entry points: ``open(device="cuda")`` with
-   the committed mini encoder, ``store`` of seeded documents, ``flush``,
-   64 queries each in vector, text and hybrid mode; both kernels' launch
-   counters must grow, and the vector answers must match the plain path.
+   the committed mini encoder (bf16, the default), ``store`` of seeded
+   documents, ``flush``, 64 queries each in vector, text and hybrid mode;
+   both kernels' launch counters must grow, and the vector answers must
+   match the plain path. Then a few ``recall(limit=100, mode="vector")``
+   calls (k = 300) must take the wide-k route and not B1, and agree with
+   the plain path.
 5. Index at deployment scale: a 1,048,576 x 1024 float32
    ``BruteForceIndex`` filled through ``add_batch`` and searched at
-   B in {1, 64}, k = 10, through B1, checked against the plain path.
+   B in {1, 4, 64}, k = 10, through B1, checked against the plain path.
 
 Timing uses CUDA events. The second-to-last line is a JSON object with
 one entry per kernel; the last line is
@@ -43,6 +49,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # bf16 tensor cores, dense
 
 # Tolerances. Both kernels compute in float32 and differ from their plain
 # versions only in the order of float sums (sequential fmaf against cuBLAS
@@ -50,6 +57,12 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 TOPK_SCORE_ATOL = 1e-5  # |cosine| <= 1 over D <= 1024 terms
 ATTN_F32_ATOL = 2e-5    # outputs are convex combinations of |v| ~ 1 values
 ATTN_BF16_ATOL = 2e-2   # bf16 output rounding (8 mantissa bits) on |out| < 4
+# The same encoder in float32 on the card and on the CPU: float sums in
+# another order only.
+EMBED_F32_COS_MIN = 0.99999
+# The DB's bf16 encoder against the float32 one: each rounding to bf16
+# keeps 8 mantissa bits, and two layers of projections round many times.
+EMBED_BF16_COS_MIN = 0.9995
 
 REPORT: dict = {}
 
@@ -75,9 +88,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(n_bytes: float, flops: float):
-    """(least milliseconds the card could take, which roof binds)."""
-    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def device_split(fn, iters: int = 10) -> dict:
+    """Device milliseconds per call of each kernel (and memset) that ``fn``
+    launches, from a torch.profiler trace of ``iters`` calls."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        total_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        m = re.search(r"(\w+_kernel)<|Memset", ev.key)
+        if total_us and m and ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = m.group(1) or "memset"
+            out[name] = out.get(name, 0.0) + total_us / iters / 1e3
+    return out
+
+
+def bound_ms(n_bytes: float, flops: float, flops_per_s: float = None):
+    """(least milliseconds the card could take, which roof binds); the
+    operations run at ``flops_per_s`` (float32 outside the tensor cores
+    unless given)."""
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / (flops_per_s or F32_FLOPS_PER_S)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -137,33 +176,57 @@ def _normalized(rng, n, d):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
-def check_topk(dev, rng, c, d, b, k, valid_frac=0.9):
+def check_topk(dev, rng, c, d, b, k, valid_frac=0.9, m=None, misaligned=False):
     """One B1 case: masked rows, duplicated rows (exact ties), queries
-    that hit the duplicates. Returns the max abs score error."""
+    that hit the duplicates. ``misaligned`` offsets both bases by one
+    float (the scalar path). Returns the max abs score error."""
     import torch
 
     from nornicdb_tpu_torch.ops.similarity import cosine_topk
     from nornicdb_tpu_torch.ops.topk import fused_cosine_topk, topk_agree
 
-    m = _normalized(rng, c, d)
     n_dup = min(c // 4, 512)
-    m[c - n_dup:] = m[:n_dup]  # exact duplicates -> exact score ties
+    if m is None:  # a matrix passed in carries the same duplicates
+        m = _normalized(rng, c, d)
+        m[c - n_dup:] = m[:n_dup]  # exact duplicates -> exact score ties
     valid = rng.random(c) < valid_frac
     q = _normalized(rng, b, d)
     q[: b // 2] = m[rng.integers(0, n_dup, b // 2)]  # queries on duplicated rows
-    qt, mt, vt = (torch.from_numpy(x).to(dev) for x in (q, m, valid))
+    if misaligned:
+        qt, mt = (torch.from_numpy(np.concatenate([[0.0], x.ravel()]).astype(np.float32))
+                  .to(dev)[1:].view(x.shape) for x in (q, m))
+    else:
+        qt, mt = (torch.from_numpy(x).to(dev) for x in (q, m))
+    vt = torch.from_numpy(valid).to(dev)
     s_k, i_k = fused_cosine_topk(qt, mt, vt, k)
     s_p, i_p = cosine_topk(qt, mt, vt, k)
     torch.cuda.synchronize()
     s_k, i_k, s_p, i_p = (x.cpu().numpy() for x in (s_k, i_k, s_p, i_p))
-    if s_k.shape != (b, min(k, c)) or not np.isfinite(s_k).all():
+    if (s_k.shape != (b, min(k, c)) or i_k.dtype != np.int64
+            or not np.isfinite(s_k).all()):
         raise AssertionError(f"B1 bad output shape/values at C={c} D={d} B={b} k={k}")
     err = float(np.abs(s_k - s_p).max())
     if not topk_agree(i_k, s_k, i_p, s_p, TOPK_SCORE_ATOL):
         raise AssertionError(
             f"B1 disagrees with its plain version at C={c} D={d} B={b} k={k} "
-            f"(max score err {err:.3g})")
+            f"valid {valid_frac} misaligned {misaligned} (max score err {err:.3g})")
     return err
+
+
+def check_topk_deterministic(dev, rng, c, d, b, k):
+    """Two calls on the same inputs give bitwise-equal scores and ids."""
+    import torch
+
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+
+    m = torch.from_numpy(_normalized(rng, c, d)).to(dev)
+    m[c // 2: c // 2 + 512] = m[:512]  # exact ties across distant blocks
+    valid = torch.from_numpy(rng.random(c) < 0.9).to(dev)
+    q = m[torch.arange(b, device=dev) * 7].contiguous()
+    first = fused_cosine_topk(q, m, valid, k)
+    second = fused_cosine_topk(q, m, valid, k)
+    if not (torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])):
+        raise AssertionError(f"B1 is not deterministic at C={c} D={d} B={b} k={k}")
 
 
 def check_attention(dev, rng, b, s, h, dh, dtype, atol):
@@ -195,20 +258,33 @@ def phase_kernels(dev, seed):
     rng = np.random.default_rng(seed)
     errs = []
     for d, c in ((160, 100_003), (1024, 30_011)):
-        for b in (1, 7, 64, 256):
+        m = _normalized(rng, c, d)
+        m[c - 512:] = m[:512]  # exact duplicates -> exact score ties
+        for b in (1, 2, 3, 4, 5, 7, 64, 256):
             for k in (1, 10, 30, 128, 256):
-                errs.append(check_topk(dev, rng, c, d, b, k))
-    # fewer valid rows than k: the tail carries the masked score
-    errs.append(check_topk(dev, rng, 300, 160, 7, 256, valid_frac=0.3))
+                errs.append(check_topk(dev, rng, c, d, b, k, m=m))
+    for b in (1, 4, 7):
+        for k in (10, 256):
+            errs.append(check_topk(dev, rng, 5000, 33, b, k))  # D % 4 != 0: scalar path
+        errs.append(check_topk(dev, rng, 5000, 160, b, 30, misaligned=True))
+        errs.append(check_topk(dev, rng, 5, 160, b, 5))        # fewer rows than blocks
+        errs.append(check_topk(dev, rng, 5, 33, b, 3))
+        errs.append(check_topk(dev, rng, 3000, 160, b, 30, valid_frac=0.0))  # all masked
+        # fewer valid rows than k: the tail carries the masked score
+        errs.append(check_topk(dev, rng, 300, 160, b, 256, valid_frac=0.3))
+    for b in (1, 4, 64):
+        check_topk_deterministic(dev, rng, 131_072, 160, b, 30)
     REPORT["topk_max_abs_err"] = max(errs)
     log(f"B1 vs plain: {len(errs)} cases agree (tie-aware), max score err "
-        f"{max(errs):.3g} <= {TOPK_SCORE_ATOL}")
+        f"{max(errs):.3g} <= {TOPK_SCORE_ATOL}; two calls bitwise equal at B in (1, 4, 64)")
     errs = []
     for h, dh in ((4, 40), (16, 64)):
         for s in (100, 128, 512):
             errs.append(check_attention(dev, rng, 8, s, h, dh, torch.float32, ATTN_F32_ATOL))
-    REPORT["attention_max_abs_err"] = max(errs)
-    bf = check_attention(dev, rng, 8, 128, 16, 64, torch.bfloat16, ATTN_BF16_ATOL)
+    bf = max(check_attention(dev, rng, 8, 128, 16, 64, torch.bfloat16, ATTN_BF16_ATOL),
+             check_attention(dev, rng, 16, 64, 4, 40, torch.bfloat16, ATTN_BF16_ATOL))
+    # the main path runs B2 in bf16, so its error is the one reported
+    REPORT["attention_max_abs_err"] = max(max(errs), bf)
     log(f"B2 vs plain: f32 max abs {max(errs):.3g} <= {ATTN_F32_ATOL}; "
         f"bf16 max abs {bf:.3g} <= {ATTN_BF16_ATOL}")
 
@@ -288,16 +364,23 @@ def phase_main_path(dev, seed, n_docs):
         if hit["id"] != f"d{dup[docs[i]]}" and abs(hit["score"] - 1.0) > 1e-5:
             raise AssertionError(f"doc d{i} is not its own nearest neighbour: {hit}")
 
-    # embeddings on the card agree with the CPU port on a small input
+    # embeddings on the card agree with the CPU port on a small input: two
+    # explicit float32 embedders agree to float sums, and the DB's default
+    # bf16 embedder agrees with them to bf16 rounding
     from nornicdb_tpu_torch.models.checkpoint import load_default_embedder
 
-    cpu_emb = load_default_embedder("cpu")
     sample = docs[:8] + queries[:8]
-    a = np.asarray(db._embedder.inner.embed_batch(sample))
-    b = np.asarray(cpu_emb.embed_batch(sample))
-    cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
-    if cos.min() < 0.99999 or not np.isfinite(a).all() or a.shape != (16, 160):
-        raise AssertionError(f"card vs CPU embedding cosine {cos.min():.7f} < 0.99999")
+    f32 = [np.asarray(load_default_embedder(d, dtype=torch.float32).embed_batch(sample))
+           for d in (dev, "cpu")]
+    bf16 = np.asarray(db._embedder.inner.embed_batch(sample))
+    if db._embedder.inner.cfg.dtype != torch.bfloat16:
+        raise AssertionError("the default DB does not embed in bf16")
+    for a, b, cos_min, what in ((f32[0], f32[1], EMBED_F32_COS_MIN, "f32 card vs CPU"),
+                                (bf16, f32[1], EMBED_BF16_COS_MIN, "bf16 card vs f32 CPU")):
+        cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+        if cos.min() < cos_min or not np.isfinite(a).all() or a.shape != (16, 160):
+            raise AssertionError(f"{what} embedding cosine {cos.min():.7f} < {cos_min}")
+        log(f"  embeddings {what}: min cosine {cos.min():.7f} >= {cos_min}")
 
     # vector answers vs the plain path over the same device index
     vecs = svc.vectors
@@ -311,6 +394,27 @@ def phase_main_path(dev, seed, n_docs):
     if not topk_agree(i_k, s_k, i_p, s_p, TOPK_SCORE_ATOL):
         raise AssertionError("main-path vector answers disagree with the plain path")
 
+    # recall(limit=100) asks for k = 300 > MAX_K: the reference's XLA
+    # route, counted apart from B1's launches
+    before = (fused_cosine_topk.launches, fused_cosine_topk.wide_k_calls)
+    wide_q = queries[:4]
+    wide = [db.recall(q, limit=100, mode="vector") for q in wide_q]
+    grew = (fused_cosine_topk.launches - before[0], fused_cosine_topk.wide_k_calls - before[1])
+    if grew != (0, len(wide_q)):
+        raise AssertionError(f"limit-100 recalls took B1 or skipped the wide-k route: {grew}")
+    qw = l2_normalize(torch.tensor(np.asarray(db._embedder.embed_batch(wide_q)),
+                                   dtype=torch.float32, device=dev)).contiguous()
+    s_p, i_p = (x.cpu().numpy() for x in cosine_topk_auto(qw, m, valid, 300))
+    ext = vecs._ids_locked()
+    for row, hits in enumerate(wide):
+        if len(hits) != 100:
+            raise AssertionError(f"limit-100 recall returned {len(hits)} hits")
+        if not topk_agree([[h["id"] for h in hits]], [[h["score"] for h in hits]],
+                          [[ext[int(i)] for i in i_p[row, :100]]], [s_p[row, :100]],
+                          TOPK_SCORE_ATOL):
+            raise AssertionError("limit-100 recall disagrees with the plain path at k = 300")
+    log(f"  recall(limit=100): {len(wide_q)} wide-k calls, 0 B1 launches, answers agree")
+
     def pct(xs, p):
         return float(np.percentile(np.asarray(xs), p))
 
@@ -320,6 +424,7 @@ def phase_main_path(dev, seed, n_docs):
         "embed_docs_per_s_incl_store": n_docs / (store_s + flush_s),
         "capacity": vecs._capacity, "dims": vecs.dims,
         "launches": launches,
+        "wide_k_calls": grew[1],
         "queries_per_mode": len(queries),
         "texts_embedded": embedded,
         "launches_per_query": {
@@ -357,6 +462,7 @@ def time_topk(dev, m, valid, b, k, seed, card):
     q = torch.from_numpy(_normalized(rng, b, d)).to(dev)
     saved = fused_cosine_topk.launches
     kernel = time_ms(lambda: fused_cosine_topk(q, m, valid, k))
+    stages = device_split(lambda: fused_cosine_topk(q, m, valid, k))
     fused_cosine_topk.launches = saved  # comparison launches do not count
     plain = time_ms(lambda: cosine_topk_auto(q, m, valid, k), iters=5)
     neg = torch.tensor(-1e30, device=dev)
@@ -369,21 +475,23 @@ def time_topk(dev, m, valid, b, k, seed, card):
     n_bytes, flops = topk_cost(b, c, d, k)
     bnd, by = bound_ms(n_bytes, flops)
     row = {"C": c, "D": d, "B": b, "k": k, "kernel_ms": kernel, "plain_ms": plain,
-           "library_ms": lib, "bound_ms": bnd, "bound_by": by, "card": card}
+           "library_ms": lib, "bound_ms": bnd, "bound_by": by, "device_ms": stages,
+           "card": card}
     log(f"B1 C={c} D={d} B={b} k={k} [{card}]: kernel_ms {kernel:.4f} plain_ms "
-        f"{plain:.4f} library_ms {lib:.4f} bound_ms {bnd:.4f} ({by})")
+        f"{plain:.4f} library_ms {lib:.4f} bound_ms {bnd:.4f} ({by}); device ms per "
+        f"call by stage {json.dumps(stages)}")
     return row
 
 
-def time_attention(dev, b, s, h, dh, seed, card):
+def time_attention(dev, b, s, h, dh, dtype, seed, card):
     import torch
     import torch.nn.functional as F
 
     from nornicdb_tpu_torch.ops.attention import flash_attention, reference_attention
 
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, dh)).astype(np.float32)).to(dev)
-               for _ in range(3))
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, dh)).astype(np.float32))
+               .to(dev).to(dtype) for _ in range(3))
     lengths = rng.integers(s // 4, s + 1, b)
     mask = torch.from_numpy(np.arange(s)[None, :] < lengths[:, None]).to(dev)
     saved = flash_attention.launches
@@ -393,12 +501,14 @@ def time_attention(dev, b, s, h, dh, seed, card):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     am = mask[:, None, None, :]
     lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), iters=50)
-    n_bytes, flops = attn_cost(b, s, h, dh, 4)
-    bnd, by = bound_ms(n_bytes, flops)
-    row = {"B": b, "S": s, "H": h, "Dh": dh, "dtype": "float32", "kernel_ms": kernel,
+    n_bytes, flops = attn_cost(b, s, h, dh, q.element_size())
+    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                       else F32_FLOPS_PER_S)
+    name = str(dtype).replace("torch.", "")
+    row = {"B": b, "S": s, "H": h, "Dh": dh, "dtype": name, "kernel_ms": kernel,
            "plain_ms": plain, "library_ms": lib, "bound_ms": bnd, "bound_by": by,
            "card": card}
-    log(f"B2 B={b} S={s} H={h} Dh={dh} f32 [{card}]: kernel_ms {kernel:.4f} plain_ms "
+    log(f"B2 B={b} S={s} H={h} Dh={dh} {name} [{card}]: kernel_ms {kernel:.4f} plain_ms "
         f"{plain:.4f} library_ms {lib:.4f} bound_ms {bnd:.4f} ({by})")
     return row
 
@@ -425,7 +535,7 @@ def phase_index(dev, seed, n_rows, card):
     fill_s = time.perf_counter() - t0
     log(f"index: filled {len(idx)} x {d} (capacity {idx._capacity}) in {fill_s:.2f} s")
     rows = []
-    for b in (1, 64):
+    for b in (1, 4, 64):
         queries = rng.random((b, d), dtype=np.float32) - 0.5
         before = fused_cosine_topk.launches
         t = time.perf_counter()
@@ -482,8 +592,11 @@ def main() -> int:
     with vecs._lock:
         m, valid = vecs._device_arrays_locked()
     topk_row = time_topk(dev, m, valid, 1, 30, args.seed, card)
-    attn_row = time_attention(dev, 16, 64, 4, 40, args.seed, card)
-    REPORT["main_path_timings"] = {"cosine_topk": topk_row, "flash_attention": attn_row}
+    topk_b4 = time_topk(dev, m, valid, 4, 30, args.seed, card)
+    # the main path's encoder runs in bf16, so B2 is timed in bf16
+    attn_row = time_attention(dev, 16, 64, 4, 40, torch.bfloat16, args.seed, card)
+    REPORT["main_path_timings"] = {"cosine_topk": topk_row, "cosine_topk_b4": topk_b4,
+                                   "flash_attention": attn_row}
     del m, valid, vecs
     log(f"launches per query: cosine_topk {mp['launches_per_query']['cosine_topk']:.3f} "
         f"(per vector or hybrid search), flash_attention "

@@ -12,6 +12,7 @@ msgpack reader that blob needs.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import struct
 from typing import Any, Dict, Optional, Tuple
@@ -135,9 +136,9 @@ def _to_f32(tree):
 
 def load_checkpoint(path: str):
     """Returns (cfg, state_dict) with float32 params. The config is the
-    checkpoint's shape in float32, as ``EncoderConfig.mini()`` states."""
-    import torch
-
+    checkpoint's shape with the config's default dtype (bf16 activations,
+    float32 LayerNorm), as ``pretrain.load_checkpoint`` builds it; a
+    caller that needs float32 activations replaces ``cfg.dtype``."""
     from nornicdb_tpu_torch.models.encoder import EncoderConfig
     from nornicdb_tpu_torch.models.weights import params_from_jax
 
@@ -145,7 +146,6 @@ def load_checkpoint(path: str):
     cfg = EncoderConfig(
         vocab_size=meta[0], hidden_size=meta[1], num_layers=meta[2],
         num_heads=meta[3], mlp_dim=meta[4], max_len=meta[5],
-        dtype=torch.float32,
     )
     return cfg, params_from_jax(_to_f32(tree))
 
@@ -160,9 +160,10 @@ def default_checkpoint_path() -> Optional[str]:
     return path if os.path.exists(path) else None
 
 
-def load_default_embedder(device=None):
+def load_default_embedder(device=None, dtype=None):
     """The DB's default semantic embedder: the committed mini encoder
-    behind ``TorchEncoderEmbedder``; None when no checkpoint exists."""
+    behind ``TorchEncoderEmbedder``, in bf16 unless ``dtype`` says
+    otherwise; None when no checkpoint exists."""
     path = default_checkpoint_path()
     if path is None:
         return None
@@ -170,6 +171,8 @@ def load_default_embedder(device=None):
     from nornicdb_tpu_torch.models.encoder import Encoder
 
     cfg, state = load_checkpoint(path)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     model = Encoder(cfg)
     model.load_state_dict(state)
     return TorchEncoderEmbedder(model=model, cfg=cfg, device=device)

@@ -1,16 +1,24 @@
 """Fused exact cosine top-k: wrapper of ``csrc/cosine_topk.cu``.
 
 Counterpart of ``nornicdb_tpu/ops/pallas_topk.py:fused_cosine_topk``. On
-a CUDA tensor the wrapper launches the kernel or raises; its plain
-version (``ops/similarity.py:cosine_topk_auto``, a matmul + mask +
-stable top-k) runs only for tensors on the CPU. Unlike the TPU kernel it
-takes any B and any D, so there is no fallback on a shape miss.
+a CUDA tensor with 1 <= k <= ``MAX_K`` the wrapper launches the kernel or
+raises; its plain version (``ops/similarity.py:cosine_topk_auto``, a
+matmul + mask + stable top-k) runs only for tensors on the CPU. Unlike
+the TPU kernel it takes any B and any D, so there is no fallback on a
+shape miss.
+
+For k > ``MAX_K`` the wrapper takes the route the reference takes above
+its Pallas limit (``pallas_topk.py:fused_cosine_topk`` returns
+``cosine_topk_auto`` for k > 128): a plain matrix product plus a stable
+top-k, on any device. That route is the reference's XLA branch, not the
+kernel; it is chosen on k alone, before any launch, and counted in
+``fused_cosine_topk.wide_k_calls``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +27,7 @@ from nornicdb_tpu_torch.ops import _build
 from nornicdb_tpu_torch.ops.similarity import cosine_topk_auto
 
 MAX_K = 256
-_TILE_ROWS = 64  # rows per tile in the kernel's stage 1
+_GRIDS: Dict[tuple, int] = {}  # stage-1 blocks per call shape, read once
 
 
 def _lib() -> ctypes.CDLL:
@@ -27,10 +35,10 @@ def _lib() -> ctypes.CDLL:
     if lib.nornic_cosine_topk.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.nornic_cosine_topk.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.nornic_cosine_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.nornic_cosine_topk.restype = ctypes.c_int
-        lib.nornic_cosine_topk_group.argtypes = [i]
-        lib.nornic_cosine_topk_group.restype = ctypes.c_int
+        lib.nornic_cosine_topk_grid.argtypes = [p, p, i, i, i, i]
+        lib.nornic_cosine_topk_grid.restype = ctypes.c_int
     return lib
 
 
@@ -40,7 +48,8 @@ def fused_cosine_topk(
     """Exact cosine top-k over L2-normalized inputs: queries [B, D] f32,
     matrix [C, D] f32, valid [C] bool. Returns (scores [B, k'] f32,
     indices [B, k'] int64) with k' = min(k, C); masked rows score -1e30
-    and ties go to the lower row index. 1 <= k <= 256."""
+    and ties go to the lower row index. k > ``MAX_K`` takes the wide-k
+    route (module docstring)."""
     if queries.ndim != 2 or matrix.ndim != 2 or queries.shape[1] != matrix.shape[1]:
         raise ValueError(
             f"queries {tuple(queries.shape)} and matrix {tuple(matrix.shape)} "
@@ -49,14 +58,17 @@ def fused_cosine_topk(
     c = matrix.shape[0]
     if valid.shape != (c,):
         raise ValueError(f"valid must be [{c}], got {tuple(valid.shape)}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
     if c == 0:
         raise ValueError("matrix has no rows")
     k_eff = min(k, c)
     dev = queries.device
     if matrix.device != dev or valid.device != dev:
         raise ValueError("queries, matrix and valid must be on one device")
+    if k > MAX_K:
+        fused_cosine_topk.wide_k_calls += 1
+        return cosine_topk_auto(queries, matrix, valid.to(torch.bool), k_eff)
     if dev.type == "cpu":
         return cosine_topk_auto(queries, matrix, valid.to(torch.bool), k_eff)
     if dev.type != "cuda":
@@ -68,28 +80,36 @@ def fused_cosine_topk(
     if not (queries.is_contiguous() and matrix.is_contiguous()
             and valid.is_contiguous()):
         raise ValueError("queries, matrix and valid must be contiguous")
-    out_s = torch.empty((b, k_eff), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k_eff), dtype=torch.int32, device=dev)
     if b == 0:
-        return out_s, out_i.long()
+        return (torch.empty((0, k_eff), dtype=torch.float32, device=dev),
+                torch.empty((0, k_eff), dtype=torch.int64, device=dev))
     lib = _lib()
-    groups = -(-b // lib.nornic_cosine_topk_group(b))
-    n_tiles = -(-c // _TILE_ROWS)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    g = max(1, min(n_tiles, -(-2 * sms // groups)))
-    part_s = torch.empty((g, b, k_eff), dtype=torch.float32, device=dev)
-    part_i = torch.empty((g, b, k_eff), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (queries.data_ptr(), matrix.data_ptr())
+    # the grid depends on the shapes, the bases' 16-byte alignment and the card
+    grid_key = (dev.index, b, c, d, k_eff, (args[0] | args[1]) % 16 == 0)
+    g = _GRIDS.get(grid_key)
+    if g is None:
+        g = lib.nornic_cosine_topk_grid(*args, b, c, d, k_eff)
+        if g < 0:
+            _build.check(lib, -g, "cosine_topk grid")
+        _GRIDS[grid_key] = g
+    # one allocation, in int32 words: indices [B, k] int64, scores [B, k],
+    # then the scratch: partial scores and indices [G, B, k] each and one
+    # u32 key per query
+    n = b * k_eff
+    buf = torch.empty(3 * n + 2 * g * n + b, dtype=torch.int32, device=dev)
+    out_i = buf[:2 * n].view(torch.int64).view(b, k_eff)
+    out_s = buf[2 * n:3 * n].view(torch.float32).view(b, k_eff)
     err = lib.nornic_cosine_topk(
-        queries.data_ptr(), matrix.data_ptr(), valid.data_ptr(),
-        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        b, c, d, k_eff, g, stream)
+        *args, valid.data_ptr(), buf.data_ptr() + 12 * n, out_s.data_ptr(), out_i.data_ptr(),
+        b, c, d, k_eff, g, torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(lib, err, "cosine_topk kernel")
     fused_cosine_topk.launches += 1
-    return out_s, out_i.long()
+    return out_s, out_i
 
 
 fused_cosine_topk.launches = 0
+fused_cosine_topk.wide_k_calls = 0
 
 
 def topk_agree(

@@ -29,19 +29,48 @@ def dev():
     return resolve_device("cuda")
 
 
-@pytest.mark.parametrize("b,k", [(1, 10), (7, 256), (64, 30)])
-def test_cosine_topk_kernel_matches_plain(dev, b, k):
-    rng = np.random.default_rng(b + k)
-    m = rng.standard_normal((5000, 160)).astype(np.float32)
+def _topk_inputs(dev, seed, c, d, b):
+    rng = np.random.default_rng(seed)
+    m = rng.standard_normal((c, d)).astype(np.float32)
     m /= np.linalg.norm(m, axis=1, keepdims=True)
     m[4000:4100] = m[:100]
     q = m[rng.integers(0, 100, b)]
-    valid = rng.random(5000) < 0.9
-    qt, mt, vt = (torch.from_numpy(x).to(dev) for x in (q, m, valid))
+    valid = rng.random(c) < 0.9
+    return (torch.from_numpy(x).to(dev) for x in (q, m, valid))
+
+
+@pytest.mark.parametrize("b,k,d", [(1, 10, 160), (7, 256, 160), (64, 30, 160),
+                                   (2, 30, 160), (4, 128, 160), (1, 30, 33),
+                                   (4, 256, 33), (3, 10, 1024)])
+def test_cosine_topk_kernel_matches_plain(dev, b, k, d):
+    """B <= 4 takes the streaming scan (D = 33 its scalar variant), B >= 5
+    the tiled kernel."""
+    qt, mt, vt = _topk_inputs(dev, b + k + d, 5000, d, b)
     before = fused_cosine_topk.launches
     s_k, i_k = fused_cosine_topk(qt, mt, vt, k)
     assert fused_cosine_topk.launches == before + 1
+    assert i_k.dtype == torch.int64
     s_p, i_p = cosine_topk(qt, mt, vt, k)
+    assert topk_agree(i_k.cpu().numpy(), s_k.cpu().numpy(),
+                      i_p.cpu().numpy(), s_p.cpu().numpy(), SCORE_ATOL)
+
+
+@pytest.mark.parametrize("b", [1, 4, 64])
+def test_cosine_topk_kernel_is_deterministic(dev, b):
+    qt, mt, vt = _topk_inputs(dev, b, 50_000, 160, b)
+    first = fused_cosine_topk(qt, mt, vt, 30)
+    second = fused_cosine_topk(qt, mt, vt, 30)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_wide_k_takes_the_reference_route(dev):
+    qt, mt, vt = _topk_inputs(dev, 300, 5000, 160, 2)
+    before = (fused_cosine_topk.launches, fused_cosine_topk.wide_k_calls)
+    s_k, i_k = fused_cosine_topk(qt, mt, vt, 300)
+    assert (fused_cosine_topk.launches, fused_cosine_topk.wide_k_calls) == (
+        before[0], before[1] + 1)
+    s_p, i_p = cosine_topk(qt, mt, vt, 300)
+    assert s_k.shape == (2, 300)
     assert topk_agree(i_k.cpu().numpy(), s_k.cpu().numpy(),
                       i_p.cpu().numpy(), s_p.cpu().numpy(), SCORE_ATOL)
 

@@ -16,6 +16,8 @@ from nornicdb_tpu.models import pretrain as jpre
 from nornicdb_tpu.search.bm25 import BM25Index as JBM25
 from nornicdb_tpu.search.rrf import rrf_fuse as j_rrf
 from nornicdb_tpu.search.vector_index import BruteForceIndex as JIndex
+from nornicdb_tpu_torch.embed.embedder import CachedEmbedder as TCached
+from nornicdb_tpu_torch.models import checkpoint as tckpt
 from nornicdb_tpu_torch.ops.topk import topk_agree
 from nornicdb_tpu_torch.search.bm25 import BM25Index as TBM25
 from nornicdb_tpu_torch.search.rrf import rrf_fuse as t_rrf
@@ -158,13 +160,15 @@ def test_rrf_matches_jax():
 @pytest.fixture(scope="module")
 def two_dbs():
     """The same corpus in both packages, each with the mini checkpoint in
-    float32 (the port's default embedder)."""
+    float32 (both defaults run it in bf16), so vector scores agree to
+    float32 sums."""
     path = jpre.default_checkpoint_path()
     jcfg, jparams = jpre.load_checkpoint(path)
     jcfg = dataclasses.replace(jcfg, dtype=jnp.float32)
     jdb = nornicdb_tpu.open(engine="memory", embedder=CachedEmbedder(
         JaxEncoderEmbedder(model=jenc.Encoder(jcfg), params=jparams, cfg=jcfg)))
-    tdb = nornicdb_tpu_torch.open(device="cpu")
+    tdb = nornicdb_tpu_torch.open(device="cpu", embedder=TCached(
+        tckpt.load_default_embedder(device="cpu", dtype=torch.float32)))
     docs, queries = _corpus(7)
     for db in (jdb, tdb):
         for i, text in enumerate(docs):
