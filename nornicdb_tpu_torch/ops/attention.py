@@ -2,9 +2,10 @@
 
 Counterpart of ``nornicdb_tpu/ops/pallas_attention.py:flash_attention``,
 same ``[B, S, H, Dh]`` layout in and out. On a CUDA tensor the wrapper
-launches the kernel or raises; ``reference_attention`` (the
-materializing softmax) is its plain version and runs only for tensors on
-the CPU. Forward only, like the TPU kernel.
+launches the kernel or raises: bfloat16 inputs go to the tensor-core
+kernel, float32 inputs to the exact float32 one. ``reference_attention``
+(the materializing softmax) is its plain version and runs only for
+tensors on the CPU. Forward only, like the TPU kernel.
 """
 
 from __future__ import annotations
@@ -76,6 +77,8 @@ def flash_attention(
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and mask.is_contiguous()):
         raise ValueError("q, k, v and mask must be contiguous")
+    if q.dtype == torch.bfloat16:  # the bf16 kernel loads 16 bytes at a time
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.nornic_flash_attention(

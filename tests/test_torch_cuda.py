@@ -18,6 +18,10 @@ pytestmark = pytest.mark.cuda
 
 SCORE_ATOL = 1e-5  # float32 sums in another order than cuBLAS
 ATTN_ATOL = 2e-5   # float32 softmax sums in another order
+# bf16: both sides round to bf16 after f32 sums in another order, so an
+# output near a rounding midpoint may land one rounding step apart: 4e-3
+# below |out| = 1, one step (2^-7 of its power of two) above
+ATTN_BF16_ATOL = 4e-3
 
 
 @pytest.fixture
@@ -75,15 +79,46 @@ def test_wide_k_takes_the_reference_route(dev):
                       i_p.cpu().numpy(), s_p.cpu().numpy(), SCORE_ATOL)
 
 
-@pytest.mark.parametrize("s,h,dh", [(100, 4, 40), (130, 16, 64)])
-def test_flash_attention_kernel_matches_plain(dev, s, h, dh):
-    rng = np.random.default_rng(s)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, h, dh)).astype(np.float32))
-               .to(dev) for _ in range(3))
-    mask = torch.ones((2, s), dtype=torch.bool, device=dev)
-    mask[1, s // 2:] = False
+def _attn_inputs(dev, seed, s, h, dh, dtype):
+    """Three batch rows: all keys, a ragged half, and every key masked."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, s, h, dh)).astype(np.float32))
+               .to(dev).to(dtype) for _ in range(3))
+    mask = torch.ones((3, s), dtype=torch.bool, device=dev)
+    mask[1, (s + 1) // 2:] = False
+    mask[2] = False
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("dh", [16, 40, 64])
+@pytest.mark.parametrize("s", [1, 33, 64, 100, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, dtype, s, dh):
+    q, k, v, mask = _attn_inputs(dev, s + dh, s, 16 if dh == 64 else 4, dh, dtype)
     before = flash_attention.launches
     out = flash_attention(q, k, v, mask)
     assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
     ref = reference_attention(q, k, v, mask)
-    assert (out - ref).abs().max().item() <= ATTN_ATOL
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= ATTN_ATOL
+    else:
+        step = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=1e-30))) - 7)
+        assert (diff <= step.clamp(min=ATTN_BF16_ATOL)).all()
+
+
+def test_flash_attention_bf16_kernel_is_deterministic(dev):
+    q, k, v, mask = _attn_inputs(dev, 7, 64, 4, 40, torch.bfloat16)
+    assert torch.equal(flash_attention(q, k, v, mask), flash_attention(q, k, v, mask))
+
+
+def test_flash_attention_bf16_kernel_takes_a_misaligned_base(dev):
+    """A contiguous view whose base is not 16-byte aligned is staged into
+    an aligned copy for the kernel's 16-byte loads."""
+    q, k, v, mask = _attn_inputs(dev, 8, 33, 4, 40, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    qm = flat[1:].view(q.shape)
+    qm.copy_(q)
+    assert qm.data_ptr() % 16 != 0
+    assert torch.equal(flash_attention(qm, k, v, mask), flash_attention(q, k, v, mask))

@@ -201,6 +201,23 @@ def test_flash_attention_matches_jax(dh, s):
                                rtol=0, atol=ATTN_ATOL)
 
 
+@pytest.mark.parametrize("dh", [16, 40, 64])
+@pytest.mark.parametrize("s", [1, 40])
+def test_reference_attention_masked_rows_match_jax(s, dh):
+    """The plain version against the JAX package's plain version where a
+    batch row has every key masked (a uniform average over its S keys) and
+    at S = 1. The Pallas kernel is not the comparison here: it averages
+    over its block padding too (ROADMAP, divergences by design)."""
+    q, k, v, mask = _attn_case(s + dh, 3, s, 4, dh)
+    mask[1] = False
+    out = reference_attention(*_torch(q, k, v, mask)).numpy()
+    ref = np.asarray(j_reference(*_jax(q, k, v, mask)))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=ATTN_ATOL)
+    np.testing.assert_allclose(out[1], np.broadcast_to(v[1].mean(0), v[1].shape),
+                               rtol=0, atol=ATTN_ATOL)
+    np.testing.assert_array_equal(flash_attention(*_torch(q, k, v, mask)).numpy(), out)
+
+
 def test_flash_attention_without_mask_attends_to_all_keys():
     q, k, v, _ = _attn_case(8, 1, 64, 2, 32)
     full = np.ones((1, 64), bool)
