@@ -13,9 +13,10 @@
 //
 // What bounds it on the H100: it reads the matrix, C*D*4 bytes, and does
 // 2*B*C*D float32 FLOPs. Exact float32 rules out the tensor cores (TF32
-// keeps ~3 digits), so the compute roof is the 67 TFLOP/s of the float32
-// FMA units and the memory roof 3.35 TB/s: below B ~ 10 the kernel is
-// bound by bytes, at B = 64 by operations.
+// keeps ~3 digits, and split-TF32 sums are not exact), so the compute roof
+// is the 67 TFLOP/s of the float32 FMA units and the memory roof 3.35 TB/s:
+// the two times, 4*C*D / 3.35e12 and 2*B*C*D / 67e12, are equal at B = 40.
+// Below it the call is bound by bytes, above it by operations.
 //
 // What the design does about it:
 //  - B <= 4 (bytes): `scan_kernel`, a persistent grid of (resident blocks
@@ -29,27 +30,48 @@
 //    barrier only every 128 rows, to check whether a fold is due, so one
 //    warp's loads overlap another's arithmetic. D % 4 != 0, D > 1024 or a
 //    misaligned base take a scalar variant (one warp per row).
-//  - B >= 5 (operations): `tile_kernel`, 64-row tiles staged in shared
-//    memory in 128-column chunks, 32 queries per block, 8 per thread.
-//    Its register-tiled redesign is later work.
-//  - Selection: each query keeps a sorted best list of W >= k entries and
-//    a candidate buffer of W slots in shared memory. A score enters the
-//    buffer only if it is >= the query's shared threshold and strictly
-//    better than the block's own k-th best; a warp's passing lanes take
-//    their slots with one atomic. The shared threshold is one 32-bit key
-//    per query in device memory, the order-preserving map of the best
-//    k-th score any block has published: a block raises it with atomicMax
-//    after each fold and reads it back. Any block's k-th best is a lower
-//    bound on the global k-th best, so the filter drops no answer in any
-//    order of arrival; ties at the threshold are kept.
-//  - Folds: the B <= 4 kernels fold by ranking (`fold_rank`), whose cost
-//    grows with the candidates waiting, so they fold as soon as k have
-//    arrived and the block's threshold is real early; the B >= 5 kernels
-//    keep a block-wide bitonic sort (`fold`).
-//  - Merge: `merge_kernel` reads the G*k winners per query rank by rank
-//    across the blocks' sorted lists, drops every winner below the final
-//    shared threshold before buffering, stops once a whole rank after the
-//    last winner taken has been refused, and writes int64 indices.
+//  - B >= 5: `rtile_kernel`, one wave of blocks (one per SM), each
+//    holding up to QB queries (16, 32 or 64, the smallest that holds B)
+//    against one contiguous row range, so the matrix is read once per call
+//    up to B = 64 (for k up to 49; wider k takes a
+//    narrower QB, `tile_qb`). On the bytes side (B < 40) the query tile
+//    follows B, so the padded FMAs stay within QB / B of the needed ones,
+//    and each row arrives in 128-byte depth chunks (32 columns) by 16-byte
+//    cp.async into a two-stage ring while the chunk before is scored:
+//    64-byte chunks cost 1.4x the time at B = 8 (PERF.md). On the
+//    operations side each thread keeps a tile of TR rows by 8 queries
+//    (16 x 8 at QB = 64) in registers and feeds it with 16-byte shared
+//    loads, one per 32 FMAs at TR = 16. Every (query, row) sum runs over
+//    the depth in order, so the scores are the same from call to call.
+//    D % 4 != 0 or a misaligned base copy 4 bytes at a time; the tile
+//    reads are the same.
+//  - Selection: each query keeps a sorted best list and a buffer of
+//    candidates in shared memory. A score enters the buffer only if it is
+//    >= the query's shared threshold and strictly better than the block's
+//    own k-th best. Where a warp's lanes offer for one query (the scan,
+//    the merge) its passing lanes take their slots with one atomic; in the
+//    batched kernel each passing lane takes its own, which is rare once
+//    the threshold is real. The shared threshold is one 32-bit key per
+//    query in device memory, the order-preserving map of the best k-th
+//    score any block has published: a block raises it with atomicMax after
+//    each fold and reads it back. Any block's k-th best is a lower bound on
+//    the global k-th best, so the filter drops no answer in any order of
+//    arrival; ties at the threshold are kept.
+//  - Folds cost what the candidates cost, not what the list holds. The
+//    scan and the merge fold by ranking (`fold_rank`, five barriers) as
+//    soon as k candidates have arrived, so the block's threshold is real
+//    early. The batched kernel (`tile_fold`) keeps two best lists of k and
+//    merges the buffer into the other one in a single pass, each entry
+//    finding its place alone; it offers a tile's scores one row slot at a
+//    time (RT rows per query) into buffers of RT + kTileSlack slots, folds
+//    when a buffer could not take the next slot, and also reads the shared
+//    threshold at each tile. QB is chosen per call so that the selection
+//    state and the ring fit one block's 227 KB (`tile_qb`, `tile_smem`).
+//  - Merge: `merge_kernel`, four queries a block, reads the G*k winners
+//    per query rank by rank across the blocks' sorted lists, drops every
+//    winner below the final shared threshold before buffering, stops once
+//    a whole rank after the last winner taken has been refused, and writes
+//    int64 indices.
 //  - Host: function attributes, SM count and occupancy are read once per
 //    process and device; outputs and scratch are one allocation of the
 //    caller's.
@@ -65,8 +87,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileRows = 64;  // rows (or candidates) per tile
-constexpr int kChunk = 128;    // D-columns staged per step (tile kernel)
 constexpr int kMaxW = 256;     // widest best list / candidate buffer (k <= 256)
 constexpr int kScanV = 8;      // float4 per lane per row in the scan kernel
 constexpr float kMasked = -1e30f;
@@ -122,48 +142,6 @@ __device__ void init_sel(Sel sel, int qb, int w, const unsigned* keys, int q_bas
     sel.thr_s[q] = -CUDART_INF_F;
     sel.thr_i[q] = kNoIndex;
     sel.key[q] = q_base + q < B ? keys[q_base + q] : 0u;
-  }
-  __syncthreads();
-}
-
-// Block-wide: fold the candidates of queries [0, qb) into their best lists
-// by a bitonic sort of both halves on (score desc, index asc). w is a
-// power of two, so every index below is a shift or a mask.
-__device__ void fold(Sel sel, int qb, int w, int k) {
-  const int n = 2 * w;
-  const int lw = __ffs(w) - 1;
-  for (int p = threadIdx.x; p < qb * w; p += blockDim.x) {
-    const int q = p >> lw, j = p & (w - 1);
-    if (j >= sel.count[q]) {
-      sel.s[q * n + w + j] = -CUDART_INF_F;
-      sel.i[q * n + w + j] = kNoIndex;
-    }
-  }
-  __syncthreads();
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = threadIdx.x; p < qb * w; p += blockDim.x) {
-        const int q = p >> lw, j = p & (w - 1);
-        const int a = ((j & ~(stride - 1)) << 1) | (j & (stride - 1));
-        const int b = a + stride;
-        float* rs = sel.s + q * n;
-        int* ri = sel.i + q * n;
-        const float sa = rs[a], sb = rs[b];
-        const int ia = ri[a], ib = ri[b];
-        const bool best_first = (a & size) == 0;
-        const bool swap = best_first ? better(sb, ib, sa, ia) : better(sa, ia, sb, ib);
-        if (swap) {
-          rs[a] = sb; rs[b] = sa;
-          ri[a] = ib; ri[b] = ia;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int q = threadIdx.x; q < qb; q += blockDim.x) {
-    sel.count[q] = 0;
-    sel.thr_s[q] = sel.s[q * n + k - 1];
-    sel.thr_i[q] = sel.i[q * n + k - 1];
   }
   __syncthreads();
 }
@@ -263,16 +241,10 @@ __device__ void fold_rank(Sel sel, int qb, int w, int k) {
   __syncthreads();
 }
 
-template <bool RANK>
-__device__ __forceinline__ void fold_any(Sel sel, int qb, int w, int k) {
-  if constexpr (RANK) fold_rank(sel, qb, w, k); else fold(sel, qb, w, k);
-}
-
 // Block-wide: fold, then publish each query's k-th best score to the
 // shared threshold and read the threshold back.
-template <bool RANK>
 __device__ void fold_and_share(Sel sel, int qb, int w, int k, unsigned* keys, int q_base) {
-  fold_any<RANK>(sel, qb, w, k);
+  fold_rank(sel, qb, w, k);
   for (int q = threadIdx.x; q < qb; q += blockDim.x) {
     const unsigned mine = key_of(sel.thr_s[q]);
     sel.key[q] = max(atomicMax(&keys[q_base + q], mine), mine);
@@ -424,7 +396,7 @@ scan_kernel(const float* __restrict__ queries, const float* __restrict__ matrix,
       sb[qq] = group_sum<L>(sb[qq]);
     }
     // the fold comes after the dots, when the rows' registers are free
-    if (full) fold_and_share<true>(sel, NQ, w, k, keys, 0);
+    if (full) fold_and_share(sel, NQ, w, k, keys, 0);
 #pragma unroll
     for (int qq = 0; qq < NQ; ++qq) {
       if (lane == qq) {  // lane qq of the group offers query qq
@@ -434,72 +406,330 @@ scan_kernel(const float* __restrict__ queries, const float* __restrict__ matrix,
     }
   }
   __syncthreads();
-  fold_and_share<true>(sel, NQ, w, k, keys, 0);
+  fold_and_share(sel, NQ, w, k, keys, 0);
   write_part(sel, NQ, w, k, part_s, part_i, NQ, 0);
 }
 
-// Stage 1 for B >= 5: 64-row tiles staged in shared memory, QB = 4 * QPT
-// queries per block (grid.y groups), each thread scoring one tile row
-// against QPT queries.
-template <int QPT>
-__global__ void __launch_bounds__(kThreads)
-tile_kernel(const float* __restrict__ queries, const float* __restrict__ matrix,
-            const unsigned char* __restrict__ valid, float* __restrict__ part_s,
-            int* __restrict__ part_i, unsigned* __restrict__ keys,
-            int B, int C, int D, int k, int w) {
-  constexpr int QB = 4 * QPT;
+// 16 or 4 bytes global -> shared; with full == false nothing is read and
+// the bytes are zeroed.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The batched kernel's register tile: each thread scores TR rows against
+// kTq queries. Depth chunks are kBk columns: each staged row is one
+// 128-byte line of the matrix, read whole from memory, and laid out in
+// shared memory with its eight 16-byte segments XOR-swizzled by the row's
+// low three bits, so eight consecutive rows read at one depth hit eight
+// different bank groups without padding.
+constexpr int kTq = 8;
+constexpr int kBk = 32;
+// Candidate slots per query beyond the RT a round may fill: a fold is due
+// once a query holds more than this many.
+constexpr int kTileSlack = 32;
+// Rows whose depth step is loaded together before it is summed: fewer
+// live registers than the whole tile, so the next group's loads can be in
+// flight during this group's FMAs.
+constexpr int kTileGroup = 8;
+__device__ __forceinline__ int swz(int row, int seg) { return ((seg ^ (row & 7)) << 2); }
+
+// The batched kernel's selection state, per query: two best lists of k
+// entries (the current one and the one the next fold writes) and a buffer
+// of nc candidates; then the fold-due flags by round parity.
+struct TileSel {
+  float* bs[2];     // [qb][k] each
+  int* bi[2];       // [qb][k] each
+  float* cs;        // [qb][nc]
+  int* ci;          // [qb][nc]
+  int* count;       // [qb] candidates buffered
+  float* thr_s;     // [qb] current k-th best score
+  int* thr_i;       // [qb] current k-th best index
+  unsigned* key;    // [qb] shared threshold as last read
+  int* full;        // [4]: [0], [1] a fold is due after a round of that parity
+};
+
+__host__ __device__ size_t tile_sel_bytes(int qb, int k, int nc) {
+  return (size_t)qb * (2 * k + nc) * (sizeof(float) + sizeof(int)) +
+         (size_t)qb * (3 * sizeof(int) + sizeof(float)) + 4 * sizeof(int);
+}
+
+__device__ TileSel carve_tile(unsigned char* smem, int qb, int k, int nc) {
+  TileSel sel;
+  sel.bs[0] = reinterpret_cast<float*>(smem);
+  sel.bs[1] = sel.bs[0] + qb * k;
+  sel.bi[0] = reinterpret_cast<int*>(sel.bs[1] + qb * k);
+  sel.bi[1] = sel.bi[0] + qb * k;
+  sel.cs = reinterpret_cast<float*>(sel.bi[1] + qb * k);
+  sel.ci = reinterpret_cast<int*>(sel.cs + qb * nc);
+  sel.count = sel.ci + qb * nc;
+  sel.thr_s = reinterpret_cast<float*>(sel.count + qb);
+  sel.thr_i = sel.count + 2 * qb;
+  sel.key = reinterpret_cast<unsigned*>(sel.count + 3 * qb);
+  sel.full = sel.count + 4 * qb;
+  return sel;
+}
+
+// Block-wide: merge the candidates of queries [0, qb) into best list
+// `cur`, writing the k best to list cur ^ 1, then publish each query's new
+// k-th best to the shared threshold. Every entry finds its place alone:
+// a candidate after the best entries better than it (binary search) and
+// the candidates better than it; a best entry j after j best entries and
+// the candidates better than it. All (score, index) pairs differ (a row is
+// offered once per query and block; the empty entries, all alike, lie
+// below every candidate and keep their order), so the places are a
+// permutation and the fold costs what the candidates cost: one barrier,
+// and work in count * (count + k) per query. The atomicMax that publishes
+// the new k-th best returns the best any block has published, which the
+// block takes as its threshold from then on: after a few folds across the
+// grid, a block admits little beyond its final candidates.
+__device__ __noinline__ void tile_fold(TileSel sel, int qb, int k, int nc, int cur,
+                                       unsigned* keys, int q_base) {
+  const float* obs = sel.bs[cur];
+  const int* obi = sel.bi[cur];
+  float* nbs = sel.bs[cur ^ 1];
+  int* nbi = sel.bi[cur ^ 1];
+  const int per = nc + k;
+  for (int p = threadIdx.x; p < qb * per; p += blockDim.x) {
+    const int q = p / per, j = p % per, cnt = sel.count[q];
+    const float* cs = sel.cs + q * nc;
+    const int* ci = sel.ci + q * nc;
+    float s;
+    int i, pos;
+    if (j < nc) {
+      if (j >= cnt) continue;
+      s = cs[j];
+      i = ci[j];
+      int lo = 0, hi = k;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (better(obs[q * k + mid], obi[q * k + mid], s, i)) lo = mid + 1; else hi = mid;
+      }
+      pos = lo;
+    } else {
+      pos = j - nc;
+      s = obs[q * k + pos];
+      i = obi[q * k + pos];
+    }
+    // candidates better than (s, i), four at a time by 16-byte loads (nc
+    // and the buffers' offsets are multiples of 4), stopping once past k
+    int j2 = 0;
+    for (; j2 + 4 <= cnt && pos < k; j2 += 4) {
+      const float4 s4 = *reinterpret_cast<const float4*>(cs + j2);
+      const int4 i4 = *reinterpret_cast<const int4*>(ci + j2);
+      pos += better(s4.x, i4.x, s, i) + better(s4.y, i4.y, s, i) + better(s4.z, i4.z, s, i) +
+             better(s4.w, i4.w, s, i);
+    }
+    for (; j2 < cnt && pos < k; ++j2) pos += better(cs[j2], ci[j2], s, i);
+    if (pos < k) {
+      nbs[q * k + pos] = s;
+      nbi[q * k + pos] = i;
+    }
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < qb; q += blockDim.x) {
+    sel.count[q] = 0;
+    sel.thr_s[q] = nbs[q * k + k - 1];
+    sel.thr_i[q] = nbi[q * k + k - 1];
+    const unsigned mine = key_of(sel.thr_s[q]);
+    sel.key[q] = max(max(atomicMax(&keys[q_base + q], mine), mine), sel.key[q]);
+  }
+  __syncthreads();
+}
+
+// Stage 1 for B >= 5. A block takes QB queries (grid.y groups) and one
+// contiguous row range (grid.x ranges), walked in tiles of BM rows. Each
+// depth chunk of BK columns of the tile's rows and of the block's queries
+// arrives by cp.async in a ring of STAGES buffers, [row][BK] floats
+// (swizzled), while the chunk before it is scored: thread (rt, qt) keeps
+// rows rt + RT*i (i < TR) against queries qt + NQT*j (j < kTq) in
+// registers, and reads four depth columns of each with one 16-byte shared
+// load: TR + 8 loads per 32 * TR FMAs. Every (query, row) sum runs over
+// the depth in order. When a tile's last chunk is scored, its scores are
+// offered row slot by row slot (RT rows per query each) into buffers of
+// RT + kTileSlack slots, with a fold whenever a buffer could not take the
+// next slot. VEC copies 16 bytes at a time (D % 4 == 0, 16-byte aligned
+// bases); otherwise 4.
+template <int QB, int TR, int STAGES, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+rtile_kernel(const float* __restrict__ queries, const float* __restrict__ matrix,
+             const unsigned char* __restrict__ valid, float* __restrict__ part_s,
+             int* __restrict__ part_i, unsigned* __restrict__ keys,
+             int B, int C, int D, int k) {
+  constexpr int NQT = QB / kTq;       // threads along the queries
+  constexpr int RT = kThreads / NQT;  // threads along the rows
+  constexpr int NC = RT + kTileSlack;  // candidate slots per query
+  static_assert(NC % 4 == 0, "tile_fold reads the candidates by fours");
+  constexpr int BM = TR * RT;         // rows per tile
+  constexpr int BK = kBk;
+  constexpr int STAGE = (BM + QB) * BK;
+  static_assert(RT % 8 == 0 && BK == 32, "the swizzle needs 8 segments and rows by eights");
   extern __shared__ __align__(16) unsigned char smem[];
-  const Sel sel = carve(smem, QB, w);
-  float* q_s = reinterpret_cast<float*>(smem + sel_bytes(QB, w));  // [QB][kChunk]
-  float* m_s = q_s + QB * kChunk;                                  // [64][kChunk+1]
+  const TileSel sel = carve_tile(smem, QB, k, NC);
+  float* ring = reinterpret_cast<float*>(smem + tile_sel_bytes(QB, k, NC));
+  unsigned char* vbuf = reinterpret_cast<unsigned char*>(ring + STAGES * STAGE);  // [BM]
 
   const int t = threadIdx.x;
-  const int r = t % kTileRows;   // tile row this thread scores
-  const int qg = t / kTileRows;  // its group of QPT queries
+  const int qt = t % NQT, rt = t / NQT;
   const int q_base = blockIdx.y * QB;
   const int nq = min(QB, B - q_base);
-  init_sel(sel, QB, w, keys, q_base, B);
-
-  const int n_tiles = (C + kTileRows - 1) / kTileRows;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    if (need_fold(sel, nq, w - kTileRows)) fold_and_share<false>(sel, nq, w, k, keys, q_base);
-    float acc[QPT];
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) acc[j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      for (int e = t; e < QB * kChunk; e += kThreads) {
-        const int qq = e / kChunk, c = e % kChunk;
-        const int gq = q_base + qq, gc = c0 + c;
-        q_s[e] = (gq < B && gc < D) ? queries[(size_t)gq * D + gc] : 0.f;
-      }
-      for (int e = t; e < kTileRows * kChunk; e += kThreads) {
-        const int rr = e / kChunk, c = e % kChunk;
-        const int grow = tile * kTileRows + rr, gc = c0 + c;
-        m_s[rr * (kChunk + 1) + c] = (grow < C && gc < D) ? matrix[(size_t)grow * D + gc] : 0.f;
-      }
-      __syncthreads();
-      const int cn = min(kChunk, D - c0);
-      for (int c = 0; c < cn; ++c) {
-        const float mv = m_s[r * (kChunk + 1) + c];
-#pragma unroll
-        for (int j = 0; j < QPT; ++j)
-          acc[j] = fmaf(q_s[(qg * QPT + j) * kChunk + c], mv, acc[j]);
-      }
-      __syncthreads();
-    }
-    const int item = tile * kTileRows + r;
-    if (item < C) {
-      const bool ok = valid[item] != 0;
-#pragma unroll
-      for (int j = 0; j < QPT; ++j) {
-        const int ql = qg * QPT + j;
-        if (ql < nq) offer(sel, w, ql, ok ? acc[j] : kMasked, item);
-      }
-    }
-    __syncthreads();
+  const int per_block = (C + gridDim.x - 1) / gridDim.x;
+  const int r0 = min(C, blockIdx.x * per_block);
+  const int r1 = min(C, r0 + per_block);
+  const int kc = (D + BK - 1) / BK;
+  const int n_chunks = (r1 - r0 + BM - 1) / BM * kc;
+  for (int p = t; p < 2 * QB * k; p += kThreads) {  // both lists, one run of memory
+    sel.bs[0][p] = -CUDART_INF_F;
+    sel.bi[0][p] = kNoIndex;
   }
-  fold_and_share<false>(sel, nq, w, k, keys, q_base);
-  write_part(sel, nq, w, k, part_s, part_i, B, q_base);
+  if (t < QB) {
+    sel.count[t] = 0;
+    sel.thr_s[t] = -CUDART_INF_F;
+    sel.thr_i[t] = kNoIndex;
+    sel.key[t] = t < nq ? keys[q_base + t] : 0u;
+  }
+  if (t < 2) sel.full[t] = 0;
+  __syncthreads();
+
+  // chunk c: depth columns (c % kc) * BK.. of tile c / kc, and of the
+  // queries, into buffer c % STAGES; past the last chunk an empty group
+  auto load = [&](int c) {
+    if (c < n_chunks) {
+      float* dst = ring + (c % STAGES) * STAGE;
+      const int tr0 = r0 + c / kc * BM, c0 = c % kc * BK;
+      constexpr int PER = VEC ? 4 : 1;  // floats per copy
+      for (int e = t; e < (BM + QB) * (BK / PER); e += kThreads) {
+        const int row = e / (BK / PER), col = e % (BK / PER) * PER;
+        const bool is_row = row < BM;
+        const int g = is_row ? tr0 + row : q_base + row - BM;
+        const bool ok = (is_row ? g < r1 : g < B) && c0 + col < D;
+        const float* src = ok ? (is_row ? matrix : queries) + (size_t)g * D + c0 + col : matrix;
+        float* at = dst + row * BK + swz(row, col >> 2) + (col & 3);
+        if constexpr (VEC) cp_async16(at, src, ok);
+        else cp_async4(at, src, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[TR][kTq];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int j = 0; j < kTq; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load(s);
+  int round = 0, cur = 0;
+  unsigned shared_key = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int tr0 = r0 + c / kc * BM;
+    // at a tile's first chunk: its rows' validity to shared memory, and
+    // the shared threshold, taken in before its offers, so the load's
+    // latency hides behind the tile
+    if (c % kc == 0)
+      for (int r = t; r < BM; r += kThreads) vbuf[r] = tr0 + r < r1 ? valid[tr0 + r] : 0;
+    if (t < nq) {
+      if (c % kc == 0) shared_key = __ldcg(keys + q_base + t);
+      if (c % kc == kc - 1) sel.key[t] = max(sel.key[t], shared_key);
+    }
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c has landed; every thread is done with c - 1
+    load(c + STAGES - 1);
+    const float* st = ring + (c % STAGES) * STAGE;
+    constexpr int H = TR < kTileGroup ? TR : kTileGroup;  // rows per group of loads
+    // the chunk's eight 4-column steps are not unrolled, so the loop body
+    // stays in the instruction cache
+#pragma unroll 1
+    for (int kk = 0; kk < BK / 4; ++kk) {
+      float4 b[kTq];
+#pragma unroll
+      for (int j = 0; j < kTq; ++j) {
+        const int row = BM + qt + NQT * j;
+        b[j] = *reinterpret_cast<const float4*>(st + row * BK + swz(row, kk));
+      }
+#pragma unroll
+      for (int h = 0; h < TR; h += H) {
+        if (tr0 + RT * h >= r1) break;  // the rest of the tile lies past the block's rows
+        float4 a[H];
+#pragma unroll
+        for (int i = 0; i < H; ++i)  // RT % 8 == 0: every row of this thread swizzles alike
+          a[i] = *reinterpret_cast<const float4*>(st + (rt + RT * (h + i)) * BK + swz(rt, kk));
+        // one depth column at a time over the whole tile: each FMA's
+        // neighbours are independent, and every sum still runs in depth order
+#pragma unroll
+        for (int i = 0; i < H; ++i)
+#pragma unroll
+          for (int j = 0; j < kTq; ++j) acc[h + i][j] = fmaf(b[j].x, a[i].x, acc[h + i][j]);
+#pragma unroll
+        for (int i = 0; i < H; ++i)
+#pragma unroll
+          for (int j = 0; j < kTq; ++j) acc[h + i][j] = fmaf(b[j].y, a[i].y, acc[h + i][j]);
+#pragma unroll
+        for (int i = 0; i < H; ++i)
+#pragma unroll
+          for (int j = 0; j < kTq; ++j) acc[h + i][j] = fmaf(b[j].z, a[i].z, acc[h + i][j]);
+#pragma unroll
+        for (int i = 0; i < H; ++i)
+#pragma unroll
+          for (int j = 0; j < kTq; ++j) acc[h + i][j] = fmaf(b[j].w, a[i].w, acc[h + i][j]);
+      }
+    }
+    if (c % kc != kc - 1) continue;
+    // the tile is scored: offer row slot i of every thread (RT rows per
+    // query), then fold if a query's buffer could not take another slot
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int row = tr0 + rt + RT * i;
+      if (row < r1) {
+        const bool ok = vbuf[rt + RT * i] != 0;
+#pragma unroll
+        for (int j = 0; j < kTq; ++j) {
+          const int q = qt + NQT * j;
+          const float s = ok ? acc[i][j] : kMasked;
+          if (q < nq && key_of(s) >= sel.key[q] && better(s, row, sel.thr_s[q], sel.thr_i[q])) {
+            const int slot = atomicAdd(&sel.count[q], 1);
+            sel.cs[q * NC + slot] = s;
+            sel.ci[q * NC + slot] = row;
+            if (slot >= NC - RT) sel.full[round & 1] = 1;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kTq; ++j) acc[i][j] = 0.f;
+      // one barrier a round: round r sets full[r & 1], which no thread
+      // reads again before every thread has passed round r + 1's barrier
+      __syncthreads();
+      if (sel.full[round & 1]) {
+        tile_fold(sel, nq, k, NC, cur, keys, q_base);
+        cur ^= 1;
+        if (t == 0) sel.full[round & 1] = 0;
+      }
+      ++round;
+    }
+  }
+  tile_fold(sel, nq, k, NC, cur, keys, q_base);
+  cur ^= 1;
+  for (int p = t; p < nq * k; p += kThreads) {
+    const int ql = p / k, j = p % k;
+    const size_t off = ((size_t)blockIdx.x * B + q_base + ql) * k + j;
+    part_s[off] = sel.bs[cur][ql * k + j];
+    part_i[off] = sel.bi[cur][ql * k + j];
+  }
 }
 
 // Stage 2: the n_parts * k winners per query of stage 1, [n_parts][B][k],
@@ -516,8 +746,8 @@ merge_kernel(const float* __restrict__ in_s, const int* __restrict__ in_i,
              unsigned* __restrict__ keys, float* __restrict__ out_s,
              long long* __restrict__ out_i, int B, int n_parts, int k) {
   constexpr int QB = kThreads / STEP * QPT;
-  constexpr bool RANK = QB * W <= kRankP * kThreads;
-  const int limit = RANK ? min(W - STEP, max(k, STEP)) : W - STEP;
+  static_assert(QB * W <= kRankP * kThreads, "the merge folds by ranking");
+  const int limit = min(W - STEP, max(k, STEP));
   extern __shared__ __align__(16) unsigned char smem[];
   const Sel sel = carve(smem, QB, W);
   int* last = reinterpret_cast<int*>(smem + sel_bytes(QB, W));  // [QB] last item taken
@@ -550,7 +780,7 @@ merge_kernel(const float* __restrict__ in_s, const int* __restrict__ in_i,
     }
     __syncthreads();
     if (done) break;
-    if (full) fold_any<RANK>(sel, nq, W, k);
+    if (full) fold_rank(sel, nq, W, k);
 #pragma unroll
     for (int j = 0; j < QPT; ++j) {
       const int ql = qg * QPT + j;
@@ -561,7 +791,7 @@ merge_kernel(const float* __restrict__ in_s, const int* __restrict__ in_i,
     }
     __syncthreads();
   }
-  fold_any<RANK>(sel, nq, W, k);
+  fold_rank(sel, nq, W, k);
   for (int p = t; p < nq * k; p += kThreads) {
     const int ql = p / k, j = p % k;
     const size_t off = (size_t)(q_base + ql) * k + j;
@@ -572,15 +802,62 @@ merge_kernel(const float* __restrict__ in_s, const int* __restrict__ in_i,
 
 // -- host side ---------------------------------------------------------------
 
-// merge_kernel's shapes: B <= 4 in one block, 128 winners per query per
-// step; B >= 5 in blocks of 32 queries, 64 winners per query per step.
-constexpr int kSmallStep = 128, kSmallQpt = 2, kSmallW = kMaxW, kSmallQ = 4;
-constexpr int kWideStep = 64, kWideQpt = 8, kWideW = kMaxW, kWideQ = 32;
+// merge_kernel's shape: blocks of 4 queries, 128 winners per query per
+// step, folds by ranking; B <= 4 in one block.
+constexpr int kMergeStep = 128, kMergeQpt = 2, kMergeQ = 4;
 
 size_t merge_smem(int qb, int w) { return sel_bytes(qb, w) + qb * sizeof(int); }
 
-size_t tile_smem(int w) {
-  return sel_bytes(32, w) + ((size_t)32 * kChunk + (size_t)kTileRows * (kChunk + 1)) * sizeof(float);
+// The batched kernel's shape by query width QB: rows per thread (TR), so
+// that a block covers TR * tile_rt(QB) = 512 rows at every QB, and two ring
+// stages. QB = 16 must fit k = 256 (`tile_qb`).
+constexpr int kTileStages = 2;
+constexpr int tile_tr(int qb) { return qb / 4; }
+// rows a round offers per query (threads along the rows)
+constexpr int tile_rt(int qb) { return kThreads * kTq / qb; }
+
+// A block's shared memory: 227 KB on the H100. The batched kernel asks for
+// all of it, one block per SM, whatever the call needs.
+constexpr size_t kSmemMax = 232448;
+
+using TileFn = void (*)(const float*, const float*, const unsigned char*, float*, int*,
+                        unsigned*, int, int, int, int);
+
+template <int QB>
+TileFn tile_for(bool vec) {
+  if (vec) return rtile_kernel<QB, tile_tr(QB), kTileStages, true>;
+  return rtile_kernel<QB, tile_tr(QB), kTileStages, false>;
+}
+
+size_t tile_smem(int qb, int k) {
+  const int bm = tile_tr(qb) * tile_rt(qb);
+  const size_t ring = (size_t)kTileStages * (bm + qb) * kBk * sizeof(float);
+  return tile_sel_bytes(qb, k, tile_rt(qb) + kTileSlack) + ring + bm;
+}
+
+// Queries per block: the smallest of 16, 32 and 64 that holds B, so the
+// matrix is read once up to B = 64, and up to B = 32 the padded FMAs (QB / B
+// times the needed ones) stay under the byte time. The selection state
+// grows with QB * k, so a wide k that would not fit takes a narrower QB and
+// the matrix is read once per QB queries (k > 49 above B = 32 takes
+// QB = 32, k > 131 takes 16).
+int tile_qb(int B, int k) {
+  int qb = B <= 16 ? 16 : B <= 32 ? 32 : 64;
+  while (qb > 16 && tile_smem(qb, k) > kSmemMax) qb /= 2;
+  return qb;
+}
+
+TileFn pick_tile(int qb, bool vec) {
+  switch (qb) {
+    case 16: return tile_for<16>(vec);
+    case 32: return tile_for<32>(vec);
+    default: return tile_for<64>(vec);
+  }
+}
+
+bool aligned16(const void* q, const void* m, int D) {
+  return D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(m) % 16 == 0;
 }
 
 // Per process and device: each kernel's largest shared memory allowed
@@ -630,9 +907,7 @@ using ScanFn = void (*)(const float*, const float*, const unsigned char*, float*
 // The scan's lanes per row: 8 up to D = 256, 32 up to D = 1024, and 0 for
 // the scalar variant (D % 4 != 0, D > 1024 or a base not 16-byte aligned).
 int scan_lanes(const void* q, const void* m, int D) {
-  const bool vec = D % 4 == 0 && D <= 4 * 32 * kScanV &&
-                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(m) % 16 == 0;
+  const bool vec = aligned16(q, m, D) && D <= 4 * 32 * kScanV;
   return !vec ? 0 : D <= 4 * 8 * kScanV ? 8 : 32;
 }
 
@@ -666,9 +941,15 @@ int grid_for(const void* q, const void* m, int B, int C, int D, int k) {
     const int steps = (C + rows_per_step - 1) / rows_per_step;
     return max(1, min(steps, max(1, occ) * sms));
   }
-  const int groups = (B + 31) / 32;
-  const int n_tiles = (C + kTileRows - 1) / kTileRows;
-  return max(1, min(n_tiles, (2 * sms + groups - 1) / groups));
+  // one wave of row ranges per query group, at least 64 rows each
+  const int qb = tile_qb(B, k);
+  int occ = 0;
+  e = prepare(reinterpret_cast<const void*>(pick_tile(qb, aligned16(q, m, D))), kSmemMax,
+              &occ);
+  if (e != cudaSuccess) return -(int)e;
+  const int groups = (B + qb - 1) / qb;
+  const int wave = (max(1, occ) * sms + groups - 1) / groups;
+  return max(1, min(wave, (C + 63) / 64));
 }
 
 }  // namespace
@@ -707,28 +988,22 @@ int nornic_cosine_topk(const void* queries, const void* matrix, const void* vali
   if (B <= 4) {
     const ScanFn scan = pick_scan(B, scan_lanes(queries, matrix, D));
     scan<<<G, kThreads, sel_bytes(B, kMaxW), st>>>(q, m, v, ps, pi, keys, C, D, k);
-    e = cudaGetLastError();
+  } else {
+    const int qb = tile_qb(B, k);
+    const size_t sm = tile_smem(qb, k);
+    if (sm > kSmemMax) return cudaErrorInvalidConfiguration;
+    const TileFn tile = pick_tile(qb, aligned16(queries, matrix, D));
+    e = prepare(reinterpret_cast<const void*>(tile), kSmemMax, &occ);
     if (e != cudaSuccess) return e;
-    auto merge = merge_kernel<kSmallStep, kSmallQpt, kSmallW>;
-    const size_t sm = merge_smem(kSmallQ, kSmallW);
-    e = prepare(reinterpret_cast<const void*>(merge), sm, &occ);
-    if (e != cudaSuccess) return e;
-    merge<<<1, kThreads, sm, st>>>(ps, pi, keys, os, oi, B, G, k);
-    return cudaGetLastError();
+    tile<<<dim3(G, (B + qb - 1) / qb), kThreads, sm, st>>>(q, m, v, ps, pi, keys, B, C, D, k);
   }
-  int w = 64;
-  while (w < k) w <<= 1;
-  auto tile = tile_kernel<8>;
-  e = prepare(reinterpret_cast<const void*>(tile), tile_smem(kMaxW), &occ);
-  if (e != cudaSuccess) return e;
-  tile<<<dim3(G, (B + 31) / 32), kThreads, tile_smem(w), st>>>(q, m, v, ps, pi, keys, B, C, D, k, w);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto merge = merge_kernel<kWideStep, kWideQpt, kWideW>;
-  const size_t sm = merge_smem(kWideQ, kWideW);
+  auto merge = merge_kernel<kMergeStep, kMergeQpt, kMaxW>;
+  const size_t sm = merge_smem(kMergeQ, kMaxW);
   e = prepare(reinterpret_cast<const void*>(merge), sm, &occ);
   if (e != cudaSuccess) return e;
-  merge<<<(B + kWideQ - 1) / kWideQ, kThreads, sm, st>>>(ps, pi, keys, os, oi, B, G, k);
+  merge<<<(B + kMergeQ - 1) / kMergeQ, kThreads, sm, st>>>(ps, pi, keys, os, oi, B, G, k);
   return cudaGetLastError();
 }
 

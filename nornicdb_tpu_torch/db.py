@@ -96,8 +96,18 @@ class DB:
         self.storage.create_node(node)
         if embedding is not None and self._search is not None:
             # explicit embeddings bypass the embed queue, so an already
-            # built search service indexes them here
-            self._search.index_node(self.storage.get_node(nid))
+            # built search service indexes them here. Best-effort, as in
+            # the reference: the node is stored and BM25-indexed before
+            # the vector add, and an embedding of another width than the
+            # index's was never indexable, so it stays recallable by text.
+            # Only that dims mismatch is caught; a kernel fault on the
+            # card still raises on the query path.
+            from nornicdb_tpu_torch.search.vector_index import DimsMismatch
+
+            try:
+                self._search.index_node(self.storage.get_node(nid))
+            except DimsMismatch:
+                pass
         return self.storage.get_node(nid)
 
     def recall(self, query: str, limit: int = 10, **kw) -> List[Dict[str, Any]]:

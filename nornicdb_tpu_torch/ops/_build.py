@@ -104,11 +104,16 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(library_path(name))
-            lib.nornic_error_string.argtypes = [ctypes.c_int]
-            lib.nornic_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            lib = _libs[name] = load(library_path(name))
         return lib
+
+
+def load(path: str) -> ctypes.CDLL:
+    """Load a built kernel library with its error-string entry point bound."""
+    lib = ctypes.CDLL(path)
+    lib.nornic_error_string.argtypes = [ctypes.c_int]
+    lib.nornic_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -31,7 +31,11 @@ _GRIDS: Dict[tuple, int] = {}  # stage-1 blocks per call shape, read once
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.library("cosine_topk")
+    return bind(_build.library("cosine_topk"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a loaded ``cosine_topk`` library."""
     if lib.nornic_cosine_topk.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
@@ -83,33 +87,46 @@ def fused_cosine_topk(
     if b == 0:
         return (torch.empty((0, k_eff), dtype=torch.float32, device=dev),
                 torch.empty((0, k_eff), dtype=torch.int64, device=dev))
-    lib = _lib()
-    args = (queries.data_ptr(), matrix.data_ptr())
-    # the grid depends on the shapes, the bases' 16-byte alignment and the card
-    grid_key = (dev.index, b, c, d, k_eff, (args[0] | args[1]) % 16 == 0)
-    g = _GRIDS.get(grid_key)
-    if g is None:
-        g = lib.nornic_cosine_topk_grid(*args, b, c, d, k_eff)
-        if g < 0:
-            _build.check(lib, -g, "cosine_topk grid")
-        _GRIDS[grid_key] = g
-    # one allocation, in int32 words: indices [B, k] int64, scores [B, k],
-    # then the scratch: partial scores and indices [G, B, k] each and one
-    # u32 key per query
-    n = b * k_eff
-    buf = torch.empty(3 * n + 2 * g * n + b, dtype=torch.int32, device=dev)
-    out_i = buf[:2 * n].view(torch.int64).view(b, k_eff)
-    out_s = buf[2 * n:3 * n].view(torch.float32).view(b, k_eff)
-    err = lib.nornic_cosine_topk(
-        *args, valid.data_ptr(), buf.data_ptr() + 12 * n, out_s.data_ptr(), out_i.data_ptr(),
-        b, c, d, k_eff, g, torch._C._cuda_getCurrentRawStream(dev.index))
-    _build.check(lib, err, "cosine_topk kernel")
+    out = launch(_lib(), _GRIDS, queries, matrix, valid, k_eff)
     fused_cosine_topk.launches += 1
-    return out_s, out_i
+    return out
 
 
 fused_cosine_topk.launches = 0
 fused_cosine_topk.wide_k_calls = 0
+
+
+def launch(
+    lib: ctypes.CDLL, grids: Dict[tuple, int], queries: torch.Tensor,
+    matrix: torch.Tensor, valid: torch.Tensor, k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of ``lib``'s kernel on checked CUDA inputs with B >= 1 and
+    1 <= k <= min(C, ``MAX_K``); ``grids`` caches the stage-1 grid of
+    this library by call shape. Counts nothing."""
+    b, d = queries.shape
+    c = matrix.shape[0]
+    dev = queries.device
+    args = (queries.data_ptr(), matrix.data_ptr())
+    # the grid depends on the shapes, the bases' 16-byte alignment and the card
+    grid_key = (dev.index, b, c, d, k, (args[0] | args[1]) % 16 == 0)
+    g = grids.get(grid_key)
+    if g is None:
+        g = lib.nornic_cosine_topk_grid(*args, b, c, d, k)
+        if g < 0:
+            _build.check(lib, -g, "cosine_topk grid")
+        grids[grid_key] = g
+    # one allocation, in int32 words: indices [B, k] int64, scores [B, k],
+    # then the scratch: partial scores and indices [G, B, k] each and one
+    # u32 key per query
+    n = b * k
+    buf = torch.empty(3 * n + 2 * g * n + b, dtype=torch.int32, device=dev)
+    out_i = buf[:2 * n].view(torch.int64).view(b, k)
+    out_s = buf[2 * n:3 * n].view(torch.float32).view(b, k)
+    err = lib.nornic_cosine_topk(
+        *args, valid.data_ptr(), buf.data_ptr() + 12 * n, out_s.data_ptr(), out_i.data_ptr(),
+        b, c, d, k, g, torch._C._cuda_getCurrentRawStream(dev.index))
+    _build.check(lib, err, "cosine_topk kernel")
+    return out_s, out_i
 
 
 def topk_agree(

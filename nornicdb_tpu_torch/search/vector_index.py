@@ -22,6 +22,10 @@ from nornicdb_tpu_torch.ops.similarity import l2_normalize, pad_dim
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
 
 
+class DimsMismatch(ValueError):
+    """A vector's width differs from the index's."""
+
+
 class BruteForceIndex:
     """Exact cosine kNN over (id -> vector). Thread-safe."""
 
@@ -62,7 +66,7 @@ class BruteForceIndex:
         if self.dims is None:
             self.dims = dims
         if dims != self.dims:
-            raise ValueError(f"dims mismatch: index={self.dims}, vector={dims}")
+            raise DimsMismatch(f"dims mismatch: index={self.dims}, vector={dims}")
         if needed <= self._capacity:
             return
         new_cap = pad_dim(needed)
@@ -94,7 +98,7 @@ class BruteForceIndex:
             self._slot_of[ext_id] = slot
             self._n_alive += 1
         elif v.shape[0] != self.dims:
-            raise ValueError(f"dims mismatch: index={self.dims}, vector={v.shape[0]}")
+            raise DimsMismatch(f"dims mismatch: index={self.dims}, vector={v.shape[0]}")
         self._matrix[slot] = self._normalize(v)
         self._dirty = True
         self.mutations += 1

@@ -33,33 +33,60 @@ def dev():
     return resolve_device("cuda")
 
 
-def _topk_inputs(dev, seed, c, d, b):
+def _topk_inputs(dev, seed, c, d, b, valid_frac=0.9, misaligned=False):
+    """Unit rows with exact duplicates (score ties across distant rows) and
+    queries on duplicated rows; ``misaligned`` puts both bases 4 bytes off
+    a 16-byte boundary."""
     rng = np.random.default_rng(seed)
     m = rng.standard_normal((c, d)).astype(np.float32)
     m /= np.linalg.norm(m, axis=1, keepdims=True)
-    m[4000:4100] = m[:100]
-    q = m[rng.integers(0, 100, b)]
-    valid = rng.random(c) < 0.9
+    n_dup = min(100, c // 4)
+    m[c - n_dup:] = m[:n_dup]
+    q = m[rng.integers(0, max(n_dup, 1), b)]
+    valid = rng.random(c) < valid_frac
+    if misaligned:
+        q, m = (torch.from_numpy(np.concatenate([[0.0], x.ravel()]).astype(np.float32))
+                .to(dev)[1:].view(x.shape) for x in (q, m))
+        assert q.data_ptr() % 16 != 0 and m.data_ptr() % 16 != 0
+        return q, m, torch.from_numpy(valid).to(dev)
     return (torch.from_numpy(x).to(dev) for x in (q, m, valid))
 
 
-@pytest.mark.parametrize("b,k,d", [(1, 10, 160), (7, 256, 160), (64, 30, 160),
-                                   (2, 30, 160), (4, 128, 160), (1, 30, 33),
-                                   (4, 256, 33), (3, 10, 1024)])
-def test_cosine_topk_kernel_matches_plain(dev, b, k, d):
-    """B <= 4 takes the streaming scan (D = 33 its scalar variant), B >= 5
-    the tiled kernel."""
-    qt, mt, vt = _topk_inputs(dev, b + k + d, 5000, d, b)
+# (B, k, D, C, share of valid rows, misaligned bases). B <= 4 takes the
+# streaming scan (D = 33 its scalar variant); B >= 5 the register-tiled
+# kernel, whose query tile is 16, 32 or 64 wide (narrower for a wide k),
+# and whose D % 4 != 0 or misaligned bases copy 4 bytes at a time.
+_TOPK_CASES = (
+    [(1, 10, 160, 5000, 0.9, False), (2, 30, 160, 5000, 0.9, False),
+     (64, 30, 160, 5000, 0.9, False),
+     (4, 128, 160, 5000, 0.9, False), (1, 30, 33, 5000, 0.9, False),
+     (4, 256, 33, 5000, 0.9, False), (3, 10, 1024, 5000, 0.9, False),
+     (7, 256, 160, 5000, 0.9, False)]
+    + [(b, k, 160, 5000, 0.9, False) for b in (5, 8, 16, 33, 65, 200, 256)
+       for k in (1, 30, 64, 65, 256)]
+    + [(b, k, d, 5000, 0.9, False) for d in (33, 1024) for b in (5, 33, 64)
+       for k in (30, 256)]
+    + [(64, 30, 160, 5000, 0.9, True), (64, 256, 33, 5000, 0.9, True),
+       (8, 5, 160, 5, 0.9, False),       # C smaller than the query tile
+       (64, 10, 160, 40, 0.9, False),
+       (16, 30, 160, 3000, 0.0, False),  # every row masked
+       (64, 256, 160, 300, 0.3, False)]  # fewer valid rows than k
+)
+
+
+@pytest.mark.parametrize("b,k,d,c,valid_frac,misaligned", _TOPK_CASES)
+def test_cosine_topk_kernel_matches_plain(dev, b, k, d, c, valid_frac, misaligned):
+    qt, mt, vt = _topk_inputs(dev, b + k + d + c, c, d, b, valid_frac, misaligned)
     before = fused_cosine_topk.launches
     s_k, i_k = fused_cosine_topk(qt, mt, vt, k)
     assert fused_cosine_topk.launches == before + 1
-    assert i_k.dtype == torch.int64
+    assert i_k.dtype == torch.int64 and s_k.shape == (b, min(k, c))
     s_p, i_p = cosine_topk(qt, mt, vt, k)
     assert topk_agree(i_k.cpu().numpy(), s_k.cpu().numpy(),
                       i_p.cpu().numpy(), s_p.cpu().numpy(), SCORE_ATOL)
 
 
-@pytest.mark.parametrize("b", [1, 4, 64])
+@pytest.mark.parametrize("b", [1, 4, 8, 64, 256])
 def test_cosine_topk_kernel_is_deterministic(dev, b):
     qt, mt, vt = _topk_inputs(dev, b, 50_000, 160, b)
     first = fused_cosine_topk(qt, mt, vt, 30)

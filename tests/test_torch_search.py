@@ -219,3 +219,23 @@ def test_db_store_remove_and_explicit_embeddings():
             db.recall("alpha", mode="bogus")
     finally:
         db.close()
+
+
+def test_db_store_of_a_mismatched_embedding_matches_jax():
+    """An explicit embedding of another width than the built index is
+    indexed best-effort, as the reference does: the node is stored and
+    returned, stays recallable by text, and the vector index is unchanged."""
+    tdb = nornicdb_tpu_torch.open(device="cpu", auto_embed=False)
+    jdb = nornicdb_tpu.open(auto_embed=False)
+    try:
+        for db in (tdb, jdb):
+            db.store("alpha", node_id="a", embedding=[1.0, 0.0, 0.0, 0.0])
+            db.recall("alpha", mode="text")  # builds the search service
+            node = db.store("beta", node_id="b", embedding=[1.0, 0.0, 0.0])
+            assert node.id == "b" and node.embedding == [1.0, 0.0, 0.0]
+        assert ([h["id"] for h in tdb.recall("beta", mode="text")]
+                == [h["id"] for h in jdb.recall("beta", mode="text")] == ["b"])
+        assert len(tdb.search.vectors) == len(jdb.search.vectors) == 1
+    finally:
+        tdb.close()
+        jdb.close()
