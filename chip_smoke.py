@@ -16,10 +16,11 @@ Phases, in order; any failure exits non-zero:
    {1, 10, 30, 128, 256}; at B in {1, 4, 7, 64}: D = 33 and a misaligned
    base (the scalar or 4-byte copy variants), C = 5, an all-masked index
    and fewer valid rows than k; two calls bitwise equal at B in {1, 4, 8,
-   64, 256}), and flash attention (B2) against the materializing softmax:
-   f32 at S in {100, 128, 512}; bf16 at S in {1, 16, 33, 64, 100, 128,
-   512} x (H, Dh) in {(4, 16), (4, 40), (16, 64)} with one row fully
-   masked, and two bf16 calls bitwise equal at the ingest shape.
+   64, 256}), and flash attention (B2) against the materializing softmax,
+   in f32 and in bf16: S in {1, 16, 33, 64, 100, 128, 512} x (H, Dh) in
+   {(4, 16), (4, 40), (16, 64)} with one row fully masked, two calls
+   bitwise equal at the ingest shape (and in f32 at 8, 512, 16, 64), and
+   an f32 query whose base is not 16-byte aligned.
 4. Main path through the public entry points: ``open(device="cuda")`` with
    the committed mini encoder (bf16, the default), ``store`` of seeded
    documents, ``flush`` (the embed queue must have failed no node, and the
@@ -168,18 +169,14 @@ def attn_cost(b: int, s: int, h: int, dh: int, elem: int):
 MAIN_TIMED_B = (1, 4, 8, 64)
 INDEX_TIMED = ((1, 10), (4, 10), (8, 10), (64, 10), (256, 10), (64, 128))
 
-# B2's timed shapes (B, S, H, Dh) and types: ingest through the mini
-# encoder, one query embedded on the search path, the mini encoder at its
-# max_len (the long-document bucket), bge-m3-like heads (the most work
-# per launch, where operations come closest to bytes), and the ingest
-# shape in float32 for bf16 against f32 in one call.
-ATTN_TIMED = (
-    ((16, 64, 4, 40), "bfloat16"),
-    ((1, 16, 4, 40), "bfloat16"),
-    ((16, 512, 4, 40), "bfloat16"),
-    ((8, 512, 16, 64), "bfloat16"),
-    ((16, 64, 4, 40), "float32"),
-)
+# B2's timed shapes (B, S, H, Dh), each in both types: ingest through the
+# mini encoder, one query embedded on the search path, the mini encoder at
+# its max_len (the long-document bucket), and bge-m3-like heads (the most
+# work per launch). bf16 is the main path's type; f32 serves exact
+# embeddings, and is bound by its FMAs from S = 80.
+ATTN_SHAPES = ((16, 64, 4, 40), (1, 16, 4, 40), (16, 512, 4, 40), (8, 512, 16, 64))
+ATTN_TIMED = tuple((shape, dtype) for dtype in ("bfloat16", "float32")
+                   for shape in ATTN_SHAPES)
 
 
 # -- phase 1 ---------------------------------------------------------------
@@ -214,9 +211,8 @@ def phase_build():
     REPORT["build_s"] = total
     log(f"build: {total:.2f} s (nvcc {compile_s:.2f} s, both sources in parallel)")
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or ("spill" in line and ", 0 bytes spill stores" not in line):
-                log(f"  ptxas[{name}]: {line.strip()}")
+        for line in _build.ptxas_lines(_build.build_log(name)):
+            log(f"  ptxas[{name}]: {line}")
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -293,17 +289,23 @@ def attn_allowed(ref, dtype, atol):
 
 
 def check_attention(dev, rng, b, s, h, dh, dtype, atol, fully_masked=False,
-                    twice=False):
+                    twice=False, misaligned=False):
     """One B2 case with ragged key lengths (the first row full). With
     ``fully_masked`` the last row masks every key, so the plain version
     gives the uniform average over its S keys; with ``twice`` two calls
-    must be bitwise equal. Returns the max abs error."""
+    must be bitwise equal; with ``misaligned`` q's base lies one element
+    off a 16-byte boundary. Returns the max abs error."""
     import torch
 
     from nornicdb_tpu_torch.ops.attention import flash_attention, reference_attention
 
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, dh)).astype(np.float32))
                .to(dev).to(dtype) for _ in range(3))
+    if misaligned:
+        flat = torch.empty(q.numel() + 1, dtype=dtype, device=dev)
+        q = flat[1:].view(q.shape).copy_(q)
+        if q.data_ptr() % 16 == 0:
+            raise AssertionError("the misaligned query base is aligned")
     lengths = rng.integers(1, s + 1, b)
     lengths[0] = s
     if fully_masked:
@@ -359,22 +361,28 @@ def phase_kernels(dev, seed):
     REPORT["topk_max_abs_err"] = max(errs)
     log(f"B1 vs plain: {len(errs)} cases agree (tie-aware), max score err "
         f"{max(errs):.3g} <= {TOPK_SCORE_ATOL}; two calls bitwise equal at B in {repeat_b}")
-    errs = []
-    for h, dh in ((4, 40), (16, 64)):
-        for s in (100, 128, 512):
-            errs.append(check_attention(dev, rng, 8, s, h, dh, torch.float32, ATTN_F32_ATOL))
-    bf = [check_attention(dev, rng, 16, 64, 4, 40, torch.bfloat16, ATTN_BF16_ATOL,
-                          twice=True)]  # the ingest shape
-    for h, dh in ((4, 16), (4, 40), (16, 64)):
-        for s in (1, 16, 33, 64, 100, 128, 512):
-            bf.append(check_attention(dev, rng, 8, s, h, dh, torch.bfloat16,
-                                      ATTN_BF16_ATOL, fully_masked=True))
-    REPORT["attention_max_abs_err"] = max(max(errs), max(bf))
+    errs = {}
+    for dtype, atol in ((torch.float32, ATTN_F32_ATOL), (torch.bfloat16, ATTN_BF16_ATOL)):
+        e = errs[dtype] = [check_attention(dev, rng, 16, 64, 4, 40, dtype, atol,
+                                           twice=True)]  # the ingest shape
+        for h, dh in ((4, 16), (4, 40), (16, 64)):
+            for s in (1, 16, 33, 64, 100, 128, 512):
+                e.append(check_attention(dev, rng, 8, s, h, dh, dtype, atol,
+                                         fully_masked=True))
+    f32 = errs[torch.float32]
+    f32.append(check_attention(dev, rng, 8, 512, 16, 64, torch.float32, ATTN_F32_ATOL,
+                               fully_masked=True, twice=True))
+    f32.append(check_attention(dev, rng, 8, 33, 4, 40, torch.float32, ATTN_F32_ATOL,
+                               fully_masked=True, misaligned=True))
+    bf = errs[torch.bfloat16]
+    REPORT["attention_max_abs_err"] = max(max(f32), max(bf))
+    REPORT["attention_f32_max_abs_err"] = max(f32)
     REPORT["attention_bf16_max_abs_err"] = max(bf)
-    log(f"B2 vs plain: f32 max abs {max(errs):.3g} <= {ATTN_F32_ATOL}; bf16 "
-        f"{len(bf)} cases (one row fully masked in each but the first) max abs "
-        f"{max(bf):.3g} (allowed: {ATTN_BF16_ATOL} or one bf16 rounding step of the value); "
-        f"two bf16 calls bitwise equal at the ingest shape")
+    log(f"B2 vs plain: f32 {len(f32)} cases max abs {max(f32):.3g} <= {ATTN_F32_ATOL}; bf16 "
+        f"{len(bf)} cases max abs {max(bf):.3g} (allowed: {ATTN_BF16_ATOL} or one bf16 "
+        f"rounding step of the value); one row fully masked in each case but the first; "
+        f"two calls bitwise equal at the ingest shape in both types and at "
+        f"B=8 S=512 H=16 Dh=64 in f32; an f32 query base off 16-byte alignment")
 
 
 # -- phase 4 ---------------------------------------------------------------

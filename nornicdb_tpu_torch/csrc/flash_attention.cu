@@ -39,11 +39,41 @@
 //   even in a fully masked row, whose real keys score -1e30 and get p = 1.
 //   No atomics, so two calls are bitwise equal.
 //
-// float32 (exact embeddings; off the main path): a SIMT kernel, exact
-//   f32 with no TF32. One block of 64 threads per (64-query tile,
-//   batch*head); one thread owns one query row and keeps its q row and
-//   accumulator in registers; kv tiles of 64 keys are staged in shared
-//   memory as float32. Bound by the 67 TFLOP/s f32 FMA rate from S = 80.
+// float32 (exact embeddings: `EncoderConfig.mini()` and the f32 embedder).
+//   Exact f32 on the FMA units only: no TF32, no split products on the
+//   tensor cores. Bound on the H100: 2*B*H*S^2*Dh FMAs at 67 TFLOP/s
+//   against 4*B*S*H*Dh*4 bytes at 3.35 TB/s; the roofs cross at S = 80,
+//   so the short buckets (S <= 64) are bound by bytes, and in practice by
+//   the launch and the latency of one load, the long ones by the FMAs.
+//   Design: a block holds QR = 64, 32 or 16 query rows of one (b, h); QR
+//   is the widest that still leaves at least 128 blocks (about one per
+//   SM), so the ingest shape (B*H = 64, S = 64) spreads over the card. Each
+//   thread owns a 4 x 4 register tile of scores and reads Q and K from
+//   shared memory as 16-byte vectors along the depth: 8 loads feed 64
+//   FMAs, against one load per FMA in a thread-per-row kernel. Rows are
+//   padded by 16 bytes, an odd number of 16-byte chunks, so the 16-byte
+//   reads of consecutive rows fall on distinct banks. Each score is one
+//   fmaf chain over the depth in order. The 16 (or 8) lanes that share a
+//   row combine its max and sum by xor shuffles; p = 2^((s - max) * c)
+//   with one MUFU.EX2 (relative error ~2^-22, as expf's), s unscaled, as
+//   in the bf16 kernel. A warp owns the same rows in both products, so p
+//   goes through shared memory, transposed ([key][row]), with only a warp
+//   barrier: P.V reads several rows' p in one load beside one of V, each
+//   thread owning an output tile of 1 x 4 to 4 x 8 and summing the tile's
+//   keys in order. K and V tiles arrive by 16-byte cp.async, zero-filled
+//   past S, two stages: the next tile is requested before this one is
+//   summed. A thread's copy chunk is fixed and its rows step by a
+//   constant: no division per element. 64-row blocks (long sequences)
+//   stage 32 keys a tile, narrower ones 64, so that four 64-row blocks fit
+//   an SM at Dh 40 and the long-document bucket runs in one wave. The next
+//   tile's mask bytes are loaded into a register before the sums and
+//   stored after them. One block barrier per tile; no atomics, so two
+//   calls are bitwise equal.
+//   Device ms per call (chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+//   700.00 W; B, S, H, Dh): 16, 64, 4, 40 0.0046 (the earlier
+//   thread-per-row kernel 0.0236, SDPA 0.0138); 1, 16, 4, 40 0.0041;
+//   16, 512, 4, 40 0.0852 (47% of the FMA roof); 8, 512, 16, 64 0.2515
+//   (51%).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,86 +85,9 @@
 
 namespace {
 
-constexpr int kKeys = 64;  // keys per staged kv tile, both kernels
+constexpr int kKeys = 64;  // keys per staged kv tile of the bf16 kernel
 constexpr float kNegInf = -1e30f;
-
-// -- float32: one thread per query row -----------------------------------
-
-constexpr int kBQ = 64;  // query rows per block (one per thread)
-
-size_t f32_smem_bytes(int dh) {
-  return (size_t)(2 * kKeys * dh + kBQ * (kKeys + 1) + kKeys) * sizeof(float);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kBQ)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                 float* __restrict__ out, int S, int H, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  float* k_s = sm;                       // [kKeys][DH]
-  float* v_s = k_s + kKeys * DH;         // [kKeys][DH]
-  float* p_s = v_s + kKeys * DH;         // [kBQ][kKeys + 1] this row's logits
-  float* mk_s = p_s + kBQ * (kKeys + 1);  // [kKeys] 1 = attend
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int row = blockIdx.x * kBQ + tid;
-  const bool live = row < S;
-  const size_t q_off = (((size_t)b * S + (live ? row : 0)) * H + h) * DH;
-
-  float qr[DH], acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    qr[d] = live ? q[q_off + d] : 0.f;
-    acc[d] = 0.f;
-  }
-  float m_run = kNegInf, l_run = 0.f;
-  float* my_p = p_s + tid * (kKeys + 1);
-
-  for (int kv0 = 0; kv0 < S; kv0 += kKeys) {
-    const int nk = min(kKeys, S - kv0);
-    for (int e = tid; e < nk * DH; e += kBQ) {
-      const int j = e / DH, d = e % DH;
-      const size_t off = (((size_t)b * S + kv0 + j) * H + h) * DH + d;
-      k_s[j * DH + d] = k[off];
-      v_s[j * DH + d] = v[off];
-    }
-    for (int j = tid; j < nk; j += kBQ) mk_s[j] = mask[(size_t)b * S + kv0 + j] ? 1.f : 0.f;
-    __syncthreads();
-
-    float tile_max = kNegInf;
-    for (int j = 0; j < nk; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) s = fmaf(qr[d], k_s[j * DH + d], s);
-      s = mk_s[j] != 0.f ? s * scale : kNegInf;
-      my_p[j] = s;
-      tile_max = fmaxf(tile_max, s);
-    }
-    const float m_new = fmaxf(m_run, tile_max);
-    const float alpha = expf(m_run - m_new);
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-    float lsum = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float p = expf(my_p[j] - m_new);
-      lsum += p;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, v_s[j * DH + d], acc[d]);
-    }
-    l_run = l_run * alpha + lsum;
-    m_run = m_new;
-    __syncthreads();
-  }
-  if (live) {
-    const float denom = fmaxf(l_run, 1e-30f);
-#pragma unroll
-    for (int d = 0; d < DH; ++d) out[q_off + d] = acc[d] / denom;
-  }
-}
-
-// -- bfloat16: warp tiles on the tensor cores ------------------------------
+constexpr int kMinBlocks = 128;  // about one block per SM of the H100's 132
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -154,6 +107,265 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// 2^x in one MUFU.EX2 (relative error ~2^-22); 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -- float32: register tiles on the FMA units ------------------------------
+
+constexpr int kPad = 4;  // floats of padding after each staged row
+
+// Keys per staged kv tile of a block of QR query rows: 32 in 64-row
+// blocks, so that four blocks fit an SM's shared memory at Dh 40 and the
+// long-document bucket's 512 blocks run in one wave; 64 in narrower ones.
+// Each thread owns a 4 x 4 tile of scores.
+__host__ __device__ constexpr int f32_tile_keys(int qr) { return qr == 64 ? 32 : 64; }
+__host__ __device__ constexpr int f32_threads(int qr) { return qr * f32_tile_keys(qr) / 16; }
+
+constexpr size_t f32_smem_bytes(int dh, int qr) {
+  return (size_t)(qr * (dh + kPad)                          // Q
+                  + 4 * f32_tile_keys(qr) * (dh + kPad)     // K and V, two stages each
+                  + f32_tile_keys(qr) * (qr + kPad)         // p, [key][row]
+                  + 2 * qr) * sizeof(float)                 // rescale and denominator
+         + 2 * f32_tile_keys(qr);                           // mask bytes, two stages
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// N consecutive floats from shared memory (aligned to 4 * N bytes) in one load.
+template <int N>
+__device__ __forceinline__ void rows_of(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 y = ld4(p);
+    x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
+  } else if constexpr (N == 2) {
+    const float2 y = *reinterpret_cast<const float2*>(p);
+    x[0] = y.x, x[1] = y.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// At most 128 registers a thread: four 128-thread blocks an SM.
+template <int DH, int QR>
+__global__ void __launch_bounds__(f32_threads(QR), 512 / f32_threads(QR))
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                 float* __restrict__ out, int S, int H, float scale) {
+  constexpr int kThreads = f32_threads(QR);
+  constexpr int kTile = f32_tile_keys(QR);  // keys per staged kv tile
+  constexpr int kLanes = kTile / 4;         // lanes that share a row: 8 or 16; a
+                                            // thread's keys are kg + kLanes * j
+  constexpr int kRowStep = 32 / kLanes;          // rows r0 + kRowStep * i of a thread
+  constexpr int kWarpRows = 4 * kRowStep;        // rows of a warp: 16 or 8
+  constexpr int kStride = DH + kPad;   // floats per staged Q, K or V row: an odd
+                                       // number of 16-byte chunks
+  constexpr int kPStride = QR + kPad;  // floats per key of p
+  constexpr int kChunks = DH / 4;      // 16-byte chunks per head row
+  // P.V: each thread owns an output tile of kPvRows rows by the columns
+  // 4c + 32u..+3 (u < kQuads), at Dh 40 plus column 32 + c: 1 x 4, 2 x 5
+  // or 4 x 4 in narrow blocks, 2 x 4, 4 x 5 or 4 x 8 in 64-row ones.
+  constexpr int kQuads = DH == 64 && kWarpRows == 16 ? 2 : 1;
+  constexpr int kTail = DH == 40 ? 1 : 0;
+  constexpr int kCols = DH == 16 ? 4 : DH == 40 ? 8 : 16 / kQuads;  // column groups c
+  constexpr int kPvRows = kWarpRows * kCols / 32;
+  constexpr int kOut = 4 * kQuads + kTail;  // columns of a thread's output tile
+  static_assert(DH == 16 || DH == 40 || DH == 64, "head widths 16, 40, 64");
+  static_assert(QR % kWarpRows == 0 && kPvRows * 32 == kWarpRows * kCols,
+                "a warp's output tiles cover its rows");
+  static_assert(kThreads >= kTile, "a thread for each key's mask byte");
+
+  extern __shared__ __align__(16) float sm[];
+  float* q_s = sm;                          // [QR][kStride]
+  float* k_s = q_s + QR * kStride;          // [2][kTile][kStride]
+  float* v_s = k_s + 2 * kTile * kStride;   // [2][kTile][kStride]
+  float* p_s = v_s + 2 * kTile * kStride;   // [kTile][kPStride]
+  float* a_s = p_s + kTile * kPStride;      // [QR] this tile's rescale of each row
+  float* l_s = a_s + QR;                    // [QR] each row's final denominator
+  unsigned char* m_s = reinterpret_cast<unsigned char*>(l_s + QR);  // [2][kTile]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * QR;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const size_t pos_stride = (size_t)H * DH;          // elements between positions
+  const size_t base = ((size_t)b * S * H + h) * DH;  // element (b, 0, h, 0)
+  const unsigned char* mrow = mask + (size_t)b * S;
+
+  // Rows [first, first + n) of src into rows of dst by 16-byte cp.async,
+  // zeros past S. A row is copied as kCopyChunks chunks (at Dh 40 the
+  // last 6 lanes of each 16 stay idle), so this thread's chunk is fixed
+  // and its rows step by a constant: no division per element.
+  constexpr int kCopyChunks = DH == 16 ? 4 : 16;
+  constexpr int kCopyStep = kThreads / kCopyChunks;
+  static_assert(QR % kCopyStep == 0 && kTile % kCopyStep == 0, "whole passes");
+  const int c_part = tid % kCopyChunks, c_row = tid / kCopyChunks;
+  auto stage = [&](float* dst, const float* src, int first, int n) {
+    if (c_part >= kChunks) return;
+#pragma unroll
+    for (int r = c_row; r < n; r += kCopyStep) {
+      const int s = first + r;
+      cp_async16(dst + r * kStride + 4 * c_part,
+                 src + base + (size_t)(s < S ? s : 0) * pos_stride + 4 * c_part, s < S);
+    }
+  };
+  stage(q_s, q, q0, QR);
+  stage(k_s, k, 0, kTile);
+  stage(v_s, v, 0, kTile);
+  cp_async_commit();
+  if (tid < kTile) m_s[tid] = tid < S && mrow[tid];
+
+  // A warp owns the same kWarpRows rows in both products, so p passes
+  // from the scores to P.V within the warp.
+  const int kg = lane % kLanes, r0 = kWarpRows * warp + lane / kLanes;
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m_run[i] = kNegInf, l_run[i] = 0.f;
+  const int pr = kWarpRows * warp + kPvRows * (lane / kCols), pc = 4 * (lane % kCols);
+  float acc[kPvRows][kOut];
+#pragma unroll
+  for (int r = 0; r < kPvRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) acc[r][c] = 0.f;
+  }
+
+  const int n_tiles = (S + kTile - 1) / kTile;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, kv0 = t * kTile;
+    const float* ks = k_s + st * kTile * kStride;
+    const float* vs = v_s + st * kTile * kStride;
+    const unsigned char* ms = m_s + st * kTile;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed, and every thread is done with t - 1
+    unsigned char m_next = 0;
+    if (t + 1 < n_tiles) {
+      stage(k_s + (st ^ 1) * kTile * kStride, k, kv0 + kTile, kTile);
+      stage(v_s + (st ^ 1) * kTile * kStride, v, kv0 + kTile, kTile);
+      cp_async_commit();
+      if (tid < kTile && kv0 + kTile + tid < S) m_next = mrow[kv0 + kTile + tid];
+    }
+
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    }
+    const float* qp = q_s + r0 * kStride;
+    const float* kp = ks + kg * kStride;
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = ld4(qp + kRowStep * i * kStride + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ld4(kp + kLanes * j * kStride + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qv[i].x, kv[j].x, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].y, kv[j].y, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].z, kv[j].z, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].w, kv[j].w, sc[i][j]);
+        }
+      }
+    }
+    // Masked keys score -1e30, keys past S -inf: the running max starts
+    // at -1e30 and never falls below it, so a key past S gets p = 0 even
+    // in a fully masked row, whose real keys get p = 1. Scores stay
+    // unscaled: scale > 0 commutes with the max and joins the exponent.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = kg + kLanes * j;
+      const float off = kv0 + key < S ? kNegInf : __int_as_float(0xff800000);
+      const bool att = ms[key];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[i][j] = att ? sc[i][j] : off;
+    }
+    // p = exp((s - max) * scale) = 2^((s - max) * c), c = scale * log2(e).
+    // (Not fma(s, c, -max * c): at s = max = -1e30 that leaves the
+    // rounding error of max * c, ~1e22, in the exponent.)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tmax = sc[i][0];
+#pragma unroll
+      for (int j = 1; j < 4; ++j) tmax = fmaxf(tmax, sc[i][j]);
+#pragma unroll
+      for (int x = 1; x < kLanes; x <<= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, x));
+      const float m_new = fmaxf(m_run[i], tmax);
+      const float alpha = exp2_approx((m_run[i] - m_new) * scale_log2);
+      m_run[i] = m_new;
+      float lsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = exp2_approx((sc[i][j] - m_new) * scale_log2);
+        lsum += sc[i][j];
+      }
+#pragma unroll
+      for (int x = 1; x < kLanes; x <<= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, x);
+      l_run[i] = l_run[i] * alpha + lsum;
+      const int row = r0 + kRowStep * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p_s[(kg + kLanes * j) * kPStride + row] = sc[i][j];
+      if (kg == 0) {
+        a_s[row] = alpha;
+        if (t + 1 == n_tiles) l_s[row] = l_run[i];
+      }
+    }
+    __syncwarp();  // this warp's p and rescales are in shared memory
+
+    float a[kPvRows];
+    rows_of(a, a_s + pr);
+#pragma unroll
+    for (int r = 0; r < kPvRows; ++r) {
+#pragma unroll
+      for (int c = 0; c < kOut; ++c) acc[r][c] *= a[r];
+    }
+    const float* pp = p_s + pr;
+    const float* vp = vs + pc;
+#pragma unroll 16
+    for (int j = 0; j < kTile; ++j) {
+      float vv[kOut];
+#pragma unroll
+      for (int u = 0; u < kQuads; ++u) {
+        const float4 v4 = ld4(vp + j * kStride + 32 * u);
+        vv[4 * u] = v4.x, vv[4 * u + 1] = v4.y, vv[4 * u + 2] = v4.z, vv[4 * u + 3] = v4.w;
+      }
+      if constexpr (kTail > 0) vv[kOut - 1] = vs[j * kStride + 32 + pc / 4];
+      float p[kPvRows];
+      rows_of(p, pp + j * kPStride);
+#pragma unroll
+      for (int r = 0; r < kPvRows; ++r) {
+#pragma unroll
+        for (int c = 0; c < kOut; ++c) acc[r][c] = fmaf(p[r], vv[c], acc[r][c]);
+      }
+    }
+    if (t + 1 < n_tiles && tid < kTile) m_s[(st ^ 1) * kTile + tid] = m_next;
+  }
+
+#pragma unroll
+  for (int r = 0; r < kPvRows; ++r) {
+    const int row = q0 + pr + r;
+    if (row >= S) continue;
+    const float l = fmaxf(l_s[pr + r], 1e-30f);
+    float* o = out + base + (size_t)row * pos_stride;
+#pragma unroll
+    for (int u = 0; u < kQuads; ++u)
+      *reinterpret_cast<float4*>(o + pc + 32 * u) = make_float4(
+          acc[r][4 * u] / l, acc[r][4 * u + 1] / l, acc[r][4 * u + 2] / l, acc[r][4 * u + 3] / l);
+    if constexpr (kTail > 0) o[32 + pc / 4] = acc[r][kOut - 1] / l;
+  }
+}
+
+// -- bfloat16: warp tiles on the tensor cores ------------------------------
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -186,13 +398,6 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-// 2^x in one MUFU.EX2 (relative error ~2^-22); 2^-inf = 0.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Two f32 values (lower column first) as bf16 pairs hi = bf16(x) and
 // lo = bf16(x - hi): hi + lo keeps ~16 of x's 24 significant bits.
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
@@ -201,8 +406,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   hi = bits(h);
   lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
-
-constexpr int kMinBlocks = 128;  // about one block per SM of the H100's 132
 
 // At most 128 registers a thread (16 warps an SM), so at S = 512 a wave
 // holds 528 blocks of 4 warps: the mini encoder's 512 in one.
@@ -418,17 +621,31 @@ cudaError_t allow_smem(const void* fn, size_t bytes) {
   return e;
 }
 
-template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, const unsigned char* mask,
-               void* out, int B, int S, int H, float scale, cudaStream_t st) {
-  const size_t sm = f32_smem_bytes(DH);
-  const cudaError_t e = allow_smem((const void*)flash_f32_kernel<DH>, sm);
+template <int DH, int QR>
+int launch_f32_qr(const void* q, const void* k, const void* v, const unsigned char* mask,
+                  void* out, int B, int S, int H, float scale, cudaStream_t st) {
+  constexpr size_t sm = f32_smem_bytes(DH, QR);
+  const cudaError_t e = allow_smem((const void*)flash_f32_kernel<DH, QR>, sm);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_f32_kernel<DH><<<grid, kBQ, sm, st>>>(
+  const dim3 grid((S + QR - 1) / QR, B * H);
+  flash_f32_kernel<DH, QR><<<grid, f32_threads(QR), sm, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), mask, static_cast<float*>(out), S, H, scale);
   return cudaGetLastError();
+}
+
+// Query rows per block: 64 where that still gives kMinBlocks blocks, so
+// long sequences share each staged kv tile among 64 rows; else 32, else
+// 16, so short ones spread over the SMs.
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, const unsigned char* mask,
+               void* out, int B, int S, int H, float scale, cudaStream_t st) {
+  const long bh = (long)B * H;
+  if (bh * ((S + 63) / 64) >= kMinBlocks)
+    return launch_f32_qr<DH, 64>(q, k, v, mask, out, B, S, H, scale, st);
+  if (bh * ((S + 31) / 32) >= kMinBlocks)
+    return launch_f32_qr<DH, 32>(q, k, v, mask, out, B, S, H, scale, st);
+  return launch_f32_qr<DH, 16>(q, k, v, mask, out, B, S, H, scale, st);
 }
 
 template <int DH, int NW>
@@ -459,7 +676,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const unsigned char
 extern "C" {
 
 // q, k, v, out [B, S, H, Dh] contiguous, float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1, each base 16-byte aligned); mask [B, S] bool
+// bfloat16 (is_bf16 = 1), each base 16-byte aligned; mask [B, S] bool
 // (1 byte each). Dh in {16, 40, 64}: the tiny, mini and bge-m3-like
 // encoders. Launches on `stream`, does not synchronise, returns
 // cudaGetLastError().
@@ -469,9 +686,9 @@ int nornic_flash_attention(const void* q, const void* k, const void* v, const vo
   if (B < 1 || S < 1 || H < 1 || B * H > 65535) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* m = static_cast<const unsigned char*>(mask);
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  if ((addr(q) | addr(k) | addr(v) | addr(out)) % 16 != 0) return cudaErrorMisalignedAddress;
   if (is_bf16) {
-    const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
-    if ((addr(q) | addr(k) | addr(v) | addr(out)) % 16 != 0) return cudaErrorMisalignedAddress;
     switch (Dh) {
       case 16: return launch_bf16<16>(q, k, v, m, out, B, S, H, scale, st);
       case 40: return launch_bf16<40>(q, k, v, m, out, B, S, H, scale, st);

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -96,6 +96,55 @@ def build_log(name: str) -> str:
             return f.read()
     except OSError:
         return ""
+
+
+def ptxas_lines(log: str) -> list:
+    """The lines of a compiler output that give registers, or spills other
+    than none."""
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or ("spill" in line and ", 0 bytes spill stores" not in line)]
+
+
+def build_variants(name: str, patches: Iterable[str] = (),
+                   sources: Iterable[Tuple[str, str]] = ()) -> Dict[str, Tuple[str, ctypes.CDLL, str]]:
+    """Copies of kernel ``name``'s source, to time against it in one
+    process. ``default`` is the library of the source as it stands.
+    Variant i, ``v<i>``, is a copy with the text OLD of patch
+    ``'OLD=>NEW'``, which must occur exactly once, replaced by NEW; each
+    ``(label, path)`` of ``sources`` is a whole other source with the same
+    C entry points, such as the parent commit's. The copies are built at
+    once, anew, into ``BUILD_DIR/variants/``. Returns {label: (what it is,
+    library, compiler output)}."""
+    out = {"default": (SOURCES[name], library(name), build_log(name))}
+    with open(os.path.join(SRC_DIR, SOURCES[name])) as f:
+        src = f.read()
+    todo = []
+    for n, patch in enumerate(patches):
+        old, sep, new = patch.partition("=>")
+        if not sep or src.count(old) != 1:
+            raise ValueError(f"variant {patch!r}: OLD must occur exactly once in the source")
+        todo.append((f"v{n}", patch, src.replace(old, new)))
+    for label, path in sources:
+        if label in out or label.startswith("v"):
+            raise ValueError(f"source {label}={path}: the label must be new and not v...")
+        with open(path) as f:
+            todo.append((label, path, f.read()))
+    var_dir = os.path.join(BUILD_DIR, "variants")
+    os.makedirs(var_dir, exist_ok=True)
+    procs = []
+    for label, what, text in todo:
+        path = os.path.join(var_dir, f"{name}-{label}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", path[:-3] + ".so", path]
+        procs.append((label, what, path[:-3] + ".so", subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for label, what, lib, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label} ({what}) failed to build:\n{log}")
+        out[label] = (what, load(lib), log)
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -3,9 +3,10 @@
 Counterpart of ``nornicdb_tpu/ops/pallas_attention.py:flash_attention``,
 same ``[B, S, H, Dh]`` layout in and out. On a CUDA tensor the wrapper
 launches the kernel or raises: bfloat16 inputs go to the tensor-core
-kernel, float32 inputs to the exact float32 one. ``reference_attention``
-(the materializing softmax) is its plain version and runs only for
-tensors on the CPU. Forward only, like the TPU kernel.
+kernel, float32 inputs to the exact float32 one, which runs on the FMA
+units only. ``reference_attention`` (the materializing softmax) is its
+plain version and runs only for tensors on the CPU. Forward only, like
+the TPU kernel.
 """
 
 from __future__ import annotations
@@ -35,7 +36,11 @@ def reference_attention(q, k, v, mask=None):
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.library("flash_attention")
+    return bind(_build.library("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of a loaded ``flash_attention`` library."""
     if lib.nornic_flash_attention.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
@@ -77,17 +82,25 @@ def flash_attention(
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and mask.is_contiguous()):
         raise ValueError("q, k, v and mask must be contiguous")
-    if q.dtype == torch.bfloat16:  # the bf16 kernel loads 16 bytes at a time
-        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
-    out = torch.empty_like(q)
-    lib = _lib()
-    err = lib.nornic_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, s, h, d, float(d ** -0.5), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "flash_attention kernel")
+    out = launch(_lib(), q, k, v, mask)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """One call of ``lib``'s kernel on checked, contiguous CUDA inputs.
+    Counts nothing."""
+    b, s, h, d = q.shape
+    # both kernels load 16 bytes at a time
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
+    out = torch.empty_like(q)
+    err = lib.nornic_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        b, s, h, d, float(d ** -0.5), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash_attention kernel")
+    return out

@@ -44,33 +44,12 @@ def build_variants(variants):
     from nornicdb_tpu_torch.ops import _build
     from nornicdb_tpu_torch.ops.topk import bind
 
-    libs = {"default": bind(_build.library("cosine_topk"))}
-    out_dir = os.path.join(_build.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(_build.SRC_DIR, _build.SOURCES["cosine_topk"])) as f:
-        src = f.read()
-    procs = []
-    for n, patch in enumerate(variants):
-        old, sep, new = patch.partition("=>")
-        if not sep or src.count(old) != 1:
-            raise ValueError(f"variant {patch!r}: OLD must occur exactly once in the source")
-        name = f"v{n}"
-        path = os.path.join(out_dir, f"cosine_topk-{name}.cu")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
-        out = path[:-3] + ".so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path]
-        procs.append((name, patch, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for name, patch, out, proc in procs:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name} ({patch}) failed to build:\n{log}")
-        print(f"variant {name}: {patch}", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or ("spill" in line and ", 0 bytes spill stores" not in line):
-                print(f"  ptxas[{name}]: {line.strip()}", flush=True)
-        libs[name] = bind(_build.load(out))
+    libs = {}
+    for name, (what, lib, log) in _build.build_variants("cosine_topk", variants).items():
+        print(f"variant {name}: {what}", flush=True)
+        for line in _build.ptxas_lines(log):
+            print(f"  ptxas[{name}]: {line}", flush=True)
+        libs[name] = bind(lib)
     return libs
 
 

@@ -118,7 +118,7 @@ def _attn_inputs(dev, seed, s, h, dh, dtype):
 
 
 @pytest.mark.parametrize("dh", [16, 40, 64])
-@pytest.mark.parametrize("s", [1, 33, 64, 100, 512])
+@pytest.mark.parametrize("s", [1, 16, 33, 64, 100, 128, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, dtype, s, dh):
     q, k, v, mask = _attn_inputs(dev, s + dh, s, 16 if dh == 64 else 4, dh, dtype)
@@ -135,15 +135,19 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, s, dh):
         assert (diff <= step.clamp(min=ATTN_BF16_ATOL)).all()
 
 
-def test_flash_attention_bf16_kernel_is_deterministic(dev):
-    q, k, v, mask = _attn_inputs(dev, 7, 64, 4, 40, torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bf16_kernel_is_deterministic(dev, dtype):
+    """Both kernels (the name is the bf16 kernel's, which came first)."""
+    q, k, v, mask = _attn_inputs(dev, 7, 64, 4, 40, dtype)
     assert torch.equal(flash_attention(q, k, v, mask), flash_attention(q, k, v, mask))
 
 
-def test_flash_attention_bf16_kernel_takes_a_misaligned_base(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bf16_kernel_takes_a_misaligned_base(dev, dtype):
     """A contiguous view whose base is not 16-byte aligned is staged into
-    an aligned copy for the kernel's 16-byte loads."""
-    q, k, v, mask = _attn_inputs(dev, 8, 33, 4, 40, torch.bfloat16)
+    an aligned copy for the kernels' 16-byte loads (both kernels; the
+    name is the bf16 kernel's, which came first)."""
+    q, k, v, mask = _attn_inputs(dev, 8, 33, 4, 40, dtype)
     flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
     qm = flat[1:].view(q.shape)
     qm.copy_(q)

@@ -209,14 +209,20 @@ def _attn_case(seed, b, s, h, dh):
     return q, k, v, mask
 
 
-@pytest.mark.parametrize("s", [100, 130])
-@pytest.mark.parametrize("dh", [40, 64])
+@pytest.mark.parametrize("s", [1, 16, 33, 64, 100, 130])
+@pytest.mark.parametrize("dh", [16, 40, 64])
 def test_flash_attention_matches_jax(dh, s):
+    """Every width bucket the kernels' tiles serve. At S = 1 the last batch
+    row has every key masked: the Pallas kernel averages over its block
+    padding there (divergence C4 in ROADMAP.md), so it is held on the
+    rows that attend to a key, and the plain version on every row."""
     q, k, v, mask = _attn_case(dh + s, 2, s, 4, dh)
     out = flash_attention(*_torch(q, k, v, mask)).numpy()
     assert out.shape == q.shape and out.dtype == np.float32
     j_out = j_flash(*_jax(q, k, v, mask), block_q=64, block_k=64, interpret=True)
-    np.testing.assert_allclose(out, np.asarray(j_out), rtol=0, atol=ATTN_ATOL)
+    live = mask.any(axis=1)
+    assert live.sum() == (1 if s == 1 else 2)
+    np.testing.assert_allclose(out[live], np.asarray(j_out)[live], rtol=0, atol=ATTN_ATOL)
     np.testing.assert_allclose(out, np.asarray(j_reference(*_jax(q, k, v, mask))),
                                rtol=0, atol=ATTN_ATOL)
 
