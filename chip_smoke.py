@@ -25,10 +25,28 @@ Phases, in order; any failure exits non-zero:
    the committed mini encoder (bf16, the default), ``store`` of seeded
    documents, ``flush`` (the embed queue must have failed no node, and the
    vector index must hold every document), 64 queries each in vector, text
-   and hybrid mode; both kernels' launch counters must grow, and the vector
-   answers must match the plain path (B = 64). Then a few
+   and hybrid mode, one at a time. Above ``NORNICDB_HYBRID_MIN_N`` (4,096)
+   documents the first hybrid query starts the fused tier's snapshot build
+   in the background; the phase waits for it (failing after
+   ``HYBRID_BUILD_TIMEOUT_S``) before timing hybrid mode, and every timed
+   hybrid query must be served by the fused tier (``hybrid_brute_f32``,
+   no host hand-off) with lexical and vector lists that agree tie-aware
+   with the host path's and a fused list bitwise the host ``rrf_fuse`` of
+   its two lists. Both kernels' launch counters must grow, and the vector
+   answers must match the plain path (B = 64). Then 16 client threads
+   send 32 queries each, alternating vector and hybrid: the batchers must
+   coalesce (mean batch above 1), B1's batched kernel (B >= 5) must
+   launch, and every answer must agree with the one-at-a-time answer. The
+   fused dispatch is timed by part (host plan, device by events and by
+   ``torch.profiler``, decode) at B in ``FUSED_TIMED_B``. Then a few
    ``recall(limit=100, mode="vector")`` calls (k = 300) must take the
-   wide-k route and not B1, and agree with the plain path.
+   wide-k route and not B1, and agree with the plain path. Last, stores
+   while it recalls: ``WRITE_MIX_BLOCKS`` blocks of ``WRITE_MIX_ROUNDS``
+   rounds, each one ``store`` and one timed hybrid ``recall``, blocks
+   alternating the fused tier and the host path; it reports each path's
+   p50/p99 and host ms per query by part, accepts no hand-off but a
+   vector race, and after a flush every recent document must be found by
+   its own text with fused answers that agree with the host path.
 5. Index at deployment scale: a 1,048,576 x 1024 float32
    ``BruteForceIndex`` filled through ``add_batch`` and searched at
    the (B, k) of ``INDEX_TIMED``, through B1, checked against the plain
@@ -80,6 +98,17 @@ EMBED_F32_COS_MIN = 0.99999
 # The DB's bf16 encoder against the float32 one: each rounding to bf16
 # keeps 8 mantissa bits, and two layers of projections round many times.
 EMBED_BF16_COS_MIN = 0.9995
+# Lexical scores of the fused tier against the host index: the dense
+# [B, U] x [U, C] product adds a doc's terms in another order than the
+# host (and may fuse a multiply-add), so a score may move by a rounding
+# step; lists agree tie-aware within this relative tolerance.
+LEX_RTOL = 1e-5
+HYBRID_BUILD_TIMEOUT_S = 300.0
+CONCURRENT_THREADS = 16
+CONCURRENT_PER_THREAD = 32
+# the store-while-recall phase: blocks alternate fused tier and host path
+WRITE_MIX_BLOCKS = 4
+WRITE_MIX_ROUNDS = 48
 
 REPORT: dict = {}
 
@@ -161,12 +190,14 @@ def attn_cost(b: int, s: int, h: int, dh: int, elem: int):
     return 4 * b * s * h * dh * elem + b * s, 4.0 * b * h * s * s * dh
 
 
-# B1's timed query counts, k = 30 on the main path's index, and (B, k) on
+# B1's timed query counts, k = MAIN_K on the main path's index, and (B, k) on
 # the deployment-scale one: B = 1 is what a search sends, B <= 4 the
 # streaming scan, B >= 5 the register-tiled kernel (8 on the bytes side of
 # the B = 40 crossover, 64 and 256 on the operations side; k = 128 at
 # B = 64 takes a 32-query tile, so the matrix is read twice).
 MAIN_TIMED_B = (1, 4, 8, 64)
+MAIN_K = 32  # recall(limit=10) asks 30 candidates, which the batchers round to 32
+FUSED_TIMED_B = (1, 8, 64)
 INDEX_TIMED = ((1, 10), (4, 10), (8, 10), (64, 10), (256, 10), (64, 128))
 
 # B2's timed shapes (B, S, H, Dh), each in both types: ingest through the
@@ -404,6 +435,94 @@ def make_corpus(rng, n_docs, n_words=5000):
     return docs, queries
 
 
+def hits_agree(a, b, atol):
+    """Tie-aware agreement of two ranked [(id, score)] lists."""
+    from nornicdb_tpu_torch.ops.topk import topk_agree
+
+    if len(a) != len(b):
+        return False
+    return not a or topk_agree([[i for i, _ in a]], [[s for _, s in a]],
+                               [[i for i, _ in b]], [[s for _, s in b]], atol)
+
+
+def lex_atol(hits):
+    return LEX_RTOL * max([1.0] + [abs(s) for _, s in hits])
+
+
+def trio_agrees(trio, lex, vec, overfetch):
+    """A fused-tier answer against lexical and vector lists computed
+    another way: each list tie-aware, the fused list bitwise the host
+    ``rrf_fuse`` of the trio's own lists, and equal to the other answer's
+    fuse where both lists match id for id."""
+    from nornicdb_tpu_torch.search.rrf import rrf_fuse
+
+    if not (hits_agree(trio["lex"], lex, lex_atol(lex))
+            and hits_agree(trio["vec"], vec, TOPK_SCORE_ATOL)):
+        return False
+    if not (trio["lex"] and trio["vec"]):
+        return True
+    if trio["fused"] != rrf_fuse([trio["lex"], trio["vec"]], limit=overfetch):
+        return False
+    same = ([i for i, _ in trio["lex"]] == [i for i, _ in lex]
+            and [i for i, _ in trio["vec"]] == [i for i, _ in vec])
+    return not same or trio["fused"] == rrf_fuse([lex, vec], limit=overfetch)
+
+
+class TrioRecorder:
+    """Keeps each fused-tier answer the service consumes (query, trio),
+    for checking after the timed run; the service's behaviour is unchanged."""
+
+    def __init__(self, svc):
+        self.inner = svc._fused_hybrid_trio
+        self.rows = []
+        svc._fused_hybrid_trio = self
+
+    def __call__(self, query, qv, overfetch, weights):
+        trio = self.inner(query, qv, overfetch, weights)
+        self.rows.append((query, trio))
+        return trio
+
+
+def wait_for_snapshot(svc):
+    """The fused tier once its background snapshot build has landed."""
+    t0 = time.perf_counter()
+    while True:
+        fused = svc._fused
+        if fused is not None and fused.ready:
+            return fused, time.perf_counter() - t0
+        if time.perf_counter() - t0 > HYBRID_BUILD_TIMEOUT_S:
+            raise AssertionError(
+                f"the hybrid snapshot was not built within {HYBRID_BUILD_TIMEOUT_S} s")
+        time.sleep(0.05)
+
+
+def batcher_delta(mb, before):
+    """(batches, queries, sizes) a batcher served since ``before``."""
+    from collections import Counter
+
+    sizes = Counter(mb.sizes)
+    sizes.subtract(before[2])
+    return (mb.batches - before[0], mb.batched_queries - before[1],
+            {b: n for b, n in sorted(sizes.items()) if n})
+
+
+def batcher_mark(mb):
+    from collections import Counter
+
+    return mb.batches, mb.batched_queries, Counter(mb.sizes)
+
+
+def route_split(total, vector, fused):
+    """B1 launches by batch size on each route: the micro-batched vector
+    ride, the fused hybrid dispatch, and direct calls (the rest)."""
+    direct = dict(total)
+    for part in (vector, fused):
+        for b, n in part.items():
+            direct[b] = direct.get(b, 0) - n
+    return {"vector_ride": vector, "fused_hybrid": fused,
+            "direct": {b: n for b, n in sorted(direct.items()) if n}}
+
+
 def phase_main_path(dev, seed, n_docs):
     import torch
 
@@ -411,12 +530,17 @@ def phase_main_path(dev, seed, n_docs):
     from nornicdb_tpu_torch.ops.attention import flash_attention
     from nornicdb_tpu_torch.ops.similarity import cosine_topk_auto, l2_normalize
     from nornicdb_tpu_torch.ops.topk import fused_cosine_topk, topk_agree
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
 
     rng = np.random.default_rng(seed + 1)
     docs, queries = make_corpus(rng, n_docs)
+    if n_docs < 4096:  # a quick run: bring the fused tier's floor under it
+        os.environ.setdefault("NORNICDB_HYBRID_MIN_N", str(max(n_docs // 2, 1)))
+        log(f"  NORNICDB_HYBRID_MIN_N={os.environ['NORNICDB_HYBRID_MIN_N']} for {n_docs} docs")
 
     flash_attention.launches = 0
     fused_cosine_topk.launches = 0
+    fused_cosine_topk.launch_sizes.clear()
     db = nornicdb_tpu_torch.open(device=dev)
     t0 = time.perf_counter()
     for i, text in enumerate(docs):
@@ -433,9 +557,11 @@ def phase_main_path(dev, seed, n_docs):
     index_s = time.perf_counter() - t1
     if len(svc.vectors) != n_docs:
         raise AssertionError(f"the vector index holds {len(svc.vectors)} of {n_docs} documents")
+    vec_mark, hyb_mark = batcher_mark(svc._microbatch), batcher_mark(svc._hybrid_batch)
     lat = {}
     results = {}
-    for mode in ("vector", "text", "hybrid"):
+
+    def timed(mode):
         ts = []
         for q in queries:
             t = time.perf_counter()
@@ -443,12 +569,39 @@ def phase_main_path(dev, seed, n_docs):
             torch.cuda.synchronize()
             ts.append((time.perf_counter() - t) * 1e3)
         lat[mode] = ts
+
+    timed("vector")
+    timed("text")
+    # the first hybrid query (served by the host path) starts the fused
+    # tier's snapshot build in the background
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    db.recall(queries[0], limit=10, mode="hybrid")
+    fused, wait_s = wait_for_snapshot(svc)
+    torch.cuda.synchronize()
+    snap_alloc = torch.cuda.memory_allocated() - mem0
+    snap_bytes = fused.lex.device_bytes()
+    log(f"  hybrid snapshot: built in {fused.lex.build_s:.3f} s (waited {wait_s:.3f} s), "
+        f"{snap_bytes} bytes of columns on the card, memory_allocated grew {snap_alloc} "
+        f"bytes; capacity {fused.lex._snap['c']} rows")
+    recorder = TrioRecorder(svc)
+    counts0 = dict(fused.counts)
+    timed("hybrid")
+    served = {key: n - counts0.get(key, 0) for key, n in fused.counts.items()
+              if n != counts0.get(key, 0)}
     launches = {"flash_attention": flash_attention.launches,
                 "cosine_topk": fused_cosine_topk.launches}
+    sizes = dict(sorted(fused_cosine_topk.launch_sizes.items()))
+    routes = route_split(sizes, batcher_delta(svc._microbatch, vec_mark)[2],
+                         batcher_delta(svc._hybrid_batch, hyb_mark)[2])
     embedded = db._embedder.misses  # texts that reached the encoder
-    log(f"main path launches: {launches} ({embedded} texts through the encoder)")
+    log(f"main path launches: {launches} ({embedded} texts through the encoder); "
+        f"B1 launches by B {sizes}, by route {routes}; fused tier {served}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if served.get(TIER_BRUTE_F32) != len(queries) or served.get("dispatch") != len(queries) \
+            or fused.handoffs():
+        raise AssertionError(f"timed hybrid queries not all served by the fused tier: {served}")
 
     # right answers: hits are well-formed, and a stored document's own
     # text finds that document first in vector mode
@@ -457,6 +610,20 @@ def phase_main_path(dev, seed, n_docs):
             raise AssertionError(f"{mode} search for {q!r} returned {len(hits)} hits")
         if any(not np.isfinite(h["score"]) for h in hits):
             raise AssertionError(f"{mode} search returned a non-finite score")
+    # the fused tier's answers against the host path for the same query
+    seq_trios = dict(recorder.rows)
+    if sorted(seq_trios) != sorted(set(queries)):
+        raise AssertionError("the recorder missed timed hybrid queries")
+    for q, trio in seq_trios.items():
+        qv = np.asarray(db._embedder.embed(q), np.float32)
+        lex = svc.bm25.search(q, 30)
+        vec = svc.vectors.search_batch(qv[None, :], 30)[0]
+        if trio is None or trio["served_by"] != TIER_BRUTE_F32 \
+                or not trio_agrees(trio, lex, vec, 30):
+            raise AssertionError(f"the fused tier disagrees with the host path on {q!r}")
+    log(f"  hybrid: {len(seq_trios)} fused answers agree with the host path (lexical "
+        f"tie-aware within {LEX_RTOL} relative, vector within {TOPK_SCORE_ATOL}, fused "
+        f"bitwise the host rrf_fuse)")
     probe = [int(x) for x in rng.integers(0, n_docs, 16)]
     dup = {}
     for i, t in enumerate(docs):
@@ -496,6 +663,9 @@ def phase_main_path(dev, seed, n_docs):
     if not topk_agree(i_k, s_k, i_p, s_p, TOPK_SCORE_ATOL):
         raise AssertionError("main-path vector answers disagree with the plain path")
 
+    conc = phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios)
+    fused_rows = [time_fused(db, svc, fused, queries, b, REPORT["card"]) for b in FUSED_TIMED_B]
+
     # recall(limit=100) asks for k = 300 > MAX_K: the reference's XLA
     # route, counted apart from B1's launches
     before = (fused_cosine_topk.launches, fused_cosine_topk.wide_k_calls)
@@ -516,6 +686,7 @@ def phase_main_path(dev, seed, n_docs):
                           TOPK_SCORE_ATOL):
             raise AssertionError("limit-100 recall disagrees with the plain path at k = 300")
     log(f"  recall(limit=100): {len(wide_q)} wide-k calls, 0 B1 launches, answers agree")
+    write_mix = phase_write_mix(db, svc, fused, docs, queries, rng)
 
     def pct(xs, p):
         return float(np.percentile(np.asarray(xs), p))
@@ -526,28 +697,340 @@ def phase_main_path(dev, seed, n_docs):
         "embed_docs_per_s_incl_store": n_docs / (store_s + flush_s),
         "capacity": vecs._capacity, "dims": vecs.dims,
         "launches": launches,
+        "cosine_topk_launch_sizes": sizes,
+        "cosine_topk_routes": routes,
         "wide_k_calls": grew[1],
         "queries_per_mode": len(queries),
         "texts_embedded": embedded,
         "launches_per_query": {
-            # vector and hybrid searches each scan the index once
+            # vector and hybrid searches each scan the index once (one more:
+            # the host-served hybrid query that starts the snapshot build)
             "cosine_topk": launches["cosine_topk"] / (2 * len(queries)),
             # per text through the encoder (one launch per layer per batch)
             "flash_attention": launches["flash_attention"] / max(embedded, 1),
         },
+        "hybrid_fused": {
+            "served": served, "snapshot_build_s": fused.lex.build_s,
+            "snapshot_wait_s": wait_s, "snapshot_device_bytes": snap_bytes,
+            "snapshot_memory_allocated_delta": snap_alloc,
+            "snapshot_rows": fused.lex._snap["n"], "snapshot_capacity": fused.lex._snap["c"],
+            "builds": fused.lex.builds, "dispatch_split": fused_rows,
+        },
+        "concurrent": conc,
+        "write_mix": write_mix,
     }
     for mode, ts in lat.items():
         mp[f"{mode}_p50_ms"] = pct(ts, 50)
         mp[f"{mode}_p99_ms"] = pct(ts, 99)
+        # the first query of a mode pays one-time work (the device copy
+        # of the matrix, the fused tier's row -> slot join map)
+        mp[f"{mode}_first_ms"] = ts[0]
+        mp[f"{mode}_max_after_first_ms"] = max(ts[1:])
     REPORT["main_path"] = mp
     log(f"main path: stored {n_docs} docs at {mp['store_docs_per_s']:.0f} docs/s, "
         f"flush {flush_s:.2f} s, index build {index_s:.2f} s, "
         f"capacity {vecs._capacity} x {vecs.dims}")
     for mode in lat:
         log(f"  search {mode}: p50 {mp[mode + '_p50_ms']:.3f} ms "
-            f"p99 {mp[mode + '_p99_ms']:.3f} ms")
+            f"p99 {mp[mode + '_p99_ms']:.3f} ms (first {mp[mode + '_first_ms']:.3f} ms, "
+            f"max after it {mp[mode + '_max_after_first_ms']:.3f} ms)")
     db.close()
-    return launches, vecs
+    return launches, conc["launches"], write_mix["launches"], vecs
+
+
+def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
+    """16 client threads, 32 queries each, alternating vector and hybrid:
+    the batchers must coalesce, B1's batched kernel (B >= 5) must launch,
+    and each answer must agree with the one-at-a-time answer."""
+    import threading
+
+    import torch
+
+    from nornicdb_tpu_torch.ops.attention import flash_attention
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
+
+    flash_attention.launches = 0
+    fused_cosine_topk.launches = 0
+    fused_cosine_topk.launch_sizes.clear()
+    vec_mark, hyb_mark = batcher_mark(svc._microbatch), batcher_mark(svc._hybrid_batch)
+    counts0 = dict(fused.counts)
+    recorder.rows = []
+    answers = []
+    errors = []
+    barrier = threading.Barrier(CONCURRENT_THREADS)
+
+    def client(t):
+        try:
+            barrier.wait()
+            for j in range(CONCURRENT_PER_THREAD):
+                q = queries[(t * 5 + j) % len(queries)]
+                mode = "vector" if j % 2 == 0 else "hybrid"
+                answers.append((mode, q, db.recall(q, limit=10, mode=mode)))
+        except BaseException as exc:  # noqa: BLE001 -- re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(CONCURRENT_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a concurrent client did not finish")
+    if errors:
+        raise errors[0]
+    launches = {"flash_attention": flash_attention.launches,
+                "cosine_topk": fused_cosine_topk.launches}
+    sizes = dict(sorted(fused_cosine_topk.launch_sizes.items()))
+    vb, vq, vsizes = batcher_delta(svc._microbatch, vec_mark)
+    hb, hq, hsizes = batcher_delta(svc._hybrid_batch, hyb_mark)
+    served = {key: n - counts0.get(key, 0) for key, n in fused.counts.items()
+              if n != counts0.get(key, 0)}
+    n_q = CONCURRENT_THREADS * CONCURRENT_PER_THREAD
+    out = {"threads": CONCURRENT_THREADS, "queries": n_q, "wall_s": wall_s,
+           "queries_per_s": n_q / wall_s, "launches": launches,
+           "cosine_topk_launch_sizes": sizes,
+           "cosine_topk_routes": route_split(sizes, vsizes, hsizes),
+           "vector_batches": vb, "vector_queries": vq, "vector_mean_batch": vq / max(vb, 1),
+           "hybrid_batches": hb, "hybrid_queries": hq, "hybrid_mean_batch": hq / max(hb, 1),
+           "mean_batch": (vq + hq) / max(vb + hb, 1), "fused_served": served}
+    log(f"concurrent: {n_q} queries from {CONCURRENT_THREADS} threads in {wall_s:.3f} s; "
+        f"mean batch {out['mean_batch']:.3f} (vector {out['vector_mean_batch']:.3f} over "
+        f"{vb} batches, hybrid {out['hybrid_mean_batch']:.3f} over {hb}); batch sizes "
+        f"vector {vsizes} hybrid {hsizes}; B1 launches {launches['cosine_topk']} by B {sizes}; "
+        f"fused tier {served}")
+    if vq + hq != n_q or out["mean_batch"] <= 1.0:
+        raise AssertionError(f"the batchers did not coalesce: {out}")
+    if not any(b >= 5 for b in sizes):
+        raise AssertionError(f"B1's batched kernel (B >= 5) never launched: {sizes}")
+    if served.get(TIER_BRUTE_F32) != hq or fused.handoffs():
+        raise AssertionError(
+            f"concurrent hybrid queries not all served by the fused tier: {served}")
+
+    def lists(trio):
+        return trio["lex"], trio["vec"], trio["fused"]
+
+    changed = set()
+    for q, trio in recorder.rows:
+        seq = seq_trios[q]
+        if trio is None or not trio_agrees(trio, seq["lex"], seq["vec"], 30):
+            raise AssertionError(f"concurrent hybrid answer for {q!r} differs from one at a time")
+        if lists(trio) != lists(seq):
+            changed.add(q)
+    for mode, q, hits in answers:
+        want = results[(mode, q)]
+        got = [(h["id"], h["score"]) for h in hits]
+        if mode == "vector" and not hits_agree(got, [(h["id"], h["score"]) for h in want],
+                                               TOPK_SCORE_ATOL):
+            raise AssertionError(f"concurrent vector answer for {q!r} differs from one at a time")
+        if mode == "hybrid" and q not in changed and got != [(h["id"], h["score"]) for h in want]:
+            raise AssertionError(f"concurrent hybrid hits for {q!r} differ from one at a time")
+    same = sum(lists(trio) == lists(seq_trios[q]) for q, trio in recorder.rows)
+    log(f"  concurrent answers agree with one at a time ({same} of {len(recorder.rows)} "
+        f"hybrid trios identical)")
+    out["hybrid_trios_identical"] = same
+    return out
+
+
+class PartTimer:
+    """Host ms spent inside chosen methods, by name: each is wrapped on its
+    instance (behaviour unchanged) until ``close``. Calls from any thread
+    count, so a part shared with a background thread is not measured."""
+
+    def __init__(self, parts):
+        from collections import Counter
+
+        self.ms = Counter()
+        self._wrapped = []
+        for name, (obj, attr) in parts.items():
+            inner = getattr(obj, attr)
+
+            def timed(*args, _inner=inner, _name=name, **kw):
+                t = time.perf_counter()
+                try:
+                    return _inner(*args, **kw)
+                finally:
+                    self.ms[_name] += (time.perf_counter() - t) * 1e3
+
+            setattr(obj, attr, timed)
+            self._wrapped.append((obj, attr))
+
+    def close(self):
+        for obj, attr in self._wrapped:
+            delattr(obj, attr)
+
+
+def phase_write_mix(db, svc, fused, docs, queries, rng):
+    """Stores while it recalls: each round stores one new document (the
+    embed queue indexes it in the background) and times one hybrid
+    recall, in blocks that alternate the fused tier with the host path
+    (the service's hybrid branch with the fused ride answering None, so
+    the fused tier keeps its snapshot between blocks). Reports each
+    path's p50/p99 and host ms per query by part, and the fused tier's
+    hand-offs and join-map derivations by kind. After a
+    flush, every written document must be found by its own text, and the
+    fused tier must agree with the host path."""
+    from collections import Counter
+
+    import torch
+
+    from nornicdb_tpu_torch.ops.attention import flash_attention
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
+
+    flash_attention.launches = 0
+    fused_cosine_topk.launches = 0
+    ride = svc._fused_hybrid_trio
+    lat = {"fused": [], "host": []}
+    parts = {"fused": Counter(), "host": Counter()}
+    timer = PartTimer({
+        # the matrix's copy to the card after vector writes (both paths)
+        "vector_device_copy": (svc.vectors, "_device_arrays_locked"),
+        "query_embed": (svc, "_query_embedding"),
+        "host_bm25": (svc.bm25, "search"),
+        "host_vector_ride": (svc, "vector_search_candidates"),
+        "fused_alive_refresh": (fused.lex, "refresh_alive"),
+        "fused_plan": (fused.lex, "plan"),
+        "fused_join_map": (fused, "_ensure_map"),
+        "fused_decode": (fused, "_decode"),
+        "fused_search_batch": (fused, "search_batch"),
+    })
+    counts0 = dict(fused.counts)
+    written = []
+    n = 0
+    try:
+        for block in range(WRITE_MIX_BLOCKS):
+            arm = "fused" if block % 2 == 0 else "host"
+            svc._fused_hybrid_trio = ride if arm == "fused" else (lambda *a: None)
+            mark = Counter(timer.ms)
+            for _ in range(WRITE_MIX_ROUNDS):
+                a, b = (docs[int(i)].split() for i in rng.integers(0, len(docs), 2))
+                text = " ".join(a[: len(a) // 2] + b[len(b) // 2:])
+                db.store(text, node_id=f"w{n}")
+                written.append((f"w{n}", text))
+                q = queries[n % len(queries)]
+                n += 1
+                t = time.perf_counter()
+                db.recall(q, limit=10, mode="hybrid")
+                torch.cuda.synchronize()
+                lat[arm].append((time.perf_counter() - t) * 1e3)
+            parts[arm].update(timer.ms)
+            parts[arm].subtract(mark)
+    finally:
+        svc._fused_hybrid_trio = ride
+        timer.close()
+    db.flush()
+    launches = {"flash_attention": flash_attention.launches,
+                "cosine_topk": fused_cosine_topk.launches}
+    counts = {key: n - counts0.get(key, 0) for key, n in fused.counts.items()
+              if n != counts0.get(key, 0)}
+    fused_rows = counts.get(TIER_BRUTE_F32, 0) + counts.get("host", 0)
+    handoffs = {key: n for key, n in counts.items() if key.startswith("handoff_")}
+    if fused_rows + sum(handoffs.values()) != len(lat["fused"]):
+        raise AssertionError(f"write mix: fused-arm queries unaccounted for: {counts}")
+    if set(handoffs) - {"handoff_vec_race"}:
+        raise AssertionError(f"write mix: unexpected hand-offs {handoffs}")
+    # read-your-writes: each written document by its own text
+    recorder = TrioRecorder(svc)
+    for doc_id, text in written[-16:]:
+        hits = db.recall(text, limit=10, mode="hybrid")
+        if doc_id not in [h["id"] for h in hits]:
+            raise AssertionError(f"write mix: {doc_id} not found by its own text")
+    for q, trio in recorder.rows:
+        qv = np.asarray(db._embedder.embed(q), np.float32)
+        lex = svc.bm25.search(q, 30)
+        vec = svc.vectors.search_batch(qv[None, :], 30)[0]
+        if trio is None or not trio_agrees(trio, lex, vec, 30):
+            raise AssertionError(f"write mix: the fused tier disagrees with the host path on {q!r}")
+    svc._fused_hybrid_trio = recorder.inner
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p))
+
+    out = {"rounds_per_path": {arm: len(ts) for arm, ts in lat.items()},
+           "writes": len(written), "launches": launches, "fused_counts": counts,
+           "handoff_vec_race": counts.get("handoff_vec_race", 0),
+           "read_back_served": dict(Counter(t["served_by"] for _, t in recorder.rows
+                                            if t is not None)),
+           "host_ms_per_query_by_part": {
+               arm: {key: ms / len(lat[arm]) for key, ms in sorted(parts[arm].items()) if ms}
+               for arm in lat}}
+    for arm, ts in lat.items():
+        out[f"{arm}_p50_ms"] = pct(ts, 50)
+        out[f"{arm}_p99_ms"] = pct(ts, 99)
+        out[f"{arm}_max_ms"] = max(ts)
+    log(f"write mix: {len(written)} stores, each followed by a hybrid recall; fused tier "
+        f"p50 {out['fused_p50_ms']:.3f} p99 {out['fused_p99_ms']:.3f} max "
+        f"{out['fused_max_ms']:.3f} ms; host path p50 {out['host_p50_ms']:.3f} p99 "
+        f"{out['host_p99_ms']:.3f} max {out['host_max_ms']:.3f} ms; fused tier {counts}; "
+        f"16 written docs read back by their text ({out['read_back_served']}) and agree "
+        f"with the host path")
+    for arm, by_part in out["host_ms_per_query_by_part"].items():
+        log(f"  write mix, {arm} path: host ms per query by part (nested: fused_search_batch "
+            f"holds the fused_* parts and one vector_device_copy) "
+            f"{json.dumps({key: round(ms, 4) for key, ms in by_part.items()})}")
+    return out
+
+
+def time_fused(db, svc, fused, queries, b, card):
+    """One fused dispatch at B queries, by part: the host plan (with its
+    copies to the card), the device program (CUDA events over back-to-back
+    calls, and the profiler's device time by kernel), the decode, and the
+    whole ``search_batch``. Runs after the main path's counts were read."""
+    import torch
+
+    from nornicdb_tpu_torch.ops.similarity import l2_normalize
+    from nornicdb_tpu_torch.search.bm25 import tokenize
+    from nornicdb_tpu_torch.search.hybrid_fused import fused_single
+
+    qs = [queries[i % len(queries)] for i in range(b)]
+    embs = np.asarray(db._embedder.embed_batch(qs), np.float32)
+    extras = [{"tokens": tuple(tokenize(q)), "n_cand": 30, "w": (1.0, 1.0)} for q in qs]
+    token_rows = [e["tokens"] for e in extras]
+    snap = fused.lex._snap
+
+    def host_ms(fn, iters=20):
+        fn()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / iters
+
+    def plan():
+        return fused.lex.device_args(snap, *fused.lex.plan(snap, token_rows))
+
+    plan_ms = host_ms(plan)
+    lex_args = plan()
+    m, valid, vec_ids, mutations = svc.vectors.device_view()
+    l2v = fused._ensure_map(snap, mutations)
+    dev = m.device
+    qn = l2_normalize(torch.from_numpy(embs).to(dev)).contiguous()
+    tail = (torch.full((b,), 30, device=dev), torch.ones(b, device=dev),
+            torch.ones(b, device=dev))
+
+    def program():
+        return fused_single(*lex_args, l2v, qn, m, valid, *tail, kq=MAIN_K)
+
+    event_ms = time_ms(program)
+    split = device_split(program, expect="merge_kernel")
+    out = [x.cpu().numpy() for x in program()]
+    decode_ms = host_ms(lambda: fused._decode(snap, vec_ids, [], token_rows, extras, *out,
+                                              MAIN_K))
+    total_ms = host_ms(lambda: fused.search_batch(embs, MAIN_K, extras))
+    n_terms = int(lex_args[2].shape[1])
+    row = {"B": b, "unique_terms": n_terms, "postings": int(lex_args[0].numel()),
+           "plan_ms": plan_ms, "device_event_ms": event_ms,
+           "device_ms": sum(split.values()), "device_split": split,
+           "decode_ms": decode_ms, "search_batch_ms": total_ms, "card": card}
+    log(f"fused dispatch B={b} ({n_terms} unique terms, {row['postings']} postings) [{card}]: "
+        f"plan_ms {plan_ms:.4f} device_event_ms {event_ms:.4f} device_ms "
+        f"{row['device_ms']:.4f} decode_ms {decode_ms:.4f} search_batch_ms {total_ms:.4f}; "
+        f"device ms by kernel {json.dumps(split)}")
+    return row
 
 
 # -- timing at the main path's shapes -------------------------------------
@@ -701,13 +1184,13 @@ def main() -> int:
     card = REPORT["card"]
     phase_build()
     phase_kernels(dev, args.seed)
-    launches, vecs = phase_main_path(dev, args.seed, args.docs)
+    launches, conc_launches, mix_launches, vecs = phase_main_path(dev, args.seed, args.docs)
 
     # each kernel timed at the shape the main path gives it
     mp = REPORT["main_path"]
     with vecs._lock:
         m, valid = vecs._device_arrays_locked()
-    topk_rows = [time_topk(dev, m, valid, b, 30, args.seed, card) for b in MAIN_TIMED_B]
+    topk_rows = [time_topk(dev, m, valid, b, MAIN_K, args.seed, card) for b in MAIN_TIMED_B]
     topk_row = topk_rows[0]
     # the main path's encoder runs in bf16, so B2 is timed in bf16; the
     # first row is the ingest shape, the one the kernels line reports
@@ -727,7 +1210,11 @@ def main() -> int:
         {"name": "cosine_topk", "route": "cuda",
          "source": "nornicdb_tpu_torch/csrc/cosine_topk.cu",
          "replaces": "nornicdb_tpu/ops/pallas_topk.py:125",
-         "launches": launches["cosine_topk"],
+         "launches": (launches["cosine_topk"] + conc_launches["cosine_topk"]
+                      + mix_launches["cosine_topk"]),
+         "launches_one_at_a_time": launches["cosine_topk"],
+         "launches_concurrent": conc_launches["cosine_topk"],
+         "launches_write_mix": mix_launches["cosine_topk"],
          "max_abs_err": REPORT["topk_max_abs_err"],
          "ms": topk_row["kernel_ms"], "device_ms": sum(topk_row["device_ms"].values()),
          "plain_ms": topk_row["plain_ms"],
@@ -737,7 +1224,11 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "nornicdb_tpu_torch/csrc/flash_attention.cu",
          "replaces": "nornicdb_tpu/ops/pallas_attention.py:131",
-         "launches": launches["flash_attention"],
+         "launches": (launches["flash_attention"] + conc_launches["flash_attention"]
+                      + mix_launches["flash_attention"]),
+         "launches_one_at_a_time": launches["flash_attention"],
+         "launches_concurrent": conc_launches["flash_attention"],
+         "launches_write_mix": mix_launches["flash_attention"],
          "max_abs_err": REPORT["attention_max_abs_err"],
          "ms": attn_row["kernel_ms"], "device_ms": attn_row["device_ms"],
          "plain_ms": attn_row["plain_ms"],

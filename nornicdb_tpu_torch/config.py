@@ -1,0 +1,26 @@
+"""Environment switches (a copy of ``env_bool``/``env_int`` from
+``nornicdb_tpu/config.py``): every name is read with the ``NORNICDB_``
+prefix, and a missing or malformed value gives the default."""
+
+from __future__ import annotations
+
+import os
+
+ENV_PREFIX = "NORNICDB_"
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(ENV_PREFIX + name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def env_int(name: str, default: int = 0) -> int:
+    v = os.environ.get(ENV_PREFIX + name)
+    if v is None:
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        return default

@@ -18,6 +18,7 @@ kernel; it is chosen on k alone, before any launch, and counted in
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -89,10 +90,12 @@ def fused_cosine_topk(
                 torch.empty((0, k_eff), dtype=torch.int64, device=dev))
     out = launch(_lib(), _GRIDS, queries, matrix, valid, k_eff)
     fused_cosine_topk.launches += 1
+    fused_cosine_topk.launch_sizes[b] += 1
     return out
 
 
 fused_cosine_topk.launches = 0
+fused_cosine_topk.launch_sizes = Counter()  # launches by query count B
 fused_cosine_topk.wide_k_calls = 0
 
 

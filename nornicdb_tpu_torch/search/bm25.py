@@ -1,6 +1,9 @@
 """BM25 fulltext index (Okapi BM25, compact postings): a copy of the parts
 of ``nornicdb_tpu/search/bm25.py`` the main path uses (index, remove,
-search, idf, compaction). Scoring stays on the host, vectorized with
+search, idf, compaction) and what the device snapshot
+(``search/device_bm25.py``) reads: the mutation generation, the capped
+changelog, live term statistics, exact scoring of chosen documents, the
+CSR flattening and per-slot liveness. Host scoring stays vectorized with
 NumPy over the postings arrays, in float32 with terms in sorted order.
 """
 
@@ -40,21 +43,33 @@ def tokenize(text: str, min_len: int = 2, max_len: int = 40) -> List[str]:
 
 
 class _Posting:
-    __slots__ = ("doc_ids", "tfs", "_np_ids", "_np_tfs")
+    __slots__ = ("doc_ids", "tfs", "_np_ids", "_np_tfs", "_np_n")
 
     def __init__(self):
         self.doc_ids: List[int] = []
         self.tfs: List[int] = []
-        self._np_ids: Optional[np.ndarray] = None
-        self._np_tfs: Optional[np.ndarray] = None
+        self._np_ids = np.zeros(0, dtype=np.int64)
+        self._np_tfs = np.zeros(0, dtype=np.float32)
+        self._np_n = 0  # entries converted so far
 
     def arrays(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Cached numpy views, keyed by list length (postings only
-        append; compaction swaps in fresh postings)."""
-        if self._np_ids is None or self._np_ids.size != len(self.doc_ids):
-            self._np_ids = np.asarray(self.doc_ids, dtype=np.int64)
-            self._np_tfs = np.asarray(self.tfs, dtype=np.float32)
-        return self._np_ids, self._np_tfs
+        """Numpy views of the lists. Postings only append (compaction
+        swaps in fresh postings), so only the entries appended since the
+        last call are converted, into buffers that grow by doubling; a
+        view handed out earlier keeps its length and values."""
+        n, have = len(self.doc_ids), self._np_n
+        if have != n:
+            if self._np_ids.size < n:
+                cap = max(n, 2 * have, 16)
+                ids = np.empty(cap, dtype=np.int64)
+                tfs = np.empty(cap, dtype=np.float32)
+                ids[:have] = self._np_ids[:have]
+                tfs[:have] = self._np_tfs[:have]
+                self._np_ids, self._np_tfs = ids, tfs
+            self._np_ids[have:n] = self.doc_ids[have:n]
+            self._np_tfs[have:n] = self.tfs[have:n]
+            self._np_n = n
+        return self._np_ids[:n], self._np_tfs[:n]
 
 
 class BM25Index:
@@ -77,6 +92,17 @@ class BM25Index:
         self._np_gen = -1
         self._np_doc_len: Optional[np.ndarray] = None
         self._np_alive: Optional[np.ndarray] = None
+        # (mutation gen, ext_id) of adds/updates, capped; the device
+        # snapshot exact-scores these between rebuilds. _changelog_floor
+        # marks how far back it reaches; compaction remaps slots, so it
+        # moves the floor past every outstanding marker
+        self._changelog: List[Tuple[int, str]] = []
+        self._changelog_floor = 0
+        # slot ids mean something only between compactions
+        self.compactions = 0
+        # bumped when a slot dies (a removal, or the update that retires
+        # a doc's old slot) and on compaction: slot liveness moves only then
+        self.tombstones = 0
 
     def _np_state(self) -> Tuple[np.ndarray, np.ndarray]:
         if self._np_gen != self._mut_gen:
@@ -112,12 +138,39 @@ class BM25Index:
                 p.tfs.append(c)
                 self._df[t] = self._df.get(t, 0) + 1
             self._doc_terms.append(tuple(counts))
+            self._log_change_locked(doc_id)
+
+    def changelog_cap(self) -> int:
+        return max(4096, len(self._ext_ids) // 4)
+
+    def _log_change_locked(self, doc_id: str) -> None:
+        self._changelog.append((self._mut_gen, doc_id))
+        limit = self.changelog_cap()
+        if len(self._changelog) > limit:
+            cut = len(self._changelog) - limit
+            self._changelog_floor = self._changelog[cut - 1][0]
+            del self._changelog[:cut]
+
+    def changed_since(self, seq: int) -> Optional[List[str]]:
+        """ext_ids added or updated after mutation ``seq`` (latest first,
+        deduped; deletes are not reported). None when the changelog was
+        trimmed, or slots remapped by compaction, past ``seq``."""
+        with self._lock:
+            if seq < self._changelog_floor:
+                return None
+            out: List[str] = []
+            for s, eid in reversed(self._changelog):
+                if s <= seq:
+                    break
+                out.append(eid)
+        return list(dict.fromkeys(out))
 
     def _remove_locked(self, doc_id: str) -> None:
         idx = self._int_of.pop(doc_id, None)
         if idx is None or not self._alive[idx]:
             return
         self._mut_gen += 1
+        self.tombstones += 1
         self._alive[idx] = False
         self._total_len -= self._doc_len[idx]
         self._n_alive -= 1
@@ -169,6 +222,11 @@ class BM25Index:
         self._df = new_df
         self._doc_terms = new_terms
         self._mut_gen += 1
+        self.compactions += 1
+        self.tombstones += 1
+        # slots were remapped: every outstanding snapshot marker is void
+        self._changelog.clear()
+        self._changelog_floor = self._mut_gen
 
     def __contains__(self, doc_id: str) -> bool:
         with self._lock:
@@ -178,16 +236,42 @@ class BM25Index:
     def __len__(self) -> int:
         return self._n_alive
 
+    def ids(self) -> List[str]:
+        """Live (non-tombstoned) document ids."""
+        with self._lock:
+            return [e for e, i in self._int_of.items() if self._alive[i]]
+
+    @property
+    def mut_gen(self) -> int:
+        """Mutation generation, bumped on every add/update/remove/
+        compaction; the device snapshot keys its freshness on it."""
+        return self._mut_gen
+
     # -- scoring ---------------------------------------------------------
 
     def _idf(self, df: int) -> float:
         n = max(self._n_alive, 1)
         return math.log(1.0 + (n - df + 0.5) / (df + 0.5))
 
+    def term_stats(self, terms: Sequence[str]) -> Tuple[Dict[str, int], int, float]:
+        """(live df per term, n_alive, avgdl) under one lock hold."""
+        with self._lock:
+            avgdl = max(self._total_len / max(self._n_alive, 1), 1.0)
+            return ({t: self._df.get(t, 0) for t in terms},
+                    self._n_alive, avgdl)
+
     def search(self, query: str, k: int = 10) -> List[Tuple[str, float]]:
         """Top-k (doc_id, bm25_score)."""
         with self._lock:
             return self._search_locked(tokenize(query), k)
+
+    def search_batch(
+        self, queries: Sequence[str], k: int = 10
+    ) -> List[List[Tuple[str, float]]]:
+        """One ``search`` per query under one lock hold: the contract the
+        device path (``DeviceBM25.search_batch``) shares."""
+        with self._lock:
+            return [self._search_locked(tokenize(q), k) for q in queries]
 
     def _search_locked(self, toks_seq: Sequence[str],
                        k: int) -> List[Tuple[str, float]]:
@@ -221,3 +305,98 @@ class BM25Index:
             return []
         order = cand[np.argsort(-scores[cand], kind="stable")][:k]
         return [(self._ext_ids[i], float(scores[i])) for i in order]
+
+    def score_docs(
+        self, tokens: Sequence[str], doc_ids: Sequence[str]
+    ) -> Dict[str, float]:
+        """Exact BM25 scores of chosen live docs for a tokenized query
+        (only docs matching a term appear): the device snapshot's
+        read-your-writes side-scan of docs indexed after its build."""
+        with self._lock:
+            toks = sorted(set(tokens))
+            want: Dict[int, str] = {}
+            for eid in doc_ids:
+                idx = self._int_of.get(eid)
+                if idx is not None and self._alive[idx]:
+                    want[idx] = eid
+            if not toks or not want:
+                return {}
+            avgdl = max(self._total_len / max(self._n_alive, 1), 1.0)
+            want_idx = sorted(want)
+            out: Dict[str, float] = {}
+            for t in toks:
+                p = self._postings.get(t)
+                df = self._df.get(t, 0)
+                if p is None or df == 0:
+                    continue
+                idf = np.float32(self._idf(df))
+                ids, tfs = p.arrays()
+                # postings append in increasing slot order: binary search
+                pos = np.searchsorted(ids, want_idx)
+                for idx, j in zip(want_idx, pos):
+                    if j >= ids.size or int(ids[j]) != idx:
+                        continue
+                    eid = want[idx]
+                    tf = np.float32(tfs[j])
+                    dl = np.float32(self._doc_len[idx])
+                    tf_norm = tf * np.float32(K1 + 1.0) / (
+                        tf + np.float32(K1) * np.float32(1.0 - B + B * dl / avgdl))
+                    out[eid] = float(np.float32(out.get(eid, 0.0))
+                                     + idf * tf_norm)
+            return out
+
+    def csr_snapshot(self) -> Dict[str, object]:
+        """The live postings flattened for the device scorer: sorted
+        terms, per-term offset ranges over (doc_row, tf) columns in a dense
+        live-row space (tombstones dropped), doc lengths, row ext ids and
+        each row's slot."""
+        with self._lock:
+            doc_len, alive = self._np_state()
+            rows = np.nonzero(alive)[0]
+            remap = np.full(len(self._ext_ids), -1, dtype=np.int32)
+            remap[rows] = np.arange(len(rows), dtype=np.int32)
+            terms = sorted(self._postings)
+            doc_parts: List[np.ndarray] = []
+            tf_parts: List[np.ndarray] = []
+            offsets = np.zeros(len(terms) + 1, dtype=np.int64)
+            total = 0
+            for ti, t in enumerate(terms):
+                ids, tfs = self._postings[t].arrays()
+                live = alive[ids]
+                doc_parts.append(remap[ids[live]])
+                tf_parts.append(tfs[live])
+                total += int(live.sum())
+                offsets[ti + 1] = total
+            return {
+                "gen": self._mut_gen,
+                "compactions": self.compactions,
+                "tombstones": self.tombstones,
+                "vocab": {t: i for i, t in enumerate(terms)},
+                "offsets": offsets,
+                "post_doc": (np.concatenate(doc_parts)
+                             if doc_parts else np.zeros(0, np.int32)),
+                "post_tf": (np.concatenate(tf_parts).astype(np.float32)
+                            if tf_parts else np.zeros(0, np.float32)),
+                "doc_len": doc_len[rows].astype(np.float32),
+                "row_ids": [self._ext_ids[int(s)] for s in rows],
+                # consumers live-filter by SLOT: an update tombstones the
+                # old slot while the ext id stays live at a new one
+                "slots": rows.astype(np.int64),
+            }
+
+    def alive_slots(
+        self, slots: Sequence[int], expect_compactions: Optional[int] = None,
+    ) -> Optional[np.ndarray]:
+        """Bool per slot id: still live? None when a compaction remapped
+        the slot space since ``expect_compactions`` (read and check under
+        one lock hold)."""
+        with self._lock:
+            if expect_compactions is not None \
+                    and self.compactions != expect_compactions:
+                return None
+            _, alive = self._np_state()
+            sl = np.asarray(slots, dtype=np.int64)
+            ok = (sl >= 0) & (sl < alive.size)
+            out = np.zeros(sl.shape, dtype=bool)
+            out[ok] = alive[sl[ok]]
+            return out

@@ -1,12 +1,18 @@
 """Hybrid search service: BM25 + brute-force vector + RRF (counterpart of
 ``nornicdb_tpu/search/service.py:SearchService``).
 
-This slice keeps the host hybrid path: BM25 and the vector index each
-give ``max(limit*3, 30)`` candidates, ``rrf_fuse`` ranks them, the
-``min_score`` gate filters on raw scores, and hits are enriched from
-storage. The micro-batcher, the result cache, the device BM25/fused
-hybrid tier, persistence, reranking, HNSW/CAGRA and audit/cost
-accounting wait for later slices.
+BM25 and the vector index each give ``max(limit*3, 30)`` candidates,
+``rrf_fuse`` ranks them, the ``min_score`` gate filters on raw scores,
+and hits are enriched from storage. Concurrent vector queries coalesce
+through a micro-batcher into one batched top-k. Above
+``NORNICDB_HYBRID_MIN_N`` (4,096) BM25 documents, hybrid queries coalesce
+through a second batcher into one device dispatch of the fused tier
+(``hybrid_fused.py``: device BM25 + B1 + RRF); below it, while its
+snapshot builds, and at its freshness rungs the host path serves. Unlike
+the reference, an error on the fused path raises instead of falling back
+to the host. The result cache, persistence, reranking, HNSW/CAGRA, the
+walk/quant/sharded hybrid tiers and audit/cost accounting wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -18,7 +24,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from nornicdb_tpu_torch._device import DeviceLike
-from nornicdb_tpu_torch.search.bm25 import BM25Index
+from nornicdb_tpu_torch.config import env_bool, env_int
+from nornicdb_tpu_torch.search.bm25 import BM25Index, tokenize
+from nornicdb_tpu_torch.search.hybrid_fused import FusedHybrid
+from nornicdb_tpu_torch.search.microbatch import MicroBatcher
 from nornicdb_tpu_torch.search.rrf import rrf_fuse
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
 from nornicdb_tpu_torch.storage.types import Engine, Node
@@ -72,6 +81,72 @@ class SearchService:
         self._lock = threading.RLock()
         self.bm25 = BM25Index()
         self.vectors = BruteForceIndex(device=device)
+        # concurrent single vector queries ride one batched top-k
+        self._microbatch = MicroBatcher(self.vectors.search_batch)
+        # concurrent hybrid queries ride one fused dispatch; tokens and
+        # fusion options ride as extras, and rows come back shaped
+        self._fused: Optional[FusedHybrid] = None
+        self._hybrid_batch = MicroBatcher(self._fused_hybrid_dispatch,
+                                          pass_extras=True)
+
+    def _fused_hybrid_dispatch(self, queries: np.ndarray, k_max: int,
+                               extras: List[Dict[str, Any]]):
+        """The hybrid batcher's dispatch; None rows send riders to the
+        host path."""
+        fused = self._fused
+        if fused is None:
+            return [None] * len(queries)
+        return fused.search_batch(queries, k_max, extras)
+
+    def _ensure_fused(self) -> Optional[FusedHybrid]:
+        """The fused hybrid tier, or None while the host path must serve:
+        switched by NORNICDB_HYBRID_FUSED (on), floored at
+        NORNICDB_HYBRID_MIN_N BM25 documents (4,096), and built in the
+        background unless NORNICDB_HYBRID_INLINE_BUILD (off) asks for a
+        blocking first build."""
+        with self._lock:
+            f = self._ensure_fused_locked()
+        if f is None or not f.ensure():
+            return None  # the first build runs in the background
+        return f
+
+    def _ensure_fused_locked(self) -> Optional[FusedHybrid]:
+        if not env_bool("HYBRID_FUSED", True):
+            self._fused = None
+            return None
+        min_n = env_int("HYBRID_MIN_N", 4096)
+        if len(self.bm25) < min_n or len(self.vectors) == 0:
+            self._fused = None
+            return None
+        if self._fused is None:
+            self._fused = FusedHybrid(
+                self.bm25, self.vectors, min_n=min_n,
+                build_inline=env_bool("HYBRID_INLINE_BUILD", False))
+        return self._fused
+
+    def _fused_hybrid_trio(self, query: str, qv: np.ndarray, overfetch: int,
+                           weights: Optional[Sequence[float]]):
+        """One coalesced fused-hybrid ride: this query's (lex, vec, fused)
+        candidate lists, or None when the host path must serve. Errors
+        propagate: the reference's fallback on any exception is not kept."""
+        f = self._ensure_fused()
+        if f is None:
+            return None
+        w = tuple(weights) if weights else (1.0, 1.0)
+        if len(w) != 2:
+            return None  # the host rrf_fuse takes other weight shapes
+        return self._hybrid_batch.search(
+            qv, overfetch, extra={"tokens": tuple(tokenize(query)),
+                                  "n_cand": overfetch, "w": w})
+
+    def microbatch_stats(self) -> Dict[str, float]:
+        """How many concurrent single vector queries rode one dispatch."""
+        mb = self._microbatch
+        return {
+            "batches": mb.batches,
+            "batched_queries": mb.batched_queries,
+            "mean_batch": mb.batched_queries / max(mb.batches, 1),
+        }
 
     # -- indexing ---------------------------------------------------------
 
@@ -119,9 +194,9 @@ class SearchService:
     def vector_search_candidates(
         self, query_vec: Sequence[float], k: int = 10,
     ) -> List[Tuple[str, float]]:
-        """Raw vector candidates from the brute-force index."""
-        return self.vectors.search_batch(
-            np.asarray([query_vec], dtype=np.float32), k)[0]
+        """Raw vector candidates from the brute-force index, micro-batched
+        with concurrent callers."""
+        return self._microbatch.search(query_vec, k)
 
     def search(
         self,
@@ -135,8 +210,9 @@ class SearchService:
         weights: Optional[Sequence[float]] = None,
     ) -> List[Dict[str, Any]]:
         """BM25 + vector candidate lists fused with (optionally weighted)
-        RRF, enriched from storage. ``weights`` is the per-source
-        (lexical, vector) weighting; None means (1.0, 1.0)."""
+        RRF, enriched from storage; on a large corpus the fused tier
+        computes all three in one device dispatch. ``weights`` is the
+        per-source (lexical, vector) weighting; None means (1.0, 1.0)."""
         if mode not in MODES:
             raise ValueError(f"unknown search mode {mode!r}")
         overfetch = max(limit * 3, 30)
@@ -148,15 +224,22 @@ class SearchService:
                 qv = np.asarray(query_embedding, dtype=np.float32)
             elif query.strip():
                 qv = self._query_embedding(query)
-        if mode in ("hybrid", "text") and query:
-            bm25_hits = self.bm25.search(query, overfetch)
-        if qv is not None and len(self.vectors) > 0:
-            vec_hits = self.vector_search_candidates(qv, overfetch)
+        trio = None
+        if mode == "hybrid" and query and qv is not None and len(self.vectors) > 0:
+            trio = self._fused_hybrid_trio(query, qv, overfetch, weights)
+        if trio is not None:
+            bm25_hits, vec_hits = trio["lex"], trio["vec"]
+        else:
+            if mode in ("hybrid", "text") and query:
+                bm25_hits = self.bm25.search(query, overfetch)
+            if qv is not None and len(self.vectors) > 0:
+                vec_hits = self.vector_search_candidates(qv, overfetch)
 
         if bm25_hits and vec_hits:
-            fused = rrf_fuse([bm25_hits, vec_hits],
-                             weights=list(weights) if weights else (),
-                             limit=overfetch)
+            # the trio's device fuse is bitwise the host rrf_fuse
+            fused = trio["fused"] if trio is not None else rrf_fuse(
+                [bm25_hits, vec_hits],
+                weights=list(weights) if weights else (), limit=overfetch)
         elif bm25_hits:
             fused = bm25_hits[:overfetch]
         else:

@@ -3,16 +3,22 @@ of ``nornicdb_tpu/search/vector_index.py:BruteForceIndex``).
 
 A host NumPy mirror is the source of truth. A capacity-padded [C, D]
 normalized matrix and its validity mask are copied to the device lazily,
-behind a dirty flag, and queried with the fused cosine top-k kernel
+behind a dirty set (after a few writes only their rows, into a copy of
+the device arrays, so a reader holding the previous pair keeps it), and
+queried with the fused cosine top-k kernel
 (``ops/topk.py``). Growth re-pads to the next power-of-two capacity.
-Small indexes stay on the host (``_SMALL_HOST``). The quantized and
-tiered planes, CAGRA and compaction wait for later slices.
+Small indexes stay on the host (``_SMALL_HOST``). ``device_view`` hands
+the same device arrays to the fused hybrid tier, and ``slots_of`` joins
+ids to slots at a pinned mutation generation; ``slots_changed_since``
+reads a capped log of the ids whose slot changed, so a join derived once
+can be patched after writes. The quantized and tiered planes, CAGRA and
+compaction wait for later slices.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,8 @@ class BruteForceIndex:
 
     # below this many matrix cells, host numpy beats a device round trip
     _SMALL_HOST = 1 << 18
+    # ids whose slot changed (new id or removal) kept for join patching
+    _SLOT_LOG_CAP = 4096
 
     def __init__(self, dims: Optional[int] = None, device: DeviceLike = None):
         self.dims = dims
@@ -47,8 +55,13 @@ class BruteForceIndex:
         self.mutations = 0  # bumped on every add/remove
         self._dev_matrix: Optional[torch.Tensor] = None
         self._dev_valid: Optional[torch.Tensor] = None
-        self._dirty = True
+        # slots written since the last device copy; None = copy it all
+        self._dirty_rows: Optional[Set[int]] = None
         self._ids_view: Optional[Tuple[int, List[Optional[str]]]] = None
+        # (mutations after the change, ext id) per slot change; changes at
+        # or before _slot_log_floor were trimmed
+        self._slot_log: List[Tuple[int, str]] = []
+        self._slot_log_floor = 0
 
     def __len__(self) -> int:
         return self._n_alive
@@ -79,7 +92,7 @@ class BruteForceIndex:
         self._valid = new_v
         self._ext_ids.extend([None] * (new_cap - len(self._ext_ids)))
         self._capacity = new_cap
-        self._dirty = True
+        self._dirty_rows = None
 
     # -- mutation ---------------------------------------------------------
 
@@ -97,11 +110,27 @@ class BruteForceIndex:
             self._ext_ids[slot] = ext_id
             self._slot_of[ext_id] = slot
             self._n_alive += 1
+            self._log_slot_locked(ext_id)
         elif v.shape[0] != self.dims:
             raise DimsMismatch(f"dims mismatch: index={self.dims}, vector={v.shape[0]}")
         self._matrix[slot] = self._normalize(v)
-        self._dirty = True
+        self._mark_dirty_locked(slot)
         self.mutations += 1
+
+    def _mark_dirty_locked(self, slot: int) -> None:
+        rows = self._dirty_rows
+        if rows is not None:
+            rows.add(slot)
+            if len(rows) > self._capacity // 8:
+                self._dirty_rows = None  # a whole copy is cheaper
+
+    def _log_slot_locked(self, ext_id: str) -> None:
+        """Log a slot change as of the mutation about to be counted."""
+        self._slot_log.append((self.mutations + 1, ext_id))
+        if len(self._slot_log) > 2 * self._SLOT_LOG_CAP:
+            cut = len(self._slot_log) - self._SLOT_LOG_CAP
+            self._slot_log_floor = self._slot_log[cut - 1][0]
+            del self._slot_log[:cut]
 
     def add(self, ext_id: str, vector: Sequence[float]) -> None:
         v = np.asarray(vector, dtype=np.float32)
@@ -129,7 +158,8 @@ class BruteForceIndex:
             self._ext_ids[slot] = None
             self._free.append(slot)
             self._n_alive -= 1
-            self._dirty = True
+            self._log_slot_locked(ext_id)
+            self._mark_dirty_locked(slot)
             self.mutations += 1
             return True
 
@@ -151,13 +181,72 @@ class BruteForceIndex:
     # -- search -----------------------------------------------------------
 
     def _device_arrays_locked(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self._dirty or self._dev_matrix is None:
+        if self._dev_matrix is None or self._dirty_rows is None:
             self._dev_matrix = torch.from_numpy(self._matrix).to(
                 self.device, copy=True)
             self._dev_valid = torch.from_numpy(self._valid).to(
                 self.device, copy=True)
-            self._dirty = False
+        elif self._dirty_rows:
+            rows = np.fromiter(self._dirty_rows, np.int64, len(self._dirty_rows))
+            idx = torch.from_numpy(rows).to(self.device)
+            m = self._dev_matrix.clone()
+            m[idx] = torch.from_numpy(self._matrix[rows]).to(self.device)
+            valid = self._dev_valid.clone()
+            valid[idx] = torch.from_numpy(self._valid[rows]).to(self.device)
+            self._dev_matrix, self._dev_valid = m, valid
+        self._dirty_rows = set()
         return self._dev_matrix, self._dev_valid
+
+    def slots_of(
+        self, ext_ids: Sequence[str], expect_mutations: Optional[int] = None,
+    ) -> Optional[List[int]]:
+        """Current slot per ext id (-1 when absent), or None when
+        ``expect_mutations`` no longer matches: a write landed since the
+        caller captured its view, and joining fresh slots against that
+        view could mis-join. Read and check share one lock hold."""
+        with self._lock:
+            if expect_mutations is not None and self.mutations != expect_mutations:
+                return None
+            return [self._slot_of.get(e, -1) for e in ext_ids]
+
+    def slots_changed_since(
+        self, since: int, expect_mutations: int,
+    ) -> Optional[Dict[str, int]]:
+        """Current slot (-1 when absent) of each id whose slot changed
+        after mutation ``since``, or None when ``expect_mutations`` no
+        longer matches (as in ``slots_of``) or the log no longer reaches
+        back to ``since``. Writes that keep an id's slot are not logged:
+        they leave a join unchanged."""
+        with self._lock:
+            if self.mutations != expect_mutations or since < self._slot_log_floor:
+                return None
+            out: Dict[str, int] = {}
+            for gen, eid in reversed(self._slot_log):
+                if gen <= since:
+                    break
+                out.setdefault(eid, self._slot_of.get(eid, -1))
+            return out
+
+    def view_meta(self) -> Optional[int]:
+        """The mutation counter, or None while the index is empty,
+        without bringing the device arrays up to date."""
+        with self._lock:
+            if self._n_alive == 0 or self._matrix is None:
+                return None
+            return self.mutations
+
+    def device_view(
+        self,
+    ) -> Optional[Tuple[torch.Tensor, torch.Tensor, List[Optional[str]], int]]:
+        """(matrix [C, D], valid [C], slot -> id list, mutations) captured
+        under one lock hold, or None while empty: the device arrays
+        ``search_batch`` dispatches against, for batched callers (the
+        fused hybrid tier)."""
+        with self._lock:
+            if self._n_alive == 0 or self._matrix is None:
+                return None
+            m, valid = self._device_arrays_locked()
+            return m, valid, self._ids_locked(), self.mutations
 
     def _ids_locked(self) -> List[Optional[str]]:
         """The slot -> id list, copied once per mutation generation."""

@@ -153,3 +153,66 @@ def test_flash_attention_bf16_kernel_takes_a_misaligned_base(dev, dtype):
     qm.copy_(q)
     assert qm.data_ptr() % 16 != 0
     assert torch.equal(flash_attention(qm, k, v, mask), flash_attention(q, k, v, mask))
+
+
+def _fused_pair(dev, n=3000, d=64, seed=5):
+    """The same corpus in a fused hybrid tier on the card and on the CPU,
+    with exact vector duplicates (cosine ties) and queries on them."""
+    from nornicdb_tpu_torch.search.bm25 import BM25Index
+    from nornicdb_tpu_torch.search.hybrid_fused import FusedHybrid
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    rng = np.random.default_rng(seed)
+    vocab = [f"term{i}" for i in range(64)]
+    texts = [" ".join(rng.choice(vocab, size=int(rng.integers(3, 12)))) for _ in range(n)]
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs[n // 2: n // 2 + 50] = vecs[:50]
+    tiers = []
+    for device in (dev, "cpu"):
+        bm25, brute = BM25Index(), BruteForceIndex(device=device)
+        for i, text in enumerate(texts):
+            bm25.index(f"d{i}", text)
+        brute.add_batch([(f"d{i}", vecs[i]) for i in range(n)])
+        tier = FusedHybrid(bm25, brute, min_n=1)
+        assert tier.build()
+        tiers.append(tier)
+    queries = [" ".join(rng.choice(vocab, size=int(rng.integers(1, 6)))) for _ in range(24)]
+    embs = rng.standard_normal((24, d)).astype(np.float32)
+    embs[:4] = vecs[:4]
+    extras = [{"tokens": tuple(q.split()), "n_cand": 30, "w": (1.0, 1.0)} for q in queries]
+    return tiers, embs, extras
+
+
+def _lists_agree(a, b, atol):
+    if len(a) != len(b):
+        return False
+    return not a or topk_agree([[i for i, _ in a]], [[s for _, s in a]],
+                               [[i for i, _ in b]], [[s for _, s in b]], atol)
+
+
+@pytest.mark.parametrize("b", [1, 24])
+def test_fused_hybrid_on_the_card_matches_the_cpu(dev, b):
+    """Lexical lists tie-aware within a relative 1e-5 (cuBLAS adds a doc's
+    terms in another order), vector lists within 1e-5, and each fused list
+    bitwise the host ``rrf_fuse`` of its own two lists."""
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
+    from nornicdb_tpu_torch.search.rrf import rrf_fuse
+
+    (card, cpu), embs, extras = _fused_pair(dev)
+    before = fused_cosine_topk.launches
+    rows = card.search_batch(embs[:b], 32, extras[:b])
+    assert fused_cosine_topk.launches == before + 1
+    for got, want in zip(rows, cpu.search_batch(embs[:b], 32, extras[:b])):
+        assert got["served_by"] == TIER_BRUTE_F32
+        top = max([abs(s) for _, s in want["lex"]] or [1.0])
+        assert _lists_agree(got["lex"], want["lex"], 1e-5 * max(top, 1.0))
+        assert _lists_agree(got["vec"], want["vec"], SCORE_ATOL)
+        assert got["fused"] == rrf_fuse([got["lex"], got["vec"]], limit=30)
+
+
+def test_fused_hybrid_on_the_card_is_deterministic(dev):
+    (card, _), embs, extras = _fused_pair(dev, seed=6)
+    first = card.search_batch(embs, 32, extras)
+    second = card.search_batch(embs, 32, extras)
+    for a, b in zip(first, second):
+        assert (a["lex"], a["vec"], a["fused"]) == (b["lex"], b["vec"], b["fused"])
