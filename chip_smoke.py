@@ -24,8 +24,18 @@ Phases, in order; any failure exits non-zero:
 4. Main path through the public entry points: ``open(device="cuda")`` with
    the committed mini encoder (bf16, the default), ``store`` of seeded
    documents, ``flush`` (the embed queue must have failed no node, and the
-   vector index must hold every document), 64 queries each in vector, text
-   and hybrid mode, one at a time. Above ``NORNICDB_HYBRID_MIN_N`` (4,096)
+   vector index must hold every document). The host HNSW library
+   (``csrc/hnsw_host.cpp``) is built with ``c++`` and timed apart. The
+   first ``db.search`` backfills the indexes; at 10,000 vectors and above the strategy machine
+   builds HNSW once at its end (``stats.strategy`` must read ``hnsw``,
+   ``hnsw_builds`` 1; the build's seconds are printed). Then 64 queries
+   each in vector, text and hybrid mode, one at a time, with the result
+   cache invalidated (a generation bump) before each mode, so no timed
+   query is a cache hit. Vector mode is served from HNSW, approximate as
+   in the reference: its 64 answers must hold recall@10 >= 0.95 against
+   ``vector_search_candidates(..., exact=True)``, and the self-probe (a
+   stored document's text finds that document) and the wide-k check call
+   that exact path. Above ``NORNICDB_HYBRID_MIN_N`` (4,096)
    documents the first hybrid query starts the fused tier's snapshot build
    in the background; the phase waits for it (failing after
    ``HYBRID_BUILD_TIMEOUT_S``) before timing hybrid mode, and every timed
@@ -34,17 +44,28 @@ Phases, in order; any failure exits non-zero:
    with the host path's and a fused list bitwise the host ``rrf_fuse`` of
    its two lists. Both kernels' launch counters must grow, and the vector
    answers must match the plain path (B = 64). Then 16 client threads
-   send 32 queries each, alternating vector and hybrid: the batchers must
-   coalesce (mean batch above 1), B1's batched kernel (B >= 5) must
-   launch, and every answer must agree with the one-at-a-time answer. The
-   fused dispatch is timed by part (host plan, device by events and by
-   ``torch.profiler``, decode) at B in ``FUSED_TIMED_B``. Then a few
-   ``recall(limit=100, mode="vector")`` calls (k = 300) must take the
+   send 32 queries each, alternating vector and hybrid, with the cache's
+   probe missing so that every request reaches its tier: the hybrid
+   batcher must coalesce (mean batch above 1) into B1 launches at B >= 5;
+   vector queries call HNSW directly (no vector rides) above the
+   threshold; every answer must agree with the one-at-a-time answer.
+   Then the same threads ride the brute tier's vector batcher directly
+   (``svc._microbatch.search``, the route of every deployment under the
+   threshold) over the same index: mean batch above 1, a B1 launch at
+   B >= 5 on that route, answers equal to one-at-a-time ``exact=True``
+   answers. The
+   cache phase repeats the 64 hybrid queries twice after an invalidation:
+   the second pass must be 64 cache hits equal to the first pass's
+   answers, and after one ``store`` the next repeat must miss. The fused
+   dispatch is timed by part (host plan, device by events and by
+   ``torch.profiler``, decode) at B in ``FUSED_TIMED_B``. Then
+   ``vector_search_candidates(qv, 300, exact=True)`` must take the
    wide-k route and not B1, and agree with the plain path. Last, stores
    while it recalls: ``WRITE_MIX_BLOCKS`` blocks of ``WRITE_MIX_ROUNDS``
    rounds, each one ``store`` and one timed hybrid ``recall``, blocks
-   alternating the fused tier and the host path; it reports each path's
-   p50/p99 and host ms per query by part, accepts no hand-off but a
+   alternating the fused tier and the host path (whose vector half is
+   HNSW); it reports each path's p50/p99 and host ms per query by part,
+   with the HNSW insert each store makes, accepts no hand-off but a
    vector race, and after a flush every recent document must be found by
    its own text with fused answers that agree with the host path.
 5. Index at deployment scale: a 1,048,576 x 1024 float32
@@ -103,9 +124,14 @@ EMBED_BF16_COS_MIN = 0.9995
 # host (and may fuse a multiply-add), so a score may move by a rounding
 # step; lists agree tie-aware within this relative tolerance.
 LEX_RTOL = 1e-5
+# HNSW is the statistical tier above 10,000 vectors: its answers are held
+# to recall@10 against exact search, as the reference holds its own
+RECALL_MIN = 0.95
+REFERENCE_EF_SEARCH = 64  # the JAX package's SearchService default
 HYBRID_BUILD_TIMEOUT_S = 300.0
 CONCURRENT_THREADS = 16
 CONCURRENT_PER_THREAD = 32
+VECTOR_RIDE_K = 30  # a recall(limit=10)'s vector overfetch
 # the store-while-recall phase: blocks alternate fused tier and host path
 WRITE_MIX_BLOCKS = 4
 WRITE_MIX_ROUNDS = 48
@@ -512,6 +538,35 @@ def batcher_mark(mb):
     return mb.batches, mb.batched_queries, Counter(mb.sizes)
 
 
+def invalidate_cache(svc, why):
+    """Bump the result cache's generation, as an index write does, so the
+    next queries reach their tier."""
+    gen = svc.generation
+    svc._clear_result_cache()
+    log(f"  result cache invalidated {why} (generation {gen} -> {svc.generation})")
+
+
+class CacheBypass:
+    """Inside a ``with`` block every probe of the service's result cache
+    misses (counted in ``probes``), so repeated queries reach their tier;
+    puts are unchanged."""
+
+    def __init__(self, svc):
+        self.cache = svc._result_cache
+        self.probes = 0
+
+    def __enter__(self):
+        def miss(key):
+            self.probes += 1
+            return None
+
+        self.cache.get_hits = miss
+        return self
+
+    def __exit__(self, *exc):
+        del self.cache.get_hits
+
+
 def route_split(total, vector, fused):
     """B1 launches by batch size on each route: the micro-batched vector
     ride, the fused hybrid dispatch, and direct calls (the rest)."""
@@ -530,6 +585,8 @@ def phase_main_path(dev, seed, n_docs):
     from nornicdb_tpu_torch.ops.attention import flash_attention
     from nornicdb_tpu_torch.ops.similarity import cosine_topk_auto, l2_normalize
     from nornicdb_tpu_torch.ops.topk import fused_cosine_topk, topk_agree
+    from nornicdb_tpu_torch.search import hnsw_native
+    from nornicdb_tpu_torch.search.hnsw import HNSWIndex
     from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
 
     rng = np.random.default_rng(seed + 1)
@@ -552,16 +609,48 @@ def phase_main_path(dev, seed, n_docs):
     # logged and the node left without a vector, so count both here
     if db._embed_queue.failed_count:
         raise AssertionError(f"the embed queue failed {db._embed_queue.failed_count} nodes")
+    # the host HNSW library (c++ -march=native, at first use on this CPU),
+    # built here so that the HNSW build below is timed without it
     t1 = time.perf_counter()
-    svc = db.search  # builds BM25 + vector indexes over the stored nodes
+    hnsw_native.get_lib()
+    host_build_s = time.perf_counter() - t1
+    log(f"  host HNSW library: built or loaded in {host_build_s:.2f} s")
+    t1 = time.perf_counter()
+    hnsw_build = PartTimer({"build": (HNSWIndex, "build")})
+    try:
+        svc = db.search  # builds BM25 + vector (+ HNSW) indexes over the stored nodes
+    finally:
+        hnsw_build.close()
     index_s = time.perf_counter() - t1
     if len(svc.vectors) != n_docs:
         raise AssertionError(f"the vector index holds {len(svc.vectors)} of {n_docs} documents")
+    use_hnsw = n_docs >= svc.hnsw_threshold
+    strategy = {"strategy": svc.stats.strategy, "hnsw_builds": svc.stats.hnsw_builds,
+                "host_library_s": host_build_s,
+                "hnsw_build_s": hnsw_build.ms["build"] / 1e3, "threshold": svc.hnsw_threshold}
+    if use_hnsw:
+        hnsw = svc.hnsw
+        if svc.stats.strategy != "hnsw" or svc.stats.hnsw_builds != 1 \
+                or hnsw_build.calls["build"] != 1 \
+                or hnsw is None or len(hnsw) != n_docs:
+            raise AssertionError(f"the backfill did not build HNSW once over every vector: {strategy}")
+        strategy.update(hnsw_vectors=len(hnsw), hnsw_max_level=hnsw._max_level,
+                        hnsw_m=hnsw.m, hnsw_ef_construction=hnsw.ef_construction,
+                        hnsw_ef_search=hnsw.ef_search)
+        log(f"  strategy {svc.stats.strategy}: {svc.stats.hnsw_builds} HNSW build over "
+            f"{len(hnsw)} vectors in {strategy['hnsw_build_s']:.3f} s (of the "
+            f"{index_s:.2f} s index build), top level {hnsw._max_level}")
+    elif svc.stats.strategy != "brute" or svc.stats.hnsw_builds:
+        raise AssertionError(f"HNSW built below its threshold: {strategy}")
+    else:
+        log(f"  strategy brute: {n_docs} docs, under the {svc.hnsw_threshold}-vector threshold")
     vec_mark, hyb_mark = batcher_mark(svc._microbatch), batcher_mark(svc._hybrid_batch)
     lat = {}
     results = {}
 
     def timed(mode):
+        invalidate_cache(svc, f"before the timed {mode} queries")
+        hits0 = svc.stats.cache_hits
         ts = []
         for q in queries:
             t = time.perf_counter()
@@ -569,6 +658,8 @@ def phase_main_path(dev, seed, n_docs):
             torch.cuda.synchronize()
             ts.append((time.perf_counter() - t) * 1e3)
         lat[mode] = ts
+        if svc.stats.cache_hits != hits0 + len(queries) - len(set(queries)):
+            raise AssertionError(f"a timed {mode} query was served by the result cache")
 
     timed("vector")
     timed("text")
@@ -586,7 +677,7 @@ def phase_main_path(dev, seed, n_docs):
         f"bytes; capacity {fused.lex._snap['c']} rows")
     recorder = TrioRecorder(svc)
     counts0 = dict(fused.counts)
-    timed("hybrid")
+    timed("hybrid")  # invalidates first: the warm-up query above was cached
     served = {key: n - counts0.get(key, 0) for key, n in fused.counts.items()
               if n != counts0.get(key, 0)}
     launches = {"flash_attention": flash_attention.launches,
@@ -603,8 +694,34 @@ def phase_main_path(dev, seed, n_docs):
             or fused.handoffs():
         raise AssertionError(f"timed hybrid queries not all served by the fused tier: {served}")
 
-    # right answers: hits are well-formed, and a stored document's own
-    # text finds that document first in vector mode
+    # the vector tier's answers against exact search (after the counts
+    # were read): HNSW is approximate above the threshold, held to
+    # recall@10 >= 0.95
+    exact = {}
+    for q in queries:
+        qv = np.asarray(db._embedder.embed(q), np.float32)
+        exact[q] = svc.vector_search_candidates(qv, 10, exact=True)
+    recall10 = float(np.mean([
+        len({h["id"] for h in results[("vector", q)]} & {i for i, _ in exact[q]}) / 10
+        for q in queries]))
+    strategy["vector_recall_at_10"] = recall10
+    extra = ""
+    if use_hnsw:
+        # the same queries at the reference's query beam (64), beside the
+        # port's (ROADMAP C11)
+        ref_hits = [hnsw.search(np.asarray(db._embedder.embed(q), np.float32), 30,
+                                ef=REFERENCE_EF_SEARCH)[:10] for q in queries]
+        ref_recall = float(np.mean([
+            len({i for i, _ in h} & {i for i, _ in exact[q]}) / 10
+            for h, q in zip(ref_hits, queries)]))
+        strategy["recall_at_10_reference_ef"] = ref_recall
+        extra = (f" at ef_search {hnsw.ef_search}; {ref_recall:.4f} at the reference's "
+                 f"ef_search {REFERENCE_EF_SEARCH}")
+    log(f"  vector mode ({svc.stats.strategy}): recall@10 {recall10:.4f} against "
+        f"exact=True over {len(queries)} queries{extra}")
+    if recall10 < RECALL_MIN:
+        raise AssertionError(f"vector recall@10 {recall10:.4f} < {RECALL_MIN}")
+    # right answers: hits are well-formed
     for (mode, q), hits in results.items():
         if not hits or len(hits) > 10:
             raise AssertionError(f"{mode} search for {q!r} returned {len(hits)} hits")
@@ -624,14 +741,17 @@ def phase_main_path(dev, seed, n_docs):
     log(f"  hybrid: {len(seq_trios)} fused answers agree with the host path (lexical "
         f"tie-aware within {LEX_RTOL} relative, vector within {TOPK_SCORE_ATOL}, fused "
         f"bitwise the host rrf_fuse)")
+    # a stored document's own text finds that document first by exact
+    # search (HNSW's answer is approximate by contract)
     probe = [int(x) for x in rng.integers(0, n_docs, 16)]
     dup = {}
     for i, t in enumerate(docs):
         dup.setdefault(t, i)
     for i in probe:
-        hit = db.recall(docs[i], limit=1, mode="vector")[0]
-        if hit["id"] != f"d{dup[docs[i]]}" and abs(hit["score"] - 1.0) > 1e-5:
-            raise AssertionError(f"doc d{i} is not its own nearest neighbour: {hit}")
+        qv = np.asarray(db._embedder.embed(docs[i]), np.float32)
+        hit_id, score = svc.vector_search_candidates(qv, 1, exact=True)[0]
+        if hit_id != f"d{dup[docs[i]]}" and abs(score - 1.0) > 1e-5:
+            raise AssertionError(f"doc d{i} is not its own nearest neighbour: {hit_id} {score}")
 
     # embeddings on the card agree with the CPU port on a small input: two
     # explicit float32 embedders agree to float sums, and the DB's default
@@ -666,26 +786,30 @@ def phase_main_path(dev, seed, n_docs):
     conc = phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios)
     fused_rows = [time_fused(db, svc, fused, queries, b, REPORT["card"]) for b in FUSED_TIMED_B]
 
-    # recall(limit=100) asks for k = 300 > MAX_K: the reference's XLA
-    # route, counted apart from B1's launches
+    cache = phase_cache(db, svc, fused, queries)
+
+    # k = 300 > MAX_K: the reference's XLA route, counted apart from B1's
+    # launches (recall(limit=100) asks HNSW for 300 above the threshold)
     before = (fused_cosine_topk.launches, fused_cosine_topk.wide_k_calls)
     wide_q = queries[:4]
-    wide = [db.recall(q, limit=100, mode="vector") for q in wide_q]
+    qw_np = np.asarray(db._embedder.embed_batch(wide_q), np.float32)
+    wide = [svc.vector_search_candidates(qv, 300, exact=True) for qv in qw_np]
     grew = (fused_cosine_topk.launches - before[0], fused_cosine_topk.wide_k_calls - before[1])
     if grew != (0, len(wide_q)):
-        raise AssertionError(f"limit-100 recalls took B1 or skipped the wide-k route: {grew}")
-    qw = l2_normalize(torch.tensor(np.asarray(db._embedder.embed_batch(wide_q)),
-                                   dtype=torch.float32, device=dev)).contiguous()
+        raise AssertionError(f"k = 300 exact searches took B1 or skipped the wide-k route: {grew}")
+    with vecs._lock:
+        m, valid = vecs._device_arrays_locked()
+    qw = l2_normalize(torch.tensor(qw_np, dtype=torch.float32, device=dev)).contiguous()
     s_p, i_p = (x.cpu().numpy() for x in cosine_topk_auto(qw, m, valid, 300))
     ext = vecs._ids_locked()
     for row, hits in enumerate(wide):
-        if len(hits) != 100:
-            raise AssertionError(f"limit-100 recall returned {len(hits)} hits")
-        if not topk_agree([[h["id"] for h in hits]], [[h["score"] for h in hits]],
-                          [[ext[int(i)] for i in i_p[row, :100]]], [s_p[row, :100]],
-                          TOPK_SCORE_ATOL):
-            raise AssertionError("limit-100 recall disagrees with the plain path at k = 300")
-    log(f"  recall(limit=100): {len(wide_q)} wide-k calls, 0 B1 launches, answers agree")
+        if len(hits) != 300:
+            raise AssertionError(f"a k = 300 exact search returned {len(hits)} hits")
+        if not topk_agree([[i for i, _ in hits]], [[s for _, s in hits]],
+                          [[ext[int(i)] for i in i_p[row]]], [s_p[row]], TOPK_SCORE_ATOL):
+            raise AssertionError("k = 300 exact search disagrees with the plain path")
+    log(f"  vector_search_candidates(k=300, exact=True): {len(wide_q)} wide-k calls, "
+        f"0 B1 launches, answers agree")
     write_mix = phase_write_mix(db, svc, fused, docs, queries, rng)
 
     def pct(xs, p):
@@ -700,12 +824,15 @@ def phase_main_path(dev, seed, n_docs):
         "cosine_topk_launch_sizes": sizes,
         "cosine_topk_routes": routes,
         "wide_k_calls": grew[1],
+        "strategy": strategy,
+        "cache": cache,
         "queries_per_mode": len(queries),
         "texts_embedded": embedded,
         "launches_per_query": {
-            # vector and hybrid searches each scan the index once (one more:
-            # the host-served hybrid query that starts the snapshot build)
-            "cosine_topk": launches["cosine_topk"] / (2 * len(queries)),
+            # a hybrid search scans the index once; above the threshold a
+            # vector search (and the host-served hybrid query that starts
+            # the snapshot build) takes HNSW, below it one B1 ride more
+            "cosine_topk": launches["cosine_topk"] / (len(queries) * (1 if use_hnsw else 2)),
             # per text through the encoder (one launch per layer per batch)
             "flash_attention": launches["flash_attention"] / max(embedded, 1),
         },
@@ -731,7 +858,8 @@ def phase_main_path(dev, seed, n_docs):
         f"flush {flush_s:.2f} s, index build {index_s:.2f} s, "
         f"capacity {vecs._capacity} x {vecs.dims}")
     for mode in lat:
-        log(f"  search {mode}: p50 {mp[mode + '_p50_ms']:.3f} ms "
+        tier = f" ({svc.stats.strategy})" if mode == "vector" else ""
+        log(f"  search {mode}{tier}: p50 {mp[mode + '_p50_ms']:.3f} ms "
             f"p99 {mp[mode + '_p99_ms']:.3f} ms (first {mp[mode + '_first_ms']:.3f} ms, "
             f"max after it {mp[mode + '_max_after_first_ms']:.3f} ms)")
     db.close()
@@ -739,9 +867,16 @@ def phase_main_path(dev, seed, n_docs):
 
 
 def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
-    """16 client threads, 32 queries each, alternating vector and hybrid:
-    the batchers must coalesce, B1's batched kernel (B >= 5) must launch,
-    and each answer must agree with the one-at-a-time answer."""
+    """16 client threads, 32 queries each, alternating vector and hybrid,
+    with every result-cache probe missing (each mode's 256 requests repeat
+    its 64 queries, which the cache would otherwise answer): the
+    hybrid batcher must coalesce into B1 launches at B >= 5, vector
+    queries call HNSW directly above the threshold (no vector rides) and
+    ride their batcher below it, and each answer must agree with the
+    one-at-a-time answer. Then the same threads ride the vector batcher
+    directly, as every recall does below the threshold: it must coalesce
+    into a B1 launch at B >= 5, with answers equal to one-at-a-time
+    exact answers."""
     import threading
 
     import torch
@@ -750,6 +885,7 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
     from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
     from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
 
+    qvs = np.asarray(db._embedder.embed_batch(queries), np.float32)
     flash_attention.launches = 0
     fused_cosine_topk.launches = 0
     fused_cosine_topk.launch_sizes.clear()
@@ -771,41 +907,97 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
             errors.append(exc)
 
     threads = [threading.Thread(target=client, args=(t,)) for t in range(CONCURRENT_THREADS)]
+    invalidate_cache(svc, "before the concurrent phase; inside it every probe misses")
+    hits0 = svc.stats.cache_hits
+    with CacheBypass(svc) as bypass:
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a concurrent client did not finish")
+    if errors:
+        raise errors[0]
+    recall_vq = batcher_delta(svc._microbatch, vec_mark)[1]
+
+    # the brute tier's vector batcher, the route of every deployment
+    # under the threshold: above it no recall rides it, so the clients
+    # ride it directly over the same index
+    ride_mark = batcher_mark(svc._microbatch)
+    rides = []
+    ride_barrier = threading.Barrier(CONCURRENT_THREADS)
+
+    def rider(t):
+        try:
+            ride_barrier.wait()
+            for j in range(CONCURRENT_PER_THREAD):
+                i = (t * 5 + j) % len(queries)
+                rides.append((i, svc._microbatch.search(qvs[i], VECTOR_RIDE_K)))
+        except BaseException as exc:  # noqa: BLE001 -- re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=rider, args=(t,)) for t in range(CONCURRENT_THREADS)]
     t0 = time.perf_counter()
     for th in threads:
         th.start()
     for th in threads:
         th.join(timeout=600)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    ride_wall_s = time.perf_counter() - t0
     if any(th.is_alive() for th in threads):
-        raise AssertionError("a concurrent client did not finish")
+        raise AssertionError("a vector rider did not finish")
     if errors:
         raise errors[0]
     launches = {"flash_attention": flash_attention.launches,
                 "cosine_topk": fused_cosine_topk.launches}
     sizes = dict(sorted(fused_cosine_topk.launch_sizes.items()))
+    rb, rq, rsizes = batcher_delta(svc._microbatch, ride_mark)
     vb, vq, vsizes = batcher_delta(svc._microbatch, vec_mark)
     hb, hq, hsizes = batcher_delta(svc._hybrid_batch, hyb_mark)
     served = {key: n - counts0.get(key, 0) for key, n in fused.counts.items()
               if n != counts0.get(key, 0)}
     n_q = CONCURRENT_THREADS * CONCURRENT_PER_THREAD
+    use_hnsw = svc.hnsw is not None
     out = {"threads": CONCURRENT_THREADS, "queries": n_q, "wall_s": wall_s,
            "queries_per_s": n_q / wall_s, "launches": launches,
+           "vector_tier": "hnsw" if use_hnsw else "brute",
+           "cache_probes_missed": bypass.probes,
            "cosine_topk_launch_sizes": sizes,
            "cosine_topk_routes": route_split(sizes, vsizes, hsizes),
+           "recall_vector_rides": recall_vq,
            "vector_batches": vb, "vector_queries": vq, "vector_mean_batch": vq / max(vb, 1),
+           "vector_batch_sizes": vsizes,
+           "direct_vector_rides": {"queries": rq, "batches": rb, "wall_s": ride_wall_s,
+                                   "queries_per_s": rq / ride_wall_s,
+                                   "mean_batch": rq / max(rb, 1), "batch_sizes": rsizes},
            "hybrid_batches": hb, "hybrid_queries": hq, "hybrid_mean_batch": hq / max(hb, 1),
+           "hybrid_batch_sizes": hsizes,
            "mean_batch": (vq + hq) / max(vb + hb, 1), "fused_served": served}
     log(f"concurrent: {n_q} queries from {CONCURRENT_THREADS} threads in {wall_s:.3f} s; "
-        f"mean batch {out['mean_batch']:.3f} (vector {out['vector_mean_batch']:.3f} over "
-        f"{vb} batches, hybrid {out['hybrid_mean_batch']:.3f} over {hb}); batch sizes "
-        f"vector {vsizes} hybrid {hsizes}; B1 launches {launches['cosine_topk']} by B {sizes}; "
-        f"fused tier {served}")
-    if vq + hq != n_q or out["mean_batch"] <= 1.0:
+        f"vector tier {out['vector_tier']}: {recall_vq} recall vector rides; hybrid mean "
+        f"batch {out['hybrid_mean_batch']:.3f} over {hb} batches (sizes {hsizes}); "
+        f"B1 launches {launches['cosine_topk']} by B {sizes}; fused tier {served}; "
+        f"{bypass.probes} cache probes missed")
+    log(f"  direct vector rides: {rq} in {rb} batches in {ride_wall_s:.3f} s, mean batch "
+        f"{rq / max(rb, 1):.3f} (sizes {rsizes}); vector batcher in all {vq} rides in "
+        f"{vb} batches, mean {out['vector_mean_batch']:.3f}")
+    if bypass.probes != n_q or svc.stats.cache_hits != hits0:
+        raise AssertionError(f"the result cache answered in the concurrent phase: {out}")
+    if hq != n_q // 2 or recall_vq != (0 if use_hnsw else n_q // 2) or rq != n_q:
+        raise AssertionError(f"vector or hybrid queries took the wrong route: {out}")
+    if out["hybrid_mean_batch"] <= 1.0 or out["vector_mean_batch"] <= 1.0 \
+            or rq / max(rb, 1) <= 1.0:
         raise AssertionError(f"the batchers did not coalesce: {out}")
-    if not any(b >= 5 for b in sizes):
-        raise AssertionError(f"B1's batched kernel (B >= 5) never launched: {sizes}")
+    # each ride is one B1 launch at its batch's size
+    if any(sizes.get(b, 0) < n + hsizes.get(b, 0) for b, n in vsizes.items()):
+        raise AssertionError(f"a batcher's ride did not launch B1: {out}")
+    if not any(b >= 5 for b in hsizes) or not any(b >= 5 for b in sizes):
+        raise AssertionError(f"no hybrid ride launched B1's batched kernel (B >= 5): {out}")
+    if not any(b >= 5 for b in vsizes):
+        raise AssertionError(f"no vector ride launched B1's batched kernel (B >= 5): {out}")
     if served.get(TIER_BRUTE_F32) != hq or fused.handoffs():
         raise AssertionError(
             f"concurrent hybrid queries not all served by the fused tier: {served}")
@@ -828,25 +1020,86 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
             raise AssertionError(f"concurrent vector answer for {q!r} differs from one at a time")
         if mode == "hybrid" and q not in changed and got != [(h["id"], h["score"]) for h in want]:
             raise AssertionError(f"concurrent hybrid hits for {q!r} differ from one at a time")
+    one = {i: svc.vector_search_candidates(qvs[i], VECTOR_RIDE_K, exact=True)
+           for i in sorted({i for i, _ in rides})}
+    for i, hits in rides:
+        if not hits_agree(hits, one[i], TOPK_SCORE_ATOL):
+            raise AssertionError(f"a vector ride for {queries[i]!r} differs from exact=True")
     same = sum(lists(trio) == lists(seq_trios[q]) for q, trio in recorder.rows)
     log(f"  concurrent answers agree with one at a time ({same} of {len(recorder.rows)} "
-        f"hybrid trios identical)")
+        f"hybrid trios identical; {len(rides)} vector rides equal to exact=True)")
     out["hybrid_trios_identical"] = same
     return out
 
 
+def phase_cache(db, svc, fused, queries):
+    """The result cache on its own: after an invalidation, the hybrid
+    queries once as misses (served by the fused tier) and once more as
+    hits, which must equal the misses' answers; then one ``store`` (its
+    index write bumps the generation) makes the next repeat a miss."""
+    import torch
+
+    uniq = list(dict.fromkeys(queries))
+    invalidate_cache(svc, "before the cache phase")
+    lat = {"miss": [], "hit": []}
+    answers = {}
+    for kind in ("miss", "hit"):
+        hits0, dispatch0 = svc.stats.cache_hits, fused.counts.get("dispatch", 0)
+        for q in uniq:
+            t = time.perf_counter()
+            hits = db.recall(q, limit=10, mode="hybrid")
+            torch.cuda.synchronize()
+            lat[kind].append((time.perf_counter() - t) * 1e3)
+            if kind == "miss":
+                answers[q] = hits
+            elif hits != answers[q]:
+                raise AssertionError(f"cache: the hit for {q!r} differs from the miss's answer")
+        grew = (svc.stats.cache_hits - hits0, fused.counts.get("dispatch", 0) - dispatch0)
+        want = (0, len(uniq)) if kind == "miss" else (len(uniq), 0)
+        if grew != want:
+            raise AssertionError(f"cache {kind} pass: (cache hits, fused dispatches) grew "
+                                 f"by {grew}, not {want}")
+    gen = svc.generation
+    db.store("cache invalidation probe " + uniq[0], node_id="cache_probe")
+    db.flush()
+    hits0 = svc.stats.cache_hits
+    after = db.recall(uniq[0], limit=10, mode="hybrid")
+    if svc.generation <= gen or svc.stats.cache_hits != hits0:
+        raise AssertionError("cache: a store did not make the next repeat a miss")
+    hits0 = svc.stats.cache_hits
+    if db.recall(uniq[0], limit=10, mode="hybrid") != after or svc.stats.cache_hits != hits0 + 1:
+        raise AssertionError("cache: the repeat after the store's miss was not a hit")
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p))
+
+    out = {"queries": len(uniq), "hits": len(uniq), "generation_after_store": svc.generation,
+           "stats_cache_hits": svc.stats.cache_hits, "stats_searches": svc.stats.searches}
+    for kind, ts in lat.items():
+        out[f"{kind}_p50_ms"] = pct(ts, 50)
+        out[f"{kind}_p99_ms"] = pct(ts, 99)
+    log(f"cache: {len(uniq)} hybrid queries as misses p50 {out['miss_p50_ms']:.4f} p99 "
+        f"{out['miss_p99_ms']:.4f} ms, then as hits p50 {out['hit_p50_ms']:.4f} p99 "
+        f"{out['hit_p99_ms']:.4f} ms; stats.cache_hits grew by {len(uniq)}, every hit equals "
+        f"its miss; one store bumped the generation and the next repeat missed")
+    return out
+
+
 class PartTimer:
-    """Host ms spent inside chosen methods, by name: each is wrapped on its
-    instance (behaviour unchanged) until ``close``. Calls from any thread
-    count, so a part shared with a background thread is not measured."""
+    """Host ms spent inside chosen methods, and their calls, by name: each
+    is wrapped on its instance or class (behaviour unchanged) until
+    ``close``. Calls from any thread count, so a part shared with a
+    background thread is not measured apart."""
 
     def __init__(self, parts):
         from collections import Counter
 
         self.ms = Counter()
+        self.calls = Counter()
         self._wrapped = []
         for name, (obj, attr) in parts.items():
             inner = getattr(obj, attr)
+            own = vars(obj).get(attr)  # a class's own function, restored on close
 
             def timed(*args, _inner=inner, _name=name, **kw):
                 t = time.perf_counter()
@@ -854,13 +1107,17 @@ class PartTimer:
                     return _inner(*args, **kw)
                 finally:
                     self.ms[_name] += (time.perf_counter() - t) * 1e3
+                    self.calls[_name] += 1
 
             setattr(obj, attr, timed)
-            self._wrapped.append((obj, attr))
+            self._wrapped.append((obj, attr, own))
 
     def close(self):
-        for obj, attr in self._wrapped:
-            delattr(obj, attr)
+        for obj, attr, own in self._wrapped:
+            if own is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, own)
 
 
 def phase_write_mix(db, svc, fused, docs, queries, rng):
@@ -869,10 +1126,11 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
     recall, in blocks that alternate the fused tier with the host path
     (the service's hybrid branch with the fused ride answering None, so
     the fused tier keeps its snapshot between blocks). Reports each
-    path's p50/p99 and host ms per query by part, and the fused tier's
-    hand-offs and join-map derivations by kind. After a
-    flush, every written document must be found by its own text, and the
-    fused tier must agree with the host path."""
+    path's p50/p99 and host ms per query by part, the host ms of the HNSW
+    insert each store makes above the threshold (every store must make
+    one), and the fused tier's hand-offs and join-map derivations by
+    kind. After a flush, every written document must be found by its own
+    text, and the fused tier must agree with the host path."""
     from collections import Counter
 
     import torch
@@ -886,26 +1144,37 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
     ride = svc._fused_hybrid_trio
     lat = {"fused": [], "host": []}
     parts = {"fused": Counter(), "host": Counter()}
-    timer = PartTimer({
+    timed_parts = {
         # the matrix's copy to the card after vector writes (both paths)
         "vector_device_copy": (svc.vectors, "_device_arrays_locked"),
         "query_embed": (svc, "_query_embedding"),
         "host_bm25": (svc.bm25, "search"),
-        "host_vector_ride": (svc, "vector_search_candidates"),
+        # the host path's vector half: HNSW above the threshold
+        "host_vector_search": (svc, "vector_search_candidates"),
         "fused_alive_refresh": (fused.lex, "refresh_alive"),
         "fused_plan": (fused.lex, "plan"),
         "fused_join_map": (fused, "_ensure_map"),
         "fused_decode": (fused, "_decode"),
         "fused_search_batch": (fused, "search_batch"),
-    })
+    }
+    hnsw = svc.hnsw
+    if hnsw is not None:
+        # each store's HNSW insert, on the embed queue's thread (index_node)
+        timed_parts["hnsw_insert"] = (hnsw, "add")
+    timer = PartTimer(timed_parts)
     counts0 = dict(fused.counts)
     written = []
     n = 0
+    # a recall may land before the embed queue has indexed the store just
+    # made, and so hit an entry cached before it: counted per path
+    invalidate_cache(svc, "before the write mix")
+    cache_hits = Counter()
     try:
         for block in range(WRITE_MIX_BLOCKS):
             arm = "fused" if block % 2 == 0 else "host"
             svc._fused_hybrid_trio = ride if arm == "fused" else (lambda *a: None)
             mark = Counter(timer.ms)
+            hits0 = svc.stats.cache_hits
             for _ in range(WRITE_MIX_ROUNDS):
                 a, b = (docs[int(i)].split() for i in rng.integers(0, len(docs), 2))
                 text = " ".join(a[: len(a) // 2] + b[len(b) // 2:])
@@ -919,18 +1188,24 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
                 lat[arm].append((time.perf_counter() - t) * 1e3)
             parts[arm].update(timer.ms)
             parts[arm].subtract(mark)
+            cache_hits[arm] += svc.stats.cache_hits - hits0
+        db.flush()
+        inserts = (timer.calls["hnsw_insert"], timer.ms["hnsw_insert"])
     finally:
         svc._fused_hybrid_trio = ride
         timer.close()
-    db.flush()
+    if hnsw is not None and (svc.hnsw is not hnsw or inserts[0] != len(written)
+                             or any(doc_id not in hnsw for doc_id, _ in written)):
+        raise AssertionError(f"write mix: {inserts[0]} HNSW inserts for {len(written)} stores")
     launches = {"flash_attention": flash_attention.launches,
                 "cosine_topk": fused_cosine_topk.launches}
     counts = {key: n - counts0.get(key, 0) for key, n in fused.counts.items()
               if n != counts0.get(key, 0)}
     fused_rows = counts.get(TIER_BRUTE_F32, 0) + counts.get("host", 0)
     handoffs = {key: n for key, n in counts.items() if key.startswith("handoff_")}
-    if fused_rows + sum(handoffs.values()) != len(lat["fused"]):
-        raise AssertionError(f"write mix: fused-arm queries unaccounted for: {counts}")
+    if fused_rows + sum(handoffs.values()) + cache_hits["fused"] != len(lat["fused"]):
+        raise AssertionError(f"write mix: fused-arm queries unaccounted for: {counts}, "
+                             f"cache hits {dict(cache_hits)}")
     if set(handoffs) - {"handoff_vec_race"}:
         raise AssertionError(f"write mix: unexpected hand-offs {handoffs}")
     # read-your-writes: each written document by its own text
@@ -953,6 +1228,9 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
     out = {"rounds_per_path": {arm: len(ts) for arm, ts in lat.items()},
            "writes": len(written), "launches": launches, "fused_counts": counts,
            "handoff_vec_race": counts.get("handoff_vec_race", 0),
+           "cache_hits": dict(cache_hits),
+           "hnsw_inserts": inserts[0],
+           "hnsw_insert_ms_per_store": inserts[1] / len(written),
            "read_back_served": dict(Counter(t["served_by"] for _, t in recorder.rows
                                             if t is not None)),
            "host_ms_per_query_by_part": {
@@ -966,8 +1244,10 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
         f"p50 {out['fused_p50_ms']:.3f} p99 {out['fused_p99_ms']:.3f} max "
         f"{out['fused_max_ms']:.3f} ms; host path p50 {out['host_p50_ms']:.3f} p99 "
         f"{out['host_p99_ms']:.3f} max {out['host_max_ms']:.3f} ms; fused tier {counts}; "
+        f"cache hits {dict(cache_hits)}; "
         f"16 written docs read back by their text ({out['read_back_served']}) and agree "
-        f"with the host path")
+        f"with the host path; {inserts[0]} HNSW inserts, "
+        f"{out['hnsw_insert_ms_per_store']:.3f} host ms per store")
     for arm, by_part in out["host_ms_per_query_by_part"].items():
         log(f"  write mix, {arm} path: host ms per query by part (nested: fused_search_batch "
             f"holds the fused_* parts and one vector_device_copy) "
@@ -1200,7 +1480,7 @@ def main() -> int:
     REPORT["main_path_timings"] = {"cosine_topk": topk_rows, "flash_attention": attn_rows}
     del m, valid, vecs
     log(f"launches per query: cosine_topk {mp['launches_per_query']['cosine_topk']:.3f} "
-        f"(per vector or hybrid search), flash_attention "
+        f"(per hybrid search; per vector search too below the HNSW threshold), flash_attention "
         f"{mp['launches_per_query']['flash_attention']:.4f} (per text through the encoder)")
 
     phase_index(dev, args.seed, args.index_rows, card)

@@ -8,6 +8,11 @@ source builds anew and an unchanged one is reused. ``build()`` starts one
 ``nvcc`` per source, all at once. The compiler's register and shared
 memory report (``-Xptxas -v``) is kept beside each library as a
 ``.log``.
+
+Host code in ``csrc/*.cpp`` (``HOST_SOURCES``: the HNSW build and query
+kernels) compiles the same way with the host compiler, ``c++``, into a
+library keyed also by the CPU it was built on, since ``-march=native``
+code must not run on another instruction set (``host_library``).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -30,6 +36,13 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
 }
 
+HOST_SOURCES = {
+    "hnsw_host": "hnsw_host.cpp",
+}
+
+# the JAX package's flags for the same source, so both build one graph
+HOST_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
+
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +50,9 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# host libraries that failed to build, with the error: a process runs the
+# compiler once per library, not once per caller
+_host_failed: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -48,13 +64,73 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> str:
-    src = os.path.join(SRC_DIR, SOURCES[name])
+def _hashed_path(name: str, src_file: str, *keys: str) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as f:
+    with open(os.path.join(SRC_DIR, src_file), "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for key in keys:
+        h.update(key.encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def library_path(name: str) -> str:
+    return _hashed_path(name, SOURCES[name], " ".join(NVCC_FLAGS))
+
+
+def _cpu_flags() -> str:
+    """The instruction-set flags of this CPU, for the host library key."""
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return ""
+
+
+def host_library_path(name: str) -> str:
+    return _hashed_path(name, HOST_SOURCES[name], " ".join(HOST_FLAGS),
+                        platform.machine(), _cpu_flags())
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name``, compiled with ``c++`` first if
+    this source was not built on this CPU yet. Raises with the
+    compiler's output when it cannot be built; a failed build is
+    remembered, and later calls raise the same error without running the
+    compiler again."""
+    key = "host:" + name
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            if key in _host_failed:
+                raise RuntimeError(_host_failed[key])
+            try:
+                lib = _libs[key] = ctypes.CDLL(_build_host(name))
+            except (OSError, RuntimeError) as e:
+                _host_failed[key] = str(e)
+                raise
+        return lib
+
+
+def _build_host(name: str) -> str:
+    """Path of host library ``name``, compiled first if it is not built."""
+    out = host_library_path(name)
+    if os.path.exists(out):
+        return out
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"no host C++ compiler: {name} cannot be built")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        [cxx, *HOST_FLAGS, "-o", tmp, os.path.join(SRC_DIR, HOST_SOURCES[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}: {cxx} exited {proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
 
 
 def build(names: Optional[Iterable[str]] = None) -> float:

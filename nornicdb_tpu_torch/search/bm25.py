@@ -1,10 +1,11 @@
 """BM25 fulltext index (Okapi BM25, compact postings): a copy of the parts
 of ``nornicdb_tpu/search/bm25.py`` the main path uses (index, remove,
-search, idf, compaction) and what the device snapshot
-(``search/device_bm25.py``) reads: the mutation generation, the capped
-changelog, live term statistics, exact scoring of chosen documents, the
-CSR flattening and per-slot liveness. Host scoring stays vectorized with
-NumPy over the postings arrays, in float32 with terms in sorted order.
+search, idf, compaction), the seeds of the HNSW build (``seed_doc_ids``)
+and what the device snapshot (``search/device_bm25.py``) reads: the
+mutation generation, the capped changelog, live term statistics, exact
+scoring of chosen documents, the CSR flattening and per-slot liveness.
+Host scoring stays vectorized with NumPy over the postings arrays, in
+float32 with terms in sorted order.
 """
 
 from __future__ import annotations
@@ -400,3 +401,35 @@ class BM25Index:
             out = np.zeros(sl.shape, dtype=bool)
             out[ok] = alive[sl[ok]]
             return out
+
+    # -- seed selection (BM25-seeded builds) ------------------------------
+
+    def seed_doc_ids(
+        self, max_seeds: int = 2048, n_terms: int = 256, per_term: Optional[int] = None
+    ) -> List[str]:
+        """Lexically discriminative docs: take the ``n_terms`` highest-IDF
+        terms (ignoring hapax noise) and collect their top-tf docs, up to
+        ``max_seeds``, highest-signal first. They anchor the HNSW build's
+        insertion order."""
+        with self._lock:
+            if self._n_alive == 0:
+                return []
+            ranked_terms = []
+            for t in self._postings:
+                df = self._df.get(t, 0)
+                if df < 2:  # hapax terms don't discriminate clusters
+                    continue
+                ranked_terms.append((self._idf(df), t))
+            ranked_terms.sort(reverse=True)
+            per_term = per_term or max(1, max_seeds // max(n_terms, 1))
+            seen: Dict[int, None] = {}
+            for _, t in ranked_terms[:n_terms]:
+                p = self._postings[t]
+                order = np.argsort(-np.asarray(p.tfs))[:per_term]
+                for j in order:
+                    idx = p.doc_ids[int(j)]
+                    if self._alive[idx]:
+                        seen.setdefault(idx, None)
+                if len(seen) >= max_seeds:
+                    break
+            return [self._ext_ids[i] for i in list(seen)[:max_seeds]]

@@ -1,31 +1,48 @@
-"""Hybrid search service: BM25 + brute-force vector + RRF (counterpart of
+"""Hybrid search service: BM25 + vector + RRF, with the strategy machine
+and the result cache (counterpart of
 ``nornicdb_tpu/search/service.py:SearchService``).
 
-BM25 and the vector index each give ``max(limit*3, 30)`` candidates,
+BM25 and the vector tier each give ``max(limit*3, 30)`` candidates,
 ``rrf_fuse`` ranks them, the ``min_score`` gate filters on raw scores,
-and hits are enriched from storage. Concurrent vector queries coalesce
-through a micro-batcher into one batched top-k. Above
-``NORNICDB_HYBRID_MIN_N`` (4,096) BM25 documents, hybrid queries coalesce
-through a second batcher into one device dispatch of the fused tier
-(``hybrid_fused.py``: device BM25 + B1 + RRF); below it, while its
-snapshot builds, and at its freshness rungs the host path serves. Unlike
-the reference, an error on the fused path raises instead of falling back
-to the host. The result cache, persistence, reranking, HNSW/CAGRA, the
-walk/quant/sharded hybrid tiers and audit/cost accounting wait for later
-slices.
+and hits are enriched from storage. Results are cached by query and
+options (``cache.py:ResultCache``: LRU 1000, TTL 300 s); every index
+mutation bumps the cache's generation.
+
+Vector tiers: below ``hnsw_threshold`` (10,000) vectors, exact brute
+force, whose concurrent queries coalesce through a micro-batcher into
+one batched top-k; at the threshold the strategy machine builds a host
+HNSW (BM25-seeded, ``search/hnsw.py``) and vector search is served from
+it, as in the reference. ``exact=True`` always takes brute force, never
+through the batcher. A live write switches at the write that crosses the
+threshold; ``build_indexes`` holds the switch back until its backfill
+ends, so one wave build covers the whole corpus. The ``cagra`` ANN
+profile raises: its device graph tier is not ported.
+
+Above ``NORNICDB_HYBRID_MIN_N`` (4,096) BM25 documents, hybrid queries
+coalesce through a second batcher into one device dispatch of the fused
+tier (``hybrid_fused.py``: device BM25 + B1 + RRF); below it, while its
+snapshot builds, and at its freshness rungs the host path serves, with
+the vector tier above for its vector half. Unlike the reference, an
+error on the fused path raises instead of falling back to the host.
+Persistence, reranking, CAGRA, the walk/quant/sharded hybrid tiers and
+audit/cost accounting wait for later slices.
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from nornicdb_tpu_torch._device import DeviceLike
+from nornicdb_tpu_torch.cache import ResultCache
 from nornicdb_tpu_torch.config import env_bool, env_int
+from nornicdb_tpu_torch.search.ann_quality import current_profile
 from nornicdb_tpu_torch.search.bm25 import BM25Index, tokenize
+from nornicdb_tpu_torch.search.hnsw import HNSWIndex
 from nornicdb_tpu_torch.search.hybrid_fused import FusedHybrid
 from nornicdb_tpu_torch.search.microbatch import MicroBatcher
 from nornicdb_tpu_torch.search.rrf import rrf_fuse
@@ -34,6 +51,33 @@ from nornicdb_tpu_torch.storage.types import Engine, Node
 
 TEXT_PROPERTIES = ("content", "title", "name", "description", "text", "summary")
 MODES = ("hybrid", "vector", "text")
+# HNSW's query beam. At the reference's 64, recall@10 against exact
+# search falls under the 0.95 a statistical tier must hold on
+# chip_smoke.py's 100,000 documents and short queries (it prints the
+# recall at both beams); 128, the beam of the reference's ``accurate``
+# profile, holds it. The graph does not depend on it.
+HNSW_EF_SEARCH = 128
+
+
+def _copy_tree(v):
+    """Deep copy of plain JSON-shaped data (dicts, lists, scalars)."""
+    if isinstance(v, dict):
+        return {k: _copy_tree(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_copy_tree(x) for x in v]
+    return v
+
+
+def _copy_hit(r: Dict[str, Any]) -> Dict[str, Any]:
+    """Cache-safe copy of one search hit: its properties and labels are
+    the node's own by reference, so a caller's mutation of a shallow copy
+    would poison the cached entry for the whole TTL."""
+    c = dict(r)
+    if "properties" in c:
+        c["properties"] = _copy_tree(c["properties"])
+    if "labels" in c:
+        c["labels"] = list(c["labels"])
+    return c
 
 
 def extract_text(node: Node) -> str:
@@ -67,6 +111,19 @@ class SearchResult:
         return d
 
 
+@dataclass
+class SearchStats:
+    indexed_docs: int = 0
+    indexed_vectors: int = 0
+    strategy: str = "brute"
+    searches: int = 0
+    cache_hits: int = 0
+    hnsw_builds: int = 0
+    # per-stage timings of the most recent search, kept while
+    # NORNICDB_TPU_SEARCH_DIAG is set
+    last_timings: Dict[str, float] = field(default_factory=dict)
+
+
 class SearchService:
     """One search service per logical database."""
 
@@ -75,12 +132,21 @@ class SearchService:
         storage: Optional[Engine] = None,
         embedder: Optional[Any] = None,
         device: DeviceLike = None,
+        hnsw_threshold: int = 10_000,
+        hnsw_m: int = 16,
+        hnsw_ef_search: int = HNSW_EF_SEARCH,
     ):
         self.storage = storage
         self.embedder = embedder
+        self.hnsw_threshold = hnsw_threshold
         self._lock = threading.RLock()
         self.bm25 = BM25Index()
         self.vectors = BruteForceIndex(device=device)
+        self.hnsw: Optional[HNSWIndex] = None
+        self._hnsw_m = hnsw_m
+        self._hnsw_ef = hnsw_ef_search
+        self.stats = SearchStats()
+        self._result_cache = ResultCache(_copy_hit)
         # concurrent single vector queries ride one batched top-k
         self._microbatch = MicroBatcher(self.vectors.search_batch)
         # concurrent hybrid queries ride one fused dispatch; tokens and
@@ -139,6 +205,15 @@ class SearchService:
             qv, overfetch, extra={"tokens": tuple(tokenize(query)),
                                   "n_cand": overfetch, "w": w})
 
+    def _clear_result_cache(self) -> None:
+        self._result_cache.bump_generation()
+
+    @property
+    def generation(self) -> int:
+        """Write generation of the result cache, bumped on every index
+        mutation."""
+        return self._result_cache.generation
+
     def microbatch_stats(self) -> Dict[str, float]:
         """How many concurrent single vector queries rode one dispatch."""
         mb = self._microbatch
@@ -151,10 +226,21 @@ class SearchService:
     # -- indexing ---------------------------------------------------------
 
     def index_node(self, node: Node) -> None:
-        """Index one node's text + embedding."""
+        """Index one node's text + embedding; switches the vector tier at
+        the write that crosses ``hnsw_threshold``."""
+        self._index_node(node, switch=True)
+
+    def _index_node(self, node: Node, switch: bool) -> None:
         if any(lbl.startswith("_") for lbl in node.labels):
             return  # system-owned nodes stay out of the native index
         text = extract_text(node)
+        try:
+            self._index_node_locked(node, text, switch)
+        finally:
+            # the write is in the indexes even when the switch raises
+            self._clear_result_cache()
+
+    def _index_node_locked(self, node: Node, text: str, switch: bool) -> None:
         with self._lock:
             if text:
                 self.bm25.index(node.id, text)
@@ -166,23 +252,78 @@ class SearchService:
                 vec = list(np.mean(np.asarray(node.chunk_embeddings), axis=0))
             if vec is not None:
                 self.vectors.add(node.id, vec)
+                if self.hnsw is not None:
+                    self.hnsw.add(node.id, vec)
             else:
-                self.vectors.remove(node.id)  # update removed the embedding
+                # update removed the embedding: drop stale vectors
+                self.vectors.remove(node.id)
+                if self.hnsw is not None:
+                    self.hnsw.remove(node.id)
+            self.stats.indexed_docs = len(self.bm25)
+            self.stats.indexed_vectors = len(self.vectors)
+            if switch:
+                self._maybe_switch_strategy()
 
     def remove_node(self, node_id: str) -> None:
-        with self._lock:
-            self.bm25.remove(node_id)
-            self.vectors.remove(node_id)
+        try:
+            with self._lock:
+                self.bm25.remove(node_id)
+                self.vectors.remove(node_id)
+                if self.hnsw is not None:
+                    self.hnsw.remove(node_id)
+                    if self.hnsw.should_rebuild():
+                        self._rebuild_hnsw_locked()
+                self.stats.indexed_docs = len(self.bm25)
+                self.stats.indexed_vectors = len(self.vectors)
+        finally:
+            self._clear_result_cache()
 
     def build_indexes(self) -> int:
-        """Index every node in storage. Returns the count indexed."""
+        """Index every node in storage. Returns the count indexed.
+
+        The strategy switch is held back until the backfill ends, so one
+        BM25-seeded wave build covers the whole corpus; the reference
+        switches at the threshold's node and then inserts every later
+        node alone, through the single-insert Python path."""
         if self.storage is None:
             return 0
         n = 0
-        for node in self.storage.all_nodes():
-            self.index_node(node)
-            n += 1
+        try:
+            for node in self.storage.all_nodes():
+                self._index_node(node, switch=False)
+                n += 1
+            with self._lock:
+                self._maybe_switch_strategy()
+        finally:
+            self._clear_result_cache()
         return n
+
+    # -- strategy state machine -------------------------------------------
+
+    def _maybe_switch_strategy(self) -> None:
+        if len(self.vectors) < self.hnsw_threshold:
+            return
+        if current_profile().index_kind == "cagra":
+            raise NotImplementedError(
+                "the cagra ANN profile's device graph tier is not ported "
+                "(ROADMAP §A6); unset NORNICDB_VECTOR_ANN_QUALITY or pick "
+                "an HNSW profile")
+        if self.hnsw is None:
+            self._rebuild_hnsw_locked()
+
+    def _rebuild_hnsw_locked(self) -> None:
+        """(Re)build HNSW from the brute index, BM25 seeds first."""
+        items = []
+        matrix, valid, ext_ids = self.vectors.snapshot()
+        for slot, eid in enumerate(ext_ids):
+            if eid is not None and valid[slot]:
+                items.append((eid, matrix[slot]))
+        seeds = self.bm25.seed_doc_ids()
+        idx = HNSWIndex(m=self._hnsw_m, ef_search=self._hnsw_ef)
+        idx.build(items, seed_ids=seeds)
+        self.hnsw = idx
+        self.stats.hnsw_builds += 1
+        self.stats.strategy = "hnsw"
 
     # -- search -----------------------------------------------------------
 
@@ -192,10 +333,19 @@ class SearchService:
         return np.asarray(self.embedder.embed(query), dtype=np.float32)
 
     def vector_search_candidates(
-        self, query_vec: Sequence[float], k: int = 10,
+        self, query_vec: Sequence[float], k: int = 10, exact: bool = False,
     ) -> List[Tuple[str, float]]:
-        """Raw vector candidates from the brute-force index, micro-batched
-        with concurrent callers."""
+        """Raw vector candidates: from HNSW once built (unless
+        ``exact``), else from the brute-force index, micro-batched with
+        concurrent callers. ``exact=True`` calls brute force directly: it
+        never rides the batcher."""
+        with self._lock:
+            hnsw = self.hnsw
+        if not exact and hnsw is not None:
+            return hnsw.search(query_vec, k)
+        if exact:
+            return self.vectors.search_batch(
+                np.asarray([query_vec], dtype=np.float32), k)[0]
         return self._microbatch.search(query_vec, k)
 
     def search(
@@ -212,9 +362,31 @@ class SearchService:
         """BM25 + vector candidate lists fused with (optionally weighted)
         RRF, enriched from storage; on a large corpus the fused tier
         computes all three in one device dispatch. ``weights`` is the
-        per-source (lexical, vector) weighting; None means (1.0, 1.0)."""
+        per-source (lexical, vector) weighting; None means (1.0, 1.0).
+        Results are cached by query and options until the next index
+        mutation; a request with an explicit ``query_embedding`` bypasses
+        the cache."""
         if mode not in MODES:
             raise ValueError(f"unknown search mode {mode!r}")
+        self.stats.searches += 1
+        # read per search, so the toggle takes effect on the next one;
+        # stale timings are cleared before the cache probe, so a hit
+        # cannot serve an earlier diagnostic run's timings
+        diag = env_bool("TPU_SEARCH_DIAG")
+        if not diag and self.stats.last_timings:
+            self.stats.last_timings = {}
+        cache_key = None
+        if query_embedding is None:
+            cache_key = (query, limit, mode, min_score, enrich,
+                         tuple(labels) if labels else None,
+                         tuple(weights) if weights else None)
+            cached = self._result_cache.get_hits(cache_key)
+            if cached is not None:
+                self.stats.cache_hits += 1
+                return cached
+            gen_at_miss = self._result_cache.generation
+        timings: Dict[str, float] = {}
+        t0 = time.perf_counter() if diag else 0.0
         overfetch = max(limit * 3, 30)
         bm25_hits: List[Tuple[str, float]] = []
         vec_hits: List[Tuple[str, float]] = []
@@ -224,16 +396,28 @@ class SearchService:
                 qv = np.asarray(query_embedding, dtype=np.float32)
             elif query.strip():
                 qv = self._query_embedding(query)
+            if diag:
+                timings["embed_ms"] = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
         trio = None
         if mode == "hybrid" and query and qv is not None and len(self.vectors) > 0:
             trio = self._fused_hybrid_trio(query, qv, overfetch, weights)
         if trio is not None:
             bm25_hits, vec_hits = trio["lex"], trio["vec"]
+            if diag:
+                timings["fused_ms"] = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
         else:
             if mode in ("hybrid", "text") and query:
                 bm25_hits = self.bm25.search(query, overfetch)
+            if diag:
+                timings["bm25_ms"] = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
             if qv is not None and len(self.vectors) > 0:
                 vec_hits = self.vector_search_candidates(qv, overfetch)
+            if diag:
+                timings["vector_ms"] = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
 
         if bm25_hits and vec_hits:
             # the trio's device fuse is bitwise the host rrf_fuse
@@ -244,6 +428,9 @@ class SearchService:
             fused = bm25_hits[:overfetch]
         else:
             fused = vec_hits[:overfetch]
+        if diag:
+            timings["fuse_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
 
         bm = dict(bm25_hits)
         vs = dict(vec_hits)
@@ -269,4 +456,11 @@ class SearchService:
             out.append(res.to_dict())
             if len(out) >= limit:
                 break
+        if diag:
+            # the reference's key; no reranker is ported, so it times
+            # enrichment alone
+            timings["enrich_rerank_ms"] = (time.perf_counter() - t0) * 1e3
+            self.stats.last_timings = timings
+        if cache_key is not None:
+            return self._result_cache.put_guarded(cache_key, out, gen_at_miss)
         return out

@@ -239,3 +239,271 @@ def test_db_store_of_a_mismatched_embedding_matches_jax():
     finally:
         tdb.close()
         jdb.close()
+
+
+# -- the strategy machine, HNSW tier and result cache ------------------------
+
+from nornicdb_tpu.search.service import SearchService as JService  # noqa: E402
+from nornicdb_tpu.storage.memory import MemoryEngine as JEngine  # noqa: E402
+from nornicdb_tpu.storage.types import Node as JNode  # noqa: E402
+from nornicdb_tpu_torch.search.service import HNSW_EF_SEARCH  # noqa: E402
+from nornicdb_tpu_torch.search.service import SearchService as TService  # noqa: E402
+from nornicdb_tpu_torch.storage.memory import MemoryEngine as TEngine  # noqa: E402
+from nornicdb_tpu_torch.storage.types import Node as TNode  # noqa: E402
+
+HNSW_THRESHOLD = 256
+HNSW_D = 32
+# both packages' HNSW compute the same float32 sums in the same order
+HNSW_SCORE_ATOL = 1e-6
+
+
+def _zipf_corpus(seed, n_docs):
+    rng = np.random.default_rng(seed)
+    vocab = _words(rng, 600)
+    p = 1.0 / np.arange(1, len(vocab) + 1) ** 1.1
+    p /= p.sum()
+    return [" ".join(vocab[w] for w in rng.choice(len(vocab), rng.integers(5, 40), p=p))
+            for _ in range(n_docs)]
+
+
+@pytest.mark.parametrize("corpus", ["parity300", "zipf"])
+def test_bm25_seed_doc_ids_match_jax(corpus):
+    docs = _corpus(7)[0] if corpus == "parity300" else _zipf_corpus(21, 2500)
+    j, t = JBM25(), TBM25()
+    for idx in (j, t):
+        for i, text in enumerate(docs):
+            idx.index(f"d{i}", text)
+        for i in range(0, 60, 6):  # updates and removes change df
+            idx.index(f"d{i}", docs[i + 1])
+            idx.remove(f"d{i + 3}")
+    for kw in ({}, {"max_seeds": 64, "n_terms": 16}, {"max_seeds": 500, "per_term": 3}):
+        seeds = t.seed_doc_ids(**kw)
+        assert seeds == j.seed_doc_ids(**kw), kw
+        assert seeds and len(seeds) == len(set(seeds))
+    assert TBM25().seed_doc_ids() == []
+
+
+def _hnsw_corpus(n_docs, seed=31):
+    """Clustered vectors with texts that share a topic word per cluster."""
+    rng = np.random.default_rng(seed)
+    docs = _zipf_corpus(seed, n_docs)
+    centers = rng.standard_normal((24, HNSW_D)).astype(np.float32) * 3.0
+    topic = rng.integers(0, 24, n_docs)
+    vecs = (centers[topic] + rng.standard_normal((n_docs, HNSW_D))).astype(np.float32)
+    docs = [f"topic{c} {text}" for c, text in zip(topic, docs)]
+    queries = (centers[rng.integers(0, 24, 12)]
+               + rng.standard_normal((12, HNSW_D)).astype(np.float32))
+    texts = [f"topic{int(c)} {docs[int(i)].split()[1]}" for c, i in
+             zip(rng.integers(0, 24, 12), rng.integers(0, n_docs, 12))]
+    return docs, vecs, queries.astype(np.float32), texts
+
+
+def _node(cls, i, text, vec):
+    return cls(id=f"d{i}", labels=["Doc"], properties={"content": text},
+               embedding=[float(x) for x in vec])
+
+
+def _both_services(**kw):
+    """Both services at the port's query beam (its default differs from
+    the reference's 64, ROADMAP C11; the graph does not)."""
+    kw.setdefault("hnsw_ef_search", HNSW_EF_SEARCH)
+    return (JService(JEngine(), hnsw_threshold=HNSW_THRESHOLD, **kw),
+            TService(TEngine(), device="cpu", hnsw_threshold=HNSW_THRESHOLD, **kw))
+
+
+def _index_both(pair, docs, vecs, start=0):
+    """Live writes, one node at a time; returns the write each service
+    switched at."""
+    switched = [None, None]
+    for i in range(start, len(docs)):
+        for s, (svc, cls) in enumerate(zip(pair, (JNode, TNode))):
+            node = _node(cls, i, docs[i], vecs[i])
+            svc.storage.create_node(node)
+            svc.index_node(node)
+            if switched[s] is None and svc.stats.strategy == "hnsw":
+                switched[s] = i
+    return switched
+
+
+def _index_port(svc, docs, vecs):
+    for i, (text, v) in enumerate(zip(docs, vecs)):
+        node = _node(TNode, i, text, v)
+        svc.storage.create_node(node)
+        svc.index_node(node)
+
+
+def _assert_hits_close(a, b):
+    assert [i for i, _ in a] == [i for i, _ in b]
+    np.testing.assert_allclose([s for _, s in a], [s for _, s in b], atol=HNSW_SCORE_ATOL)
+
+
+def _assert_service_parity(pair, queries, texts):
+    j, t = pair
+    for qv, text in zip(queries, texts):
+        for k in (10, 30):
+            _assert_hits_close(t.vector_search_candidates(qv, k),
+                               j.vector_search_candidates(qv, k))
+        for mode, kw in (("vector", {"query_embedding": qv}), ("text", {"query": text}),
+                         ("hybrid", {"query": text, "query_embedding": qv})):
+            th = t.search(mode=mode, limit=10, **kw)
+            jh = j.search(mode=mode, limit=10, **kw)
+            assert [h["id"] for h in th] == [h["id"] for h in jh], (mode, text)
+            np.testing.assert_allclose([h["score"] for h in th], [h["score"] for h in jh],
+                                       atol=HNSW_SCORE_ATOL)
+            assert all(h["properties"]["content"] for h in th)
+
+
+@pytest.fixture(scope="module", params=[HNSW_EF_SEARCH, 64], ids=["port_ef", "reference_ef"])
+def hnsw_services(request):
+    docs, vecs, queries, texts = _hnsw_corpus(600)
+    pair = _both_services(hnsw_ef_search=request.param)
+    switched = _index_both(pair, docs, vecs)
+    assert pair[1].hnsw.ef_search == pair[0].hnsw.ef_search == request.param
+    return pair, docs, vecs, queries, texts, switched
+
+
+def test_services_switch_to_hnsw_at_the_same_write(hnsw_services):
+    pair, docs, vecs, queries, texts, switched = hnsw_services
+    assert switched == [HNSW_THRESHOLD - 1, HNSW_THRESHOLD - 1]
+    for svc in pair:
+        assert svc.stats.strategy == "hnsw" and svc.stats.hnsw_builds == 1
+        assert len(svc.hnsw) == len(docs)
+    # the build is the reference's graph: BM25 seeds, slot order, RNG
+    j, t = pair
+    for lv in range(len(j.hnsw._nbrL)):
+        np.testing.assert_array_equal(t.hnsw._nbrL[lv], j.hnsw._nbrL[lv])
+    assert t.hnsw._levels == j.hnsw._levels
+
+
+def test_service_hnsw_answers_match_jax(hnsw_services):
+    pair, docs, vecs, queries, texts, _ = hnsw_services
+    _assert_service_parity(pair, queries, texts)
+
+
+def test_service_exact_takes_brute_force(hnsw_services):
+    pair, docs, vecs, queries, texts, _ = hnsw_services
+    j, t = pair
+    for qv in queries:
+        exact = t.vector_search_candidates(qv, 20, exact=True)
+        assert _hits_agree(exact, t.vectors.search_batch(qv[None, :], 20)[0])
+        assert _hits_agree(exact, j.vector_search_candidates(qv, 20, exact=True))
+    # HNSW answers hold recall@10 >= 0.95 against exact
+    hit = sum(len({i for i, _ in t.vector_search_candidates(qv, 10)}
+                  & {i for i, _ in t.vector_search_candidates(qv, 10, exact=True)})
+              for qv in queries)
+    assert hit / (10 * len(queries)) >= 0.95
+
+
+def test_service_result_cache_matches_jax():
+    docs, vecs, queries, texts = _hnsw_corpus(300, seed=32)
+    pair = _both_services()
+    _index_both(pair, docs, vecs)
+    for svc in pair:
+        first = svc.search(texts[0], limit=5, mode="text")
+        hits0 = svc.stats.cache_hits
+        again = svc.search(texts[0], limit=5, mode="text")
+        assert again == first and svc.stats.cache_hits == hits0 + 1
+        again[0]["properties"]["content"] = "mutated"
+        assert svc.search(texts[0], limit=5, mode="text") == first
+        # an explicit query embedding bypasses the cache
+        svc.search(mode="vector", query_embedding=queries[0], limit=5)
+        svc.search(mode="vector", query_embedding=queries[0], limit=5)
+        assert svc.stats.cache_hits == hits0 + 2
+    gens = [svc.generation for svc in pair]
+    _index_both(pair, docs + [texts[0]], np.concatenate([vecs, queries[:1]]), start=len(docs))
+    for svc, gen in zip(pair, gens):
+        hits = svc.stats.cache_hits
+        assert svc.generation == gen + 1
+        assert "d300" in [h["id"] for h in svc.search(texts[0], limit=5, mode="text")]
+        assert svc.stats.cache_hits == hits  # the write invalidated it
+    assert pair[0].stats.searches == pair[1].stats.searches
+
+
+def test_service_removes_force_a_tombstone_rebuild_matching_jax():
+    docs, vecs, queries, texts = _hnsw_corpus(600, seed=33)
+    pair = _both_services()
+    _index_both(pair, docs, vecs)
+    for i in range(0, 600, 4):  # a quarter of the vectors: past 0.2
+        for svc in pair:
+            svc.remove_node(f"d{i}")
+            svc.storage.delete_node(f"d{i}")
+    for svc in pair:
+        assert svc.stats.hnsw_builds == 2 and svc.stats.strategy == "hnsw"
+        assert not svc.hnsw.should_rebuild()
+    assert pair[0].hnsw._levels == pair[1].hnsw._levels
+    _assert_service_parity(pair, queries, texts)
+    for qv in queries:
+        hits = pair[1].vector_search_candidates(qv, 30)
+        assert not {f"d{i}" for i in range(0, 600, 4)} & {i for i, _ in hits}
+
+
+def test_service_diag_timings(monkeypatch):
+    docs, vecs, queries, texts = _hnsw_corpus(64, seed=34)
+    svc = TService(TEngine(), device="cpu")
+    _index_port(svc, docs, vecs)
+    monkeypatch.setenv("NORNICDB_TPU_SEARCH_DIAG", "1")
+    svc.search(texts[0], query_embedding=queries[0], mode="hybrid")
+    assert set(svc.stats.last_timings) == {"embed_ms", "bm25_ms", "vector_ms",
+                                           "fuse_ms", "enrich_rerank_ms"}
+    monkeypatch.delenv("NORNICDB_TPU_SEARCH_DIAG")
+    svc.search(texts[0], mode="text")
+    assert svc.stats.last_timings == {}
+
+
+def test_service_raises_on_the_cagra_profile(monkeypatch):
+    monkeypatch.setenv("NORNICDB_VECTOR_ANN_QUALITY", "cagra")
+    docs, vecs, _, _ = _hnsw_corpus(HNSW_THRESHOLD, seed=35)
+    svc = TService(TEngine(), device="cpu", hnsw_threshold=HNSW_THRESHOLD)
+    with pytest.raises(NotImplementedError, match="A6"):
+        _index_port(svc, docs, vecs)
+    assert svc.hnsw is None and svc.stats.strategy == "brute"
+
+
+def test_a_raising_switch_still_invalidates_the_cache(monkeypatch):
+    """The crossing write is in the indexes even when the switch raises,
+    so the cache generation must move with it."""
+    docs, vecs, _, texts = _hnsw_corpus(HNSW_THRESHOLD, seed=37)
+    svc = TService(TEngine(), device="cpu", hnsw_threshold=HNSW_THRESHOLD)
+    _index_port(svc, docs[:-1], vecs[:-1])
+    first = svc.search(texts[0], limit=5, mode="text")
+    svc.search(texts[0], limit=5, mode="text")
+    hits, gen = svc.stats.cache_hits, svc.generation
+    assert hits == 1
+    monkeypatch.setenv("NORNICDB_VECTOR_ANN_QUALITY", "cagra")
+    last = len(docs) - 1
+    node = _node(TNode, last, texts[0], vecs[last])
+    svc.storage.create_node(node)
+    with pytest.raises(NotImplementedError, match="A6"):
+        svc.index_node(node)
+    assert svc.generation == gen + 1 and svc.hnsw is None
+    again = svc.search(texts[0], limit=5, mode="text")
+    assert svc.stats.cache_hits == hits  # a miss, not the stale entry
+    assert f"d{last}" in [h["id"] for h in again] and again != first
+    storage = TEngine()
+    storage.create_node(node)
+    backfill = TService(storage, device="cpu", hnsw_threshold=1)
+    gen = backfill.generation
+    with pytest.raises(NotImplementedError, match="A6"):
+        backfill.build_indexes()
+    assert backfill.generation > gen
+
+
+def test_backfill_switches_once_and_builds_once():
+    docs, vecs, queries, _ = _hnsw_corpus(900, seed=36)
+    storage = TEngine()
+    for i, (text, v) in enumerate(zip(docs, vecs)):
+        storage.create_node(_node(TNode, i, text, v))
+    svc = TService(storage, device="cpu", hnsw_threshold=HNSW_THRESHOLD)
+    assert svc.build_indexes() == len(docs)
+    assert svc.stats.strategy == "hnsw" and svc.stats.hnsw_builds == 1
+    assert len(svc.hnsw) == len(docs) == svc.stats.indexed_vectors
+    hit = sum(len({i for i, _ in svc.vector_search_candidates(qv, 10)}
+                  & {i for i, _ in svc.vector_search_candidates(qv, 10, exact=True)})
+              for qv in queries)
+    assert hit / (10 * len(queries)) >= 0.95
+    # a live write after the backfill is one insert, not a rebuild
+    node = _node(TNode, 900, "late doc", queries[0])
+    storage.create_node(node)
+    svc.index_node(node)
+    assert svc.stats.hnsw_builds == 1 and "d900" in svc.hnsw
+    assert svc.vector_search_candidates(queries[0], 1)[0][0] == "d900"
