@@ -365,9 +365,8 @@ class SearchService:
         per-source (lexical, vector) weighting; None means (1.0, 1.0).
         Results are cached by query and options until the next index
         mutation; a request with an explicit ``query_embedding`` bypasses
-        the cache."""
-        if mode not in MODES:
-            raise ValueError(f"unknown search mode {mode!r}")
+        the cache. A ``mode`` outside ``MODES`` reads neither source and
+        answers ``[]`` (cached), as the reference does."""
         self.stats.searches += 1
         # read per search, so the toggle takes effect on the next one;
         # stale timings are cleared before the cache probe, so a hit

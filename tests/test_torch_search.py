@@ -215,10 +215,31 @@ def test_db_store_remove_and_explicit_embeddings():
         db.storage.delete_node("a")
         db.search.remove_node("a")
         assert [h["id"] for h in db.recall("alpha", mode="text")] == ["c"]
-        with pytest.raises(ValueError):
-            db.recall("alpha", mode="bogus")
+        # an unknown mode reads neither source, as in the reference
+        assert db.recall("alpha", mode="bogus") == []
     finally:
         db.close()
+
+
+def test_unknown_mode_answers_empty_and_cached_like_jax():
+    """ROADMAP C12: both DBs on the same stores answer an unknown mode
+    with ``[]``, and a repeat is a cache hit in both."""
+    tdb = nornicdb_tpu_torch.open(device="cpu", auto_embed=False)
+    jdb = nornicdb_tpu.open(auto_embed=False)
+    try:
+        for db in (tdb, jdb):
+            db.store("alpha beta", node_id="a", embedding=[1.0, 0.0, 0.0])
+            db.store("alpha gamma", node_id="b", embedding=[0.0, 1.0, 0.0])
+            assert [h["id"] for h in db.recall("alpha", mode="text")]
+            hits0 = db.search.stats.cache_hits
+            assert db.recall("alpha", mode="bogus") == []
+            assert db.recall("alpha", mode="bogus") == []
+            assert db.search.stats.cache_hits == hits0 + 1
+            assert db.search.search(query_embedding=[1.0, 0.0, 0.0], mode="bogus") == []
+        assert tdb.search.stats.searches == jdb.search.stats.searches
+    finally:
+        tdb.close()
+        jdb.close()
 
 
 def test_db_store_of_a_mismatched_embedding_matches_jax():
