@@ -242,6 +242,85 @@ def test_unknown_mode_answers_empty_and_cached_like_jax():
         jdb.close()
 
 
+class _RaisingEmbedder:
+    dims = 3
+
+    def embed(self, text):
+        raise RuntimeError("embedder down")
+
+    def embed_batch(self, texts):
+        raise RuntimeError("embedder down")
+
+
+def test_a_failing_query_embed_raises_where_jax_answers_text():
+    """ROADMAP C5 (divergence by design): the reference fails open to
+    text-only hits when the query embed raises; the port raises, so a
+    fault on the card cannot hide behind a text answer."""
+    tdb = nornicdb_tpu_torch.open(device="cpu", auto_embed=False, embedder=_RaisingEmbedder())
+    jdb = nornicdb_tpu.open(auto_embed=False, embedder=_RaisingEmbedder())
+    try:
+        for db in (tdb, jdb):
+            db.store("alpha beta", node_id="a", embedding=[1.0, 0.0, 0.0])
+            db.store("gamma delta", node_id="b", embedding=[0.0, 1.0, 0.0])
+        assert [h["id"] for h in jdb.recall("alpha")] == ["a"]
+        assert [h["id"] for h in jdb.recall("alpha", mode="vector")] == []
+        for mode in ("hybrid", "vector"):
+            with pytest.raises(RuntimeError, match="embedder down"):
+                tdb.recall("alpha", mode=mode)
+        # text mode and explicit embeddings never call the embedder
+        for kw in ({"mode": "text"}, {"query_embedding": [0.0, 1.0, 0.0]}):
+            assert ([h["id"] for h in tdb.recall("gamma", **kw)]
+                    == [h["id"] for h in jdb.recall("gamma", **kw)]), kw
+    finally:
+        tdb.close()
+        jdb.close()
+
+
+def test_a_raising_switch_under_store_raises_where_jax_returns_the_node(monkeypatch, tmp_path):
+    """ROADMAP C13 (divergence by design): the write that crosses the
+    HNSW threshold switches tiers, and here the host library cannot be
+    built. The reference's loader takes its Python path and its store
+    returns the node; the port's build raises through ``DB.store`` after
+    the node is stored and indexed in BM25 and brute force, and the
+    result cache is still invalidated."""
+    from nornicdb_tpu.search import hnsw_native as jnative
+    from nornicdb_tpu_torch.ops import _build
+    from nornicdb_tpu_torch.search import hnsw_native as tnative
+
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_host_failed", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", True)
+    rng = np.random.default_rng(38)
+    vecs = rng.standard_normal((400, 8)).astype(np.float32)  # past HNSW's bootstrap
+    tdb = nornicdb_tpu_torch.open(device="cpu", auto_embed=False)
+    jdb = nornicdb_tpu.open(auto_embed=False)
+    try:
+        for db in (tdb, jdb):
+            db.recall("warm", mode="text")  # builds the search service
+            for i, v in enumerate(vecs[:-1]):
+                db.store(f"doc {i}", node_id=f"d{i}", embedding=[float(x) for x in v])
+            db.search.hnsw_threshold = len(vecs)
+        last = [float(x) for x in vecs[-1]]
+        node = jdb.store("alpha crossing", node_id="c", embedding=last)
+        assert node.id == "c" and jdb.search.stats.strategy == "hnsw"
+        svc = tdb.search
+        gen = svc.generation
+        with pytest.raises(RuntimeError, match=r"no host C\+\+ compiler"):
+            tdb.store("alpha crossing", node_id="c", embedding=last)
+        assert tdb.storage.get_node("c").embedding == last
+        assert "c" in svc.vectors and svc.hnsw is None and svc.stats.strategy == "brute"
+        assert svc.generation == gen + 1
+        for db in (tdb, jdb):
+            assert [h["id"] for h in db.recall("alpha", mode="text")] == ["c"]
+    finally:
+        tdb.close()
+        jdb.close()
+
+
 def test_db_store_of_a_mismatched_embedding_matches_jax():
     """An explicit embedding of another width than the built index is
     indexed best-effort, as the reference does: the node is stored and
