@@ -2,9 +2,13 @@
 ``nornicdb_tpu/search/ann_quality.py``).
 
 One env knob, ``NORNICDB_VECTOR_ANN_QUALITY``, maps to an index kind and
-its parameters. The search service reads only the kind: ``cagra`` asks
-for the device graph tier, which is not ported yet, and every other
-profile takes HNSW above the service's threshold.
+its parameters. The search service reads the kind: ``cagra`` builds the
+device graph (``search/cagra.py``) above the service's threshold, every
+other profile HNSW. The walk tier of the fused hybrid pipeline reads the
+``cagra_*`` fields of whichever profile is current.
+
+One value differs from the reference: the CAGRA walk's search breadth
+(``CAGRA_ITOPK``, ``CAGRA_WIDTH``; ROADMAP C14).
 """
 
 from __future__ import annotations
@@ -13,6 +17,14 @@ import os
 from dataclasses import dataclass
 
 from nornicdb_tpu_torch.config import env_int
+
+# The CAGRA walk's pool and frontier width. At the reference's 64 and 1,
+# recall@10 against exact search falls under the 0.95 a statistical tier
+# must hold on chip_smoke.py's 100,000 documents (ROADMAP C14, with
+# scripts/cagra_sweep.py's grid); a pool of 128 expanded 8 rows at a
+# time holds it, with the reference's iteration count and graph.
+CAGRA_ITOPK = 128
+CAGRA_WIDTH = 8
 
 
 @dataclass(frozen=True)
@@ -29,8 +41,8 @@ class ANNProfile:
     # cagra tier: fixed out-degree device graph; below cagra_min_n live
     # vectors the index serves from the brute kernel
     cagra_degree: int = 32
-    cagra_itopk: int = 64
-    cagra_width: int = 1
+    cagra_itopk: int = CAGRA_ITOPK
+    cagra_width: int = CAGRA_WIDTH
     cagra_min_n: int = 4096
     cagra_shards: int = 1
 
@@ -50,7 +62,7 @@ PROFILES = {
         nprobe=8, pq_subspaces=16),
     "cagra": ANNProfile(
         name="cagra", index_kind="cagra",
-        cagra_degree=32, cagra_itopk=64, cagra_width=1,
+        cagra_degree=32, cagra_itopk=CAGRA_ITOPK, cagra_width=CAGRA_WIDTH,
         cagra_min_n=4096),
 }
 

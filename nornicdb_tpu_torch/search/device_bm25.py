@@ -226,28 +226,32 @@ class DeviceBM25:
     # -- shared snapshot plumbing -----------------------------------------
 
     def row_map(
-        self, snap: Dict[str, Any], token: int,
+        self, snap: Dict[str, Any], name: str, token: int,
         derive: Callable[[Optional[Tuple[int, torch.Tensor]]], Optional[torch.Tensor]],
     ) -> Optional[torch.Tensor]:
-        """Memoized ``snapshot row -> vector slot`` device map, kept on
-        the snapshot (a rebuild drops it) and keyed by ``token``, the
-        vector index's monotone mutation counter. ``derive(prev)`` gets
-        the published (token, map) or None, and returns the map at
-        ``token`` (a patch of ``prev`` or a full derivation), or None
-        when the vector index moved meanwhile."""
+        """Memoized ``snapshot row -> foreign row`` device map ``name``:
+        ``"l2v"`` joins lexical rows to brute slots (the exact tier),
+        ``"l2g"`` to graph rows (the walk tier). The maps live on the
+        snapshot (a rebuild drops them), each keyed by ``token``, the
+        foreign index's monotone generation (brute mutations, graph build
+        sequence). ``derive(prev)`` gets this name's published (token,
+        map) or None, and returns the map at ``token`` (a patch of
+        ``prev`` or a full derivation), or None when the foreign index
+        moved meanwhile."""
         with self._map_lock:
-            cur = snap.get("row_map")
+            cur = snap.setdefault("row_maps", {}).get(name)
             if cur is not None and cur[0] == token:
                 return cur[1]
         dev = derive(cur)  # outside the lock: up to O(corpus) host work
         if dev is None:
             return None
         with self._map_lock:
-            cur = snap.get("row_map")
+            maps = snap["row_maps"]
+            cur = maps.get(name)
             if cur is not None and cur[0] == token:
                 return cur[1]  # raced another deriver; theirs serves
             if cur is None or cur[0] < token:
-                snap["row_map"] = (token, dev)
+                maps[name] = (token, dev)
             return dev
 
     # -- freshness --------------------------------------------------------

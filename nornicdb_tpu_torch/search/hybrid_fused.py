@@ -1,6 +1,7 @@
 """Fused hybrid search: BM25 + vector + RRF in one device dispatch
-(counterpart of the exact tier, ``hybrid_brute_f32``, of
-``nornicdb_tpu/search/hybrid_fused.py:FusedHybrid``).
+(counterpart of ``nornicdb_tpu/search/hybrid_fused.py:FusedHybrid``, one
+device, float32: its exact tier ``hybrid_brute_f32`` and its walk tier
+``hybrid_walk_f32``).
 
 One dispatch takes a coalesced batch's query embeddings and its planned
 lexical entries and returns the RRF-fused ranking with both candidate
@@ -9,28 +10,44 @@ scores):
 
 1. **lexical**: ``device_bm25.bm25_dense_scores`` over the CSR snapshot,
    then a stable top-k of rows;
-2. **vector**: B1, ``ops/topk.py:fused_cosine_topk``, over the brute
-   index's device arrays (``BruteForceIndex.device_view``): the same
-   exact cosine top-k, ties to the lower slot, that the host path's
-   ``search_batch`` launches, so the vector list is the host tier's by
-   construction;
-3. **fuse**: the lists join on a device ``lexical row -> vector slot``
-   map, so a doc in both sources is one candidate; reciprocal-rank
-   weights add in float32, lexical first, as the host ``rrf_fuse`` does,
-   and a stable top-k orders by (score, concatenated position) = the
-   host's (score, first seen).
+2. **vector**, one of two tiers:
+   - the **exact tier**: B1, ``ops/topk.py:fused_cosine_topk``, over the
+     brute index's device arrays (``BruteForceIndex.device_view``): the
+     same exact cosine top-k, ties to the lower slot, that the host
+     path's ``search_batch`` launches;
+   - the **walk tier**, at and above ``walk_min_n`` live vectors once the
+     graph is built: the CAGRA greedy walk (``cagra.walk_body``) over the
+     graph's device copy of the rows, at the pool's width ``itopk``;
+3. **fuse**: the lists join on a device ``lexical row -> vector row`` map
+   (brute slots for the exact tier, graph rows for the walk), so a doc in
+   both sources is one candidate; reciprocal-rank weights add in float32,
+   lexical first, as the host ``rrf_fuse`` does, and a stable top-k
+   orders by (score, concatenated position) = the host's (score, first
+   seen).
 
-Contract: lexical and vector ids equal to the host path's, tie-aware
-where scores lie within float rounding (cuBLAS may add the lexical terms
-in another order than the host); fused scores bitwise equal to the host
-``rrf_fuse`` over the same two lists. Freshness follows ``DeviceBM25``:
-tombstones are filtered, post-build writes are exact-scored on the host
-and re-fused there (those rows are served by ``host``), and each named
-rung (changelog overrun, compaction, plan overflow, a vector write
-racing the join map, an empty vector index) hands the batch to the host
-path, counted by reason in ``counts``. Nothing else does: an error in
-planning, dispatch or decode propagates. The walk, quantized and sharded
-tiers wait for later slices.
+Contract: on the exact tier, lexical and vector ids equal to the host
+path's, tie-aware where scores lie within float rounding (cuBLAS may add
+the lexical terms in another order than the host), fused scores bitwise
+equal to the host ``rrf_fuse`` over the same two lists. The walk tier is
+approximate by construction: its fused top-k is held to recall@10 >= 0.95
+against the host hybrid ranking (walk-parity), its fused scores stay
+bitwise the host ``rrf_fuse`` of its own lists.
+
+Freshness follows ``DeviceBM25``: tombstones are filtered, post-build
+writes are exact-scored on the host and re-fused there (those rows are
+served by ``host``). On the walk tier, rows removed since the graph build
+are filtered by one ``contains_many``, and rows added or updated since
+are scored exactly and merged (the row is then re-fused on the host).
+The walk steps down to the exact tier, counted in ``counts`` as
+``walk_<reason>``, while its graph builds (``pending_build``), when a
+request is deeper than the pool (``itopk_exceeded``), when the changelog
+no longer reaches the build (``changelog_overrun``) and when the live
+filter left a row short (``underfill``); never to the host. Each named
+rung of the snapshot (changelog overrun, compaction, plan overflow, a
+vector write racing the join map, an empty vector index) hands the batch
+to the host path, counted as ``handoff_<reason>``. Nothing else does: an
+error in planning, dispatch or decode propagates. The quantized and
+sharded tiers wait for later slices.
 """
 
 from __future__ import annotations
@@ -44,6 +61,7 @@ import torch
 from nornicdb_tpu_torch.ops.similarity import NEG_INF, l2_normalize, topk_stable
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
 from nornicdb_tpu_torch.search.bm25 import BM25Index
+from nornicdb_tpu_torch.search.cagra import CagraIndex, merge_delta_hits, walk_body
 from nornicdb_tpu_torch.search.device_bm25 import (
     DeviceBM25,
     PlanOverflow,
@@ -54,6 +72,7 @@ from nornicdb_tpu_torch.search.rrf import DEFAULT_RRF_K, rrf_fuse
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
 
 TIER_BRUTE_F32 = "hybrid_brute_f32"
+TIER_WALK_F32 = "hybrid_walk_f32"
 
 
 def _pad_cols(x: torch.Tensor, k: int, fill) -> torch.Tensor:
@@ -106,38 +125,66 @@ def rrf_fuse_device(
     return topk_stable(fused, 2 * kq)
 
 
-def fused_single(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
-                 l2v, qn, vmatrix, vvalid, n_cand, w_lex, w_vec, kq):
-    """The device half of one batch (the reference's ``_fused_single``
-    with its ``_local_parts``/``_lex_parts``): each source's top-k, the
-    lexical rows joined to vector slots, and the fuse. Returns (lexical
-    scores, rows, vector scores, slots) [B, kq] and (fused scores,
-    positions) [B, 2kq]."""
+def lex_parts(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl, l2map, kq):
+    """The lexical top-k (scores, rows) and each row's joined vector row
+    through ``l2map`` (the reference's ``_lex_parts``)."""
     dense = bm25_dense_scores(ptr, urow, sel, post_doc, post_tf, doc_len,
                               alive, avgdl)
     ls, lgrow = topk_stable(dense, min(kq, doc_len.shape[0]))
-    lid = l2v[lgrow]
-    vs, vi = fused_cosine_topk(qn, vmatrix, vvalid, kq)
+    return ls, l2map[lgrow], lgrow
+
+
+def _fuse(ls, lid, lgrow, vs, vi, n_cand, w_lex, w_vec, kq, c_vec):
     ls = _pad_cols(ls, kq, NEG_INF)
     lid = _pad_cols(lid, kq, 0)
     lgrow = _pad_cols(lgrow, kq, 0)
     vs = _pad_cols(vs, kq, NEG_INF)
     vi = _pad_cols(vi, kq, 0)
     fs, fpos = rrf_fuse_device(ls, lid, lgrow, vs, vi, n_cand, w_lex, w_vec,
-                               DEFAULT_RRF_K, vmatrix.shape[0])
+                               DEFAULT_RRF_K, c_vec)
     return ls, lgrow, vs, vi, fs, fpos
+
+
+def fused_single(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
+                 l2v, qn, vmatrix, vvalid, n_cand, w_lex, w_vec, kq):
+    """The exact tier's device half of one batch (the reference's
+    ``_fused_single``): each source's top-k, the lexical rows joined to
+    vector slots, and the fuse. Returns (lexical scores, rows, vector
+    scores, slots) [B, kq] and (fused scores, positions) [B, 2kq]."""
+    ls, lid, lgrow = lex_parts(ptr, urow, sel, post_doc, post_tf, doc_len,
+                               alive, avgdl, l2v, kq)
+    vs, vi = fused_cosine_topk(qn, vmatrix, vvalid, kq)
+    return _fuse(ls, lid, lgrow, vs, vi, n_cand, w_lex, w_vec, kq, vmatrix.shape[0])
+
+
+def walk_fused_single(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
+                      l2g, qn, gmatrix, gadj, gvalidf, n_cand, w_lex, w_vec, kq,
+                      iters, width, itopk, hash_bits, n_seeds):
+    """The walk tier's device half of one batch (the reference's
+    ``_walk_fused_single``): the lexical top-k joined to graph rows, the
+    greedy walk over the graph, and the fuse over the graph's rows."""
+    ls, lid, lgrow = lex_parts(ptr, urow, sel, post_doc, post_tf, doc_len,
+                               alive, avgdl, l2g, kq)
+    vs, vi = walk_body(qn, gmatrix, gadj, gvalidf, min(kq, itopk), iters, width,
+                       itopk, hash_bits, n_seeds)
+    return _fuse(ls, lid, lgrow, vs, vi.to(torch.int64), n_cand, w_lex, w_vec, kq,
+                 gmatrix.shape[0])
 
 
 class FusedHybrid:
     """Device-fused hybrid search over a (BM25Index, BruteForceIndex)
     pair, on the brute index's device. State beyond the lexical snapshot
-    (owned by :class:`DeviceBM25`) is the row -> slot join map; both
-    re-derive from the live host indexes.
+    (owned by :class:`DeviceBM25`) is the join maps and, for the walk
+    tier, the graph (a :class:`CagraIndex` over the same brute index,
+    shared with the service's ``cagra`` strategy when it has one); all of
+    it re-derives from the live host indexes.
 
-    ``counts``: ``dispatch`` per device dispatch; per row the tier that
-    served it (``hybrid_brute_f32``, or ``host`` for a row re-fused on
-    the host after a post-build write); ``handoff_<reason>`` per batch
-    handed to the host path; ``join_full`` and ``join_patch`` per
+    ``counts``: ``dispatch`` per exact-tier dispatch and ``walk_dispatch``
+    per walk dispatch; per row the tier that served it
+    (``hybrid_brute_f32``, ``hybrid_walk_f32``, or ``host`` for a row
+    re-fused on the host after a post-build write); ``walk_<reason>`` per
+    batch the walk handed to the exact tier; ``handoff_<reason>`` per
+    batch handed to the host path; ``join_full`` and ``join_patch`` per
     derivation of the row -> slot map."""
 
     def __init__(
@@ -147,6 +194,8 @@ class FusedHybrid:
         min_n: int = 256,
         rebuild_stale_frac: float = 0.1,
         build_inline: bool = True,
+        walk_min_n: Optional[int] = None,
+        cagra: Optional[CagraIndex] = None,
     ):
         self.bm25 = bm25
         self.brute = brute
@@ -154,6 +203,21 @@ class FusedHybrid:
                               rebuild_stale_frac=rebuild_stale_frac,
                               build_inline=build_inline, device=brute.device)
         self.counts: Counter = Counter()
+        # the walk tier: at and above walk_min_n live vectors (None: off).
+        # A graph over another brute index never serves: its rows and
+        # freshness counters belong to another corpus
+        self.walk_min_n = walk_min_n
+        if cagra is not None and cagra._brute is not brute:
+            cagra = None
+        if cagra is None and walk_min_n is not None:
+            from nornicdb_tpu_torch.search.ann_quality import current_profile
+
+            p = current_profile()
+            cagra = CagraIndex(brute=brute, degree=p.cagra_degree, itopk=p.cagra_itopk,
+                               search_width=p.cagra_width, min_n=walk_min_n,
+                               build_inline=build_inline)
+        self.cagra = cagra
+        self._grow_cache: Optional[Tuple[int, Dict[str, int]]] = None
 
     def build(self) -> bool:
         return self.lex.build()
@@ -200,7 +264,39 @@ class FusedHybrid:
             self.counts["join_full"] += 1
             return torch.tensor(raw, dtype=torch.int64, device=self.lex.device)
 
-        return self.lex.row_map(snap, mutations, derive)
+        return self.lex.row_map(snap, "l2v", mutations, derive)
+
+    def _ensure_walk_map(self, snap: Dict[str, Any], g: Dict[str, Any]) -> torch.Tensor:
+        """Device lexical row -> graph row map, keyed on the graph's build
+        sequence, so a rebuilt graph rebinds the join on its first batch."""
+
+        def derive(prev):
+            grow = self._graph_rows(g)
+            return torch.tensor([-1 if e is None else grow.get(e, -1) for e in snap["row_ids"]],
+                                dtype=torch.int64, device=self.lex.device)
+
+        return self.lex.row_map(snap, "l2g", g["build_seq"], derive)
+
+    def _graph_rows(self, g: Dict[str, Any]) -> Dict[str, int]:
+        # keyed on build_seq, not on the dict, which would pin a replaced
+        # graph's device arrays until the next walk
+        cached = self._grow_cache
+        if cached is not None and cached[0] == g["build_seq"]:
+            return cached[1]
+        grow = {e: i for i, e in enumerate(g["row_ids"]) if e is not None}
+        self._grow_cache = (g["build_seq"], grow)
+        return grow
+
+    def rebind_cagra(self, cagra: CagraIndex) -> bool:
+        """Walk ``cagra``'s graph from now on (the strategy machine built
+        one over the same brute index): one graph, one rebuild cadence,
+        and the lexical snapshot keeps serving. False, and nothing
+        changes, when it wraps another brute index."""
+        if cagra is not None and cagra._brute is not self.brute:
+            return False
+        self.cagra = cagra
+        self._grow_cache = None
+        return True
 
     def _handoff(self, reason: str, b: int) -> List[None]:
         self.counts["handoff_" + reason] += 1
@@ -214,8 +310,8 @@ class FusedHybrid:
         ``extras[i]`` carries request i's ``tokens``, ``n_cand`` (its
         overfetch depth) and ``w`` ((w_lex, w_vec)). Returns per query a
         dict of ``lex``/``vec``/``fused`` ranked lists, ``served_by`` and
-        the batch's ``times``, or None for every query when a freshness
-        rung hands the batch to the host path."""
+        ``tier`` (``walk`` or ``brute``), or None for every query when a
+        freshness rung hands the batch to the host path."""
         b = len(queries_emb)
         snap = self.lex.ensure_snapshot()
         if snap is None:
@@ -235,13 +331,6 @@ class FusedHybrid:
             return self._handoff("compaction", b)
         except PlanOverflow:
             return self._handoff("overflow", b)
-        view = self.brute.device_view()
-        if view is None:
-            return self._handoff("vec_empty", b)
-        m, valid, vec_ids, mutations = view
-        l2v = self._ensure_map(snap, mutations)
-        if l2v is None:
-            return self._handoff("vec_race", b)
         dev = self.lex.device
         lex_args = self.lex.device_args(snap, *plan)
         qn = l2_normalize(torch.as_tensor(
@@ -249,6 +338,21 @@ class FusedHybrid:
         tail = (torch.tensor([int(e["n_cand"]) for e in extras], device=dev),
                 torch.tensor([e["w"][0] for e in extras], dtype=torch.float32, device=dev),
                 torch.tensor([e["w"][1] for e in extras], dtype=torch.float32, device=dev))
+        # the walk tier when eligible; a vetoed walk batch falls through to
+        # the exact tier, never to the host
+        wctx = self._walk_context(snap, kq)
+        if wctx is not None:
+            rows = self._dispatch_walk(snap, wctx, lex_args, qn, tail, delta,
+                                       token_rows, extras)
+            if rows is not None:
+                return rows
+        view = self.brute.device_view()
+        if view is None:
+            return self._handoff("vec_empty", b)
+        m, valid, vec_ids, mutations = view
+        l2v = self._ensure_map(snap, mutations)
+        if l2v is None:
+            return self._handoff("vec_race", b)
         out = fused_single(*lex_args, l2v, qn, m, valid, *tail, kq=kq)
         ls, lgrow, vs, vi, fs, fpos = (x.cpu().numpy() for x in out)
         self.counts["dispatch"] += 1
@@ -256,15 +360,93 @@ class FusedHybrid:
                             ls, lgrow, vs, vi, fs, fpos, kq)
         for row in rows:
             self.counts[row["served_by"]] += 1
+            row["tier"] = "brute"
+        return rows
+
+    # -- walk tier --------------------------------------------------------
+
+    def _walk_context(self, snap: Dict[str, Any], kq: int) -> Optional[Dict[str, Any]]:
+        """The graph and its freshness for one walk batch, or None when
+        the exact tier serves it (each named step counted)."""
+        cagra = self.cagra
+        if cagra is None or self.walk_min_n is None or len(self.brute) < self.walk_min_n:
+            return None
+        g = cagra.ensure_graph()
+        if g is None:
+            # the first build (or one after the corpus shrank) is running
+            self.counts["walk_pending_build"] += 1
+            return None
+        if kq > cagra.itopk:
+            # the pool only ever holds itopk candidates
+            self.counts["walk_itopk_exceeded"] += 1
+            return None
+        delta_ids, delta_vecs = cagra.delta_block(g)
+        if delta_ids is None:
+            # churn outran the changelog while a rebuild runs
+            self.counts["walk_changelog_overrun"] += 1
+            return None
+        # staleness from the live counter, read after delta_block drained
+        # the changelog: a delete landing in between must not skip the
+        # live filter
+        return {"g": g, "l2g": self._ensure_walk_map(snap, g),
+                "delta_ids": delta_ids, "delta_vecs": delta_vecs,
+                "stale": self.brute.mutations != g["built_mutations"],
+                "iters": g["iters"], "width": cagra.search_width,
+                "itopk": cagra.itopk, "hash_bits": cagra.hash_bits,
+                "n_seeds": cagra.n_seeds}
+
+    def _dispatch_walk(self, snap, wctx, lex_args, qn, tail, delta, token_rows, extras):
+        """One walk-tier dispatch: the decoded rows, or None when the live
+        filter (or a walk miss) left a row short of the candidates the
+        corpus has, and the exact tier must serve the batch."""
+        g = wctx["g"]
+        # both sources at the pool's width, not kq: the fuse masks depth by
+        # n_cand, and the spare columns give the live filter slack
+        kp = wctx["itopk"]
+        out = walk_fused_single(*lex_args, wctx["l2g"], qn, g["matrix"], g["adj"],
+                                g["validf"], *tail, kq=kp, iters=wctx["iters"],
+                                width=wctx["width"], itopk=kp,
+                                hash_bits=wctx["hash_bits"], n_seeds=wctx["n_seeds"])
+        ls, lgrow, vs, vi, fs, fpos = (x.cpu().numpy() for x in out)
+        self.counts["walk_dispatch"] += 1
+        rows = self._decode(snap, g["row_ids"], delta, token_rows, extras,
+                            ls, lgrow, vs, vi, fs, fpos, kp,
+                            vec_delta=(wctx["delta_ids"], wctx["delta_vecs"]),
+                            vec_stale=wctx["stale"],
+                            qn=qn.cpu().numpy() if wctx["delta_ids"] else None,
+                            tier=TIER_WALK_F32)
+        alive_n = len(self.brute)
+        if any(len(row["vec"]) < min(int(e["n_cand"]), kp, alive_n)
+               for row, e in zip(rows, extras)):
+            self.counts["walk_underfill"] += 1
+            return None
+        for row in rows:
+            self.counts[row["served_by"]] += 1
+            row["tier"] = "walk"
         return rows
 
     def _decode(self, snap, vec_ids, delta, token_rows, extras,
-                ls, lgrow, vs, vi, fs, fpos, kq):
-        """Per-request ranked lists from one dispatch's candidates. With
-        docs written since the build, their exact host scores merge into
-        the lexical list and the (bitwise-compatible) host ``rrf_fuse``
-        re-fuses that row, which is then served by ``host``."""
+                ls, lgrow, vs, vi, fs, fpos, kq,
+                vec_delta=None, vec_stale=False, qn=None, tier=TIER_BRUTE_F32):
+        """Per-request ranked lists from one dispatch's candidates.
+        ``vec_ids`` maps vector candidates to ext ids (brute slots, or the
+        graph's rows). With docs written since the snapshot build, their
+        exact host scores merge into the lexical list; on the walk tier,
+        candidates removed since the graph build are dropped
+        (``vec_stale``) and rows written since are scored exactly
+        (``vec_delta``, against ``qn``) and merged. A row either change
+        touched is re-fused by the (bitwise-compatible) host ``rrf_fuse``
+        and served by ``host``; the others by ``tier``."""
         row_ids = snap["row_ids"]
+        d_ids, d_vecs = vec_delta if vec_delta is not None else ([], None)
+        d_set = set(d_ids)
+        d_scores = qn @ d_vecs.T if d_ids else None  # stored rows are normalized
+        live = None
+        if vec_stale:
+            # one locked membership pass over every distinct candidate
+            cand = {vec_ids[i] for i in np.unique(vi)}
+            cand.discard(None)
+            live = self.brute.contains_many(cand)
         out: List[Dict[str, Any]] = []
         for r in range(len(extras)):
             n_cand = int(extras[r]["n_cand"])
@@ -280,18 +462,26 @@ class FusedHybrid:
                 lex_hits.append((eid, float(ls[r, c])))
             vec_hits: List[Tuple[str, float]] = []
             vec_by_pos: Dict[int, str] = {}
+            vec_fixed = False  # this row's vector list left the device's
             for c in range(vs.shape[1]):
                 if vs[r, c] < 0.5 * NEG_INF or len(vec_hits) >= n_cand:
                     break
                 eid = vec_ids[int(vi[r, c])]
-                if eid is None:
-                    continue
+                if eid is None or eid in d_set:
+                    continue  # the walk scored a written row's old vector
+                if live is not None and eid not in live:
+                    vec_fixed = True
+                    continue  # removed since the graph build
                 vec_by_pos[c] = eid
                 vec_hits.append((eid, float(vs[r, c])))
-            served_by = TIER_BRUTE_F32
-            if delta:
-                lex_hits = self.lex._merge_delta([lex_hits], delta,
-                                                 [token_rows[r]], n_cand)[0]
+            if d_ids:
+                vec_hits = merge_delta_hits(vec_hits, d_ids, d_scores[r], n_cand)
+                vec_fixed = True
+            served_by = tier
+            if delta or vec_fixed:
+                if delta:
+                    lex_hits = self.lex._merge_delta([lex_hits], delta,
+                                                     [token_rows[r]], n_cand)[0]
                 fused = rrf_fuse([lex_hits, vec_hits],
                                  weights=list(extras[r]["w"]), limit=n_cand)
                 served_by = "host"

@@ -12,20 +12,26 @@ Vector tiers: below ``hnsw_threshold`` (10,000) vectors, exact brute
 force, whose concurrent queries coalesce through a micro-batcher into
 one batched top-k; at the threshold the strategy machine builds a host
 HNSW (BM25-seeded, ``search/hnsw.py``) and vector search is served from
-it, as in the reference. ``exact=True`` always takes brute force, never
+it, as in the reference, or, under the ``cagra`` ANN profile
+(``NORNICDB_VECTOR_ANN_QUALITY=cagra``), the device graph
+(``search/cagra.py``), whose walks the same micro-batcher coalesces
+(``_ann_search_batch``). ``exact=True`` always takes brute force, never
 through the batcher. A live write switches at the write that crosses the
 threshold; ``build_indexes`` holds the switch back until its backfill
-ends, so one wave build covers the whole corpus. The ``cagra`` ANN
-profile raises: its device graph tier is not ported.
+ends, so one build covers the whole corpus.
 
 Above ``NORNICDB_HYBRID_MIN_N`` (4,096) BM25 documents, hybrid queries
 coalesce through a second batcher into one device dispatch of the fused
-tier (``hybrid_fused.py``: device BM25 + B1 + RRF); below it, while its
-snapshot builds, and at its freshness rungs the host path serves, with
-the vector tier above for its vector half. Unlike the reference, an
+tier (``hybrid_fused.py``: device BM25 + a vector half + RRF); below it,
+while its snapshot builds, and at its freshness rungs the host path
+serves, with the vector tier above for its vector half. The fused tier's
+vector half is exact (B1) below ``NORNICDB_HYBRID_WALK_MIN_N`` (100,000)
+live vectors and the CAGRA walk at and above it, once its graph is built
+(``NORNICDB_HYBRID_WALK=0`` keeps it exact); the walk shares the
+``cagra`` strategy's graph when there is one. Unlike the reference, an
 error on the fused path raises instead of falling back to the host.
-Persistence, reranking, CAGRA, the walk/quant/sharded hybrid tiers and
-audit/cost accounting wait for later slices.
+Persistence, reranking, the quant/sharded hybrid tiers and audit/cost
+accounting wait for later slices.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from nornicdb_tpu_torch.cache import ResultCache
 from nornicdb_tpu_torch.config import env_bool, env_int
 from nornicdb_tpu_torch.search.ann_quality import current_profile
 from nornicdb_tpu_torch.search.bm25 import BM25Index, tokenize
+from nornicdb_tpu_torch.search.cagra import CagraIndex
 from nornicdb_tpu_torch.search.hnsw import HNSWIndex
 from nornicdb_tpu_torch.search.hybrid_fused import FusedHybrid
 from nornicdb_tpu_torch.search.microbatch import MicroBatcher
@@ -119,6 +126,7 @@ class SearchStats:
     searches: int = 0
     cache_hits: int = 0
     hnsw_builds: int = 0
+    cagra_builds: int = 0
     # per-stage timings of the most recent search, kept while
     # NORNICDB_TPU_SEARCH_DIAG is set
     last_timings: Dict[str, float] = field(default_factory=dict)
@@ -143,17 +151,28 @@ class SearchService:
         self.bm25 = BM25Index()
         self.vectors = BruteForceIndex(device=device)
         self.hnsw: Optional[HNSWIndex] = None
+        # the device graph of the cagra profile, over self.vectors
+        self.cagra: Optional[CagraIndex] = None
         self._hnsw_m = hnsw_m
         self._hnsw_ef = hnsw_ef_search
         self.stats = SearchStats()
         self._result_cache = ResultCache(_copy_hit)
-        # concurrent single vector queries ride one batched top-k
-        self._microbatch = MicroBatcher(self.vectors.search_batch)
+        # concurrent single vector queries ride one batched call of the
+        # vector tier the strategy machine owns (the graph walk or B1)
+        self._microbatch = MicroBatcher(self._ann_search_batch)
         # concurrent hybrid queries ride one fused dispatch; tokens and
         # fusion options ride as extras, and rows come back shaped
         self._fused: Optional[FusedHybrid] = None
         self._hybrid_batch = MicroBatcher(self._fused_hybrid_dispatch,
                                           pass_extras=True)
+
+    def _ann_search_batch(self, queries: np.ndarray, k: int):
+        """The vector batcher's dispatch: the CAGRA walk once the cagra
+        strategy built its graph, else brute force."""
+        cagra = self.cagra
+        if cagra is not None:
+            return cagra.search_batch(queries, k)
+        return self.vectors.search_batch(queries, k)
 
     def _fused_hybrid_dispatch(self, queries: np.ndarray, k_max: int,
                                extras: List[Dict[str, Any]]):
@@ -169,7 +188,10 @@ class SearchService:
         switched by NORNICDB_HYBRID_FUSED (on), floored at
         NORNICDB_HYBRID_MIN_N BM25 documents (4,096), and built in the
         background unless NORNICDB_HYBRID_INLINE_BUILD (off) asks for a
-        blocking first build."""
+        blocking first build. Its walk tier is switched by
+        NORNICDB_HYBRID_WALK (on) and floored at NORNICDB_HYBRID_WALK_MIN_N
+        live vectors (100,000), both read when the tier is created; a
+        graph the strategy machine builds later is rebound in place."""
         with self._lock:
             f = self._ensure_fused_locked()
         if f is None or not f.ensure():
@@ -184,11 +206,19 @@ class SearchService:
         if len(self.bm25) < min_n or len(self.vectors) == 0:
             self._fused = None
             return None
-        if self._fused is None:
-            self._fused = FusedHybrid(
+        f = self._fused
+        if f is None:
+            walk_min_n = (env_int("HYBRID_WALK_MIN_N", 100_000)
+                          if env_bool("HYBRID_WALK", True) else None)
+            f = self._fused = FusedHybrid(
                 self.bm25, self.vectors, min_n=min_n,
-                build_inline=env_bool("HYBRID_INLINE_BUILD", False))
-        return self._fused
+                build_inline=env_bool("HYBRID_INLINE_BUILD", False),
+                walk_min_n=walk_min_n, cagra=self.cagra)
+        elif self.cagra is not None and f.cagra is not self.cagra:
+            # the strategy machine built a graph over the same brute index:
+            # one graph, one rebuild cadence, and the snapshot keeps serving
+            f.rebind_cagra(self.cagra)
+        return f
 
     def _fused_hybrid_trio(self, query: str, qv: np.ndarray, overfetch: int,
                            weights: Optional[Sequence[float]]):
@@ -304,12 +334,28 @@ class SearchService:
         if len(self.vectors) < self.hnsw_threshold:
             return
         if current_profile().index_kind == "cagra":
-            raise NotImplementedError(
-                "the cagra ANN profile's device graph tier is not ported "
-                "(ROADMAP §A6); unset NORNICDB_VECTOR_ANN_QUALITY or pick "
-                "an HNSW profile")
+            # after its first build the graph keeps its own rebuild cadence
+            if self.cagra is None:
+                self._rebuild_cagra_locked()
+            return
         if self.hnsw is None:
             self._rebuild_hnsw_locked()
+
+    def _rebuild_cagra_locked(self) -> None:
+        """Build the device graph over the live brute index, here on the
+        write path; a later build from scratch (after the corpus shrank
+        under min_n and regrew) runs in the background while brute force
+        answers."""
+        p = current_profile()
+        idx = CagraIndex(brute=self.vectors, degree=p.cagra_degree, itopk=p.cagra_itopk,
+                         search_width=p.cagra_width,
+                         min_n=min(p.cagra_min_n, self.hnsw_threshold),
+                         build_inline=False)
+        if not idx.build():
+            return
+        self.cagra = idx
+        self.stats.cagra_builds += 1
+        self.stats.strategy = "cagra"
 
     def _rebuild_hnsw_locked(self) -> None:
         """(Re)build HNSW from the brute index, BM25 seeds first."""
@@ -335,17 +381,18 @@ class SearchService:
     def vector_search_candidates(
         self, query_vec: Sequence[float], k: int = 10, exact: bool = False,
     ) -> List[Tuple[str, float]]:
-        """Raw vector candidates: from HNSW once built (unless
-        ``exact``), else from the brute-force index, micro-batched with
-        concurrent callers. ``exact=True`` calls brute force directly: it
-        never rides the batcher."""
+        """Raw vector candidates: from the strategy's ANN index once built
+        (unless ``exact``): the CAGRA walk, micro-batched with concurrent
+        callers, or HNSW; else from the brute-force index, micro-batched.
+        ``exact=True`` calls brute force directly: it never rides the
+        batcher, whose dispatch may walk the graph."""
         with self._lock:
-            hnsw = self.hnsw
-        if not exact and hnsw is not None:
-            return hnsw.search(query_vec, k)
+            hnsw, cagra = self.hnsw, self.cagra
         if exact:
             return self.vectors.search_batch(
                 np.asarray([query_vec], dtype=np.float32), k)[0]
+        if cagra is None and hnsw is not None:
+            return hnsw.search(query_vec, k)
         return self._microbatch.search(query_vec, k)
 
     def search(

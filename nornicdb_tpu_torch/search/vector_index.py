@@ -11,7 +11,10 @@ Small indexes stay on the host (``_SMALL_HOST``). ``device_view`` hands
 the same device arrays to the fused hybrid tier, and ``slots_of`` joins
 ids to slots at a pinned mutation generation; ``slots_changed_since``
 reads a capped log of the ids whose slot changed, so a join derived once
-can be patched after writes. The quantized and tiered planes, CAGRA and
+can be patched after writes. A second capped log, the changelog, keeps
+the ids added or updated after each mutation (``changed_since``), so a
+graph built over a snapshot (``search/cagra.py``) can score its writes
+exactly until it rebuilds. The quantized and tiered planes and
 compaction wait for later slices.
 """
 
@@ -62,6 +65,11 @@ class BruteForceIndex:
         # or before _slot_log_floor were trimmed
         self._slot_log: List[Tuple[int, str]] = []
         self._slot_log_floor = 0
+        # (mutations after the write, ext id) per add or update, as the
+        # reference's changelog; entries at or before _changelog_floor
+        # were trimmed
+        self._changelog: List[Tuple[int, str]] = []
+        self._changelog_floor = 0
 
     def __len__(self) -> int:
         return self._n_alive
@@ -69,6 +77,11 @@ class BruteForceIndex:
     def __contains__(self, ext_id: str) -> bool:
         with self._lock:
             return ext_id in self._slot_of
+
+    def contains_many(self, ext_ids) -> Set[str]:
+        """The live members of ``ext_ids``, under one lock hold."""
+        with self._lock:
+            return {e for e in ext_ids if e in self._slot_of}
 
     @staticmethod
     def _normalize(v: np.ndarray) -> np.ndarray:
@@ -116,6 +129,7 @@ class BruteForceIndex:
         self._matrix[slot] = self._normalize(v)
         self._mark_dirty_locked(slot)
         self.mutations += 1
+        self._log_change_locked(ext_id)
 
     def _mark_dirty_locked(self, slot: int) -> None:
         rows = self._dirty_rows
@@ -131,6 +145,33 @@ class BruteForceIndex:
             cut = len(self._slot_log) - self._SLOT_LOG_CAP
             self._slot_log_floor = self._slot_log[cut - 1][0]
             del self._slot_log[:cut]
+
+    def _log_change_locked(self, ext_id: str) -> None:
+        self._changelog.append((self.mutations, ext_id))
+        limit = self.changelog_cap()
+        if len(self._changelog) > limit:
+            cut = len(self._changelog) - limit
+            self._changelog_floor = self._changelog[cut - 1][0]
+            del self._changelog[:cut]
+
+    def changelog_cap(self) -> int:
+        """The changelog's length cap, well above a derived index's
+        rebuild threshold (10% of the corpus)."""
+        return max(4096, self._capacity // 4)
+
+    def changed_since(self, seq: int) -> Optional[List[str]]:
+        """Ids added or updated after mutation ``seq``, latest first and
+        deduplicated; removals are not reported (consumers filter them
+        by liveness). None when the changelog was trimmed past ``seq``."""
+        with self._lock:
+            if seq < self._changelog_floor:
+                return None
+            out: List[str] = []
+            for s, eid in reversed(self._changelog):
+                if s <= seq:
+                    break
+                out.append(eid)
+        return list(dict.fromkeys(out))
 
     def add(self, ext_id: str, vector: Sequence[float]) -> None:
         v = np.asarray(vector, dtype=np.float32)
@@ -162,6 +203,11 @@ class BruteForceIndex:
             self._mark_dirty_locked(slot)
             self.mutations += 1
             return True
+
+    def ids(self) -> List[str]:
+        """Live ids, under one lock hold."""
+        with self._lock:
+            return list(self._slot_of)
 
     def get(self, ext_id: str) -> Optional[np.ndarray]:
         with self._lock:

@@ -162,10 +162,19 @@ def test_racing_put_guarded_never_keeps_a_stale_entry():
     assert errors == []
 
 
+def _with_port_walk(profile):
+    """A JAX profile as the port keeps it: the CAGRA walk's pool and
+    width are the port's (ROADMAP C14), every other field the same."""
+    return dict(dataclasses.asdict(profile), cagra_itopk=tann.CAGRA_ITOPK,
+                cagra_width=tann.CAGRA_WIDTH)
+
+
 @pytest.mark.parametrize("name", sorted(jann.PROFILES))
 def test_ann_profiles_match_jax(name):
     assert (dataclasses.asdict(tann.PROFILES[name])
-            == dataclasses.asdict(jann.PROFILES[name]))
+            == _with_port_walk(jann.PROFILES[name]))
+    assert (tann.CAGRA_ITOPK, tann.CAGRA_WIDTH) == (128, 8)
+    assert (jann.PROFILES[name].cagra_itopk, jann.PROFILES[name].cagra_width) == (64, 1)
     assert sorted(tann.PROFILES) == sorted(jann.PROFILES)
     assert tann.ENV_VAR == jann.ENV_VAR
 
@@ -177,7 +186,7 @@ def test_current_profile_env_selection_matches_jax(monkeypatch, env):
     else:
         monkeypatch.setenv(jann.ENV_VAR, env)
     assert (dataclasses.asdict(tann.current_profile())
-            == dataclasses.asdict(jann.current_profile()))
+            == _with_port_walk(jann.current_profile()))
     assert tann.current_profile("fast") == tann.PROFILES["fast"]
 
 

@@ -216,3 +216,71 @@ def test_fused_hybrid_on_the_card_is_deterministic(dev):
     second = card.search_batch(embs, 32, extras)
     for a, b in zip(first, second):
         assert (a["lex"], a["vec"], a["fused"]) == (b["lex"], b["vec"], b["fused"])
+
+
+def _walk_graph(n=20_000, d=160, seed=11):
+    """A CAGRA graph over clustered unit rows, built on the CPU: (matrix,
+    adj, validf) padded to the capacity, and queries near stored rows."""
+    from nornicdb_tpu_torch.ops.similarity import pad_dim
+    from nornicdb_tpu_torch.search.cagra import knn_forward, rank_reorder
+
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((40, d)).astype(np.float32) * 2.0
+    x = centers[rng.integers(0, 40, n)] + rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    r = pad_dim(n)
+    mat = np.zeros((r, d), np.float32)
+    mat[:n] = x
+    adj = np.zeros((r, 32), np.int32)
+    adj[:n] = rank_reorder(knn_forward(torch.from_numpy(x), 32), 32)
+    validf = np.zeros(r, np.float32)
+    validf[:n] = 1.0
+    q = x[rng.integers(0, n, 64)] + 0.3 * rng.standard_normal((64, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return [torch.from_numpy(a) for a in (q, mat, adj, validf)]
+
+
+@pytest.mark.parametrize("itopk,width", [(64, 1), (128, 8)])
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_walk_on_the_card_matches_the_cpu(dev, b, itopk, width):
+    """The same graph and queries through ``walk_body`` on the card and on
+    the CPU: ids tie-aware, scores within 1e-5 (batched products summed in
+    another order)."""
+    from nornicdb_tpu_torch.search.cagra import walk_body
+
+    cpu = _walk_graph()
+    cpu[0] = cpu[0][:b]
+    args = (32, 15, width, itopk, 16, 1024)
+    s_c, i_c = walk_body(*cpu, *args)
+    s_g, i_g = walk_body(*(t.to(dev) for t in cpu), *args)
+    assert s_g.shape == (b, 32) and i_g.dtype == torch.int32
+    assert topk_agree(i_g.cpu().numpy(), s_g.cpu().numpy(), i_c.numpy(), s_c.numpy(),
+                      SCORE_ATOL)
+    again = walk_body(*(t.to(dev) for t in cpu), *args)
+    assert torch.equal(again[0], s_g) and torch.equal(again[1], i_g)
+
+
+def test_knn_forward_launches_b1_per_chunk_and_matches_plain(dev):
+    """The graph build's k-NN: one B1 launch per 1,024-row chunk at
+    k = 33, each agreeing with the plain version tie-aware."""
+    from nornicdb_tpu_torch.search.cagra import knn_forward
+
+    _, mat, _, _ = _walk_graph(n=5000)
+    rows = mat[:5000].to(dev)
+    valid = torch.ones(5000, dtype=torch.bool, device=dev)
+    s_k, i_k = fused_cosine_topk(rows[:1024], rows, valid, 33)
+    s_p, i_p = cosine_topk(rows[:1024], rows, valid, 33)
+    assert topk_agree(i_k.cpu().numpy(), s_k.cpu().numpy(), i_p.cpu().numpy(),
+                      s_p.cpu().numpy(), SCORE_ATOL)
+    before = dict(fused_cosine_topk.launch_sizes)
+    fwd = knn_forward(rows, 32)
+    grew = {b: n - before.get(b, 0) for b, n in fused_cosine_topk.launch_sizes.items()
+            if n != before.get(b, 0)}
+    assert grew == {1024: 4, 904: 1}
+    assert fwd.shape == (5000, 32) and not (fwd == np.arange(5000)[:, None]).any()
+    # against the CPU's edges: each rank's cosine agrees within 1e-5, so
+    # ids differ only inside float ties
+    x = mat[:5000].numpy()
+    plain = knn_forward(mat[:5000], 32)
+    cos = [np.einsum("nkd,nd->nk", x[f], x) for f in (fwd, plain)]
+    assert np.abs(cos[0] - cos[1]).max() <= SCORE_ATOL

@@ -23,18 +23,25 @@ import nornicdb_tpu_torch
 from nornicdb_tpu.embed.embedder import HashEmbedder as JHash
 from nornicdb_tpu.search.bm25 import BM25Index as JBM25
 from nornicdb_tpu.search.device_bm25 import DeviceBM25 as JDeviceBM25
+from nornicdb_tpu.search import cagra as j_cagra
 from nornicdb_tpu.search.hybrid_fused import FusedHybrid as JFused
 from nornicdb_tpu.search.vector_index import BruteForceIndex as JIndex
 from nornicdb_tpu_torch.embed.embedder import HashEmbedder as THash
 from nornicdb_tpu_torch.ops.topk import topk_agree
+from nornicdb_tpu_torch.search import cagra as t_cagra
 from nornicdb_tpu_torch.search import hybrid_fused as t_hybrid
+from nornicdb_tpu_torch.search.ann_quality import CAGRA_ITOPK, CAGRA_WIDTH
 from nornicdb_tpu_torch.search.bm25 import BM25Index as TBM25, tokenize
 from nornicdb_tpu_torch.search.device_bm25 import (
     DeviceBM25 as TDeviceBM25,
     PlanOverflow,
     SnapshotStale,
 )
-from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32, FusedHybrid as TFused
+from nornicdb_tpu_torch.search.hybrid_fused import (
+    TIER_BRUTE_F32,
+    TIER_WALK_F32,
+    FusedHybrid as TFused,
+)
 from nornicdb_tpu_torch.search.microbatch import MicroBatcher, pow2_bucket
 from nornicdb_tpu_torch.search.rrf import rrf_fuse
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex as TIndex
@@ -552,7 +559,7 @@ def test_join_map_patched_after_writes_equals_full_derivation():
     pair.tv.add("t0", np.ones(D, np.float32))  # ... that a text-only doc takes
     pair.tv.add("d5", np.ones(D, np.float32))  # same slot, new vector
     pair.tv.add("novel", np.ones(D, np.float32))  # no lexical row
-    prev = snap["row_map"][1]
+    prev = snap["row_maps"]["l2v"][1]
     patched = tf._ensure_map(snap, pair.tv.mutations)
     assert patched is not prev and patched.tolist() == full()
     assert (tf.counts["join_full"], tf.counts["join_patch"]) == (1, 1)
@@ -564,9 +571,181 @@ def test_join_map_patched_after_writes_equals_full_derivation():
     pair.tv._SLOT_LOG_CAP = 1  # the log stops reaching back: derive in full
     for i in range(4):
         pair.tv.remove(f"d{10 + i}")
-    assert pair.tv.slots_changed_since(snap["row_map"][0], pair.tv.mutations) is None
+    assert pair.tv.slots_changed_since(snap["row_maps"]["l2v"][0], pair.tv.mutations) is None
     assert tf._ensure_map(snap, pair.tv.mutations).tolist() == full()
     assert (tf.counts["join_full"], tf.counts["join_patch"]) == (2, 1)
+
+
+# ---------------------------------------------------------------------------
+# the walk tier
+# ---------------------------------------------------------------------------
+
+WALK_SETTINGS = [(64, 1), (CAGRA_ITOPK, CAGRA_WIDTH)]  # the reference's, the port's
+WALK_IDS = ["reference", "port"]
+WALK_MIN_N = 1000
+
+
+@pytest.fixture
+def same_edges(monkeypatch):
+    """Both graphs on the JAX package's k-NN edges (a near-tie may rank
+    the other way under another summation order; the edges are held
+    tie-aware in tests/test_torch_cagra.py)."""
+    monkeypatch.setattr(t_cagra, "knn_forward",
+                        lambda m, degree: j_cagra._knn_forward(m.cpu().numpy(), degree))
+    return monkeypatch
+
+
+def _walk_fused(pair, itopk, width, **kw):
+    """Both packages' fused tiers with the walk at WALK_MIN_N, over graphs
+    at (itopk, width) with ``kw``, snapshots and graphs built inline."""
+    kw.update(itopk=itopk, search_width=width, min_n=WALK_MIN_N)
+    jg = j_cagra.CagraIndex(brute=pair.jv, **kw)
+    tg = t_cagra.CagraIndex(brute=pair.tv, **kw)
+    jf = JFused(pair.jb, pair.jv, min_n=1, walk_min_n=WALK_MIN_N, cagra=jg)
+    tf = TFused(pair.tb, pair.tv, min_n=1, walk_min_n=WALK_MIN_N, cagra=tg)
+    assert jf.build() and tf.build() and jg.build() and tg.build()
+    return jf, tf
+
+
+def _assert_walk_rows(rows_t, rows_j, overfetch, weights=(1.0, 1.0)):
+    for qi, (rt, rj) in enumerate(zip(rows_t, rows_j)):
+        assert rt is not None and rj is not None, qi
+        assert rt["served_by"] == rj["served_by"] and rt["tier"] == rj["tier"], qi
+        assert _lex_agree(rt["lex"], rj["lex"]) and _vec_agree(rt["vec"], rj["vec"]), qi
+        if rt["lex"] and rt["vec"]:
+            assert rt["fused"] == rrf_fuse([rt["lex"], rt["vec"]], weights=list(weights),
+                                           limit=overfetch), qi
+            if ([x[0] for x in rt["lex"]] == [x[0] for x in rj["lex"]]
+                    and [x[0] for x in rt["vec"]] == [x[0] for x in rj["vec"]]):
+                assert rt["fused"] == rj["fused"], qi
+
+
+@pytest.mark.parametrize("itopk,width", WALK_SETTINGS, ids=WALK_IDS)
+def test_walk_tier_matches_jax(same_edges, itopk, width):
+    """Lexical lists, walk lists, fused lists and each row's tier against
+    the JAX package's walk tier, and walk-parity against the host path."""
+    pair = Pair(1500, seed=61)
+    jf, tf = _walk_fused(pair, itopk, width)
+    np.testing.assert_array_equal(tf.cagra._graph["adj"].numpy(),
+                                  np.asarray(jf.cagra._graph["adj"]))
+    embs = pair.embs(len(PARITY_QUERIES))
+    for weights in ((1.0, 1.0), (2.0, 0.5)):
+        rows_t = _rows(tf, PARITY_QUERIES, embs, 30, weights)
+        rows_j = _rows(jf, PARITY_QUERIES, embs, 30, weights)
+        _assert_walk_rows(rows_t, rows_j, 30, weights)
+        assert all(r["served_by"] == TIER_WALK_F32 for r in rows_t)
+    assert tf.counts["walk_dispatch"] == 2 and tf.counts["dispatch"] == 0
+    assert tf.counts[TIER_WALK_F32] == 2 * len(PARITY_QUERIES)
+
+
+def test_walk_tier_holds_walk_parity_at_the_port_defaults():
+    """ROADMAP C14: the fused top 10 against the host hybrid ranking,
+    recall@10 >= 0.95, on clustered vectors with queries near stored rows."""
+    rng = np.random.default_rng(66)
+    centers = rng.standard_normal((12, D)).astype(np.float32) * 2.0
+    vecs = centers[rng.integers(0, 12, 3000)] + rng.standard_normal((3000, D)).astype(np.float32)
+    bm25, brute = TBM25(), TIndex(device="cpu")
+    for i in range(len(vecs)):
+        bm25.index(f"d{i}", " ".join(rng.choice(VOCAB, size=int(rng.integers(3, 12)))))
+    brute.add_batch([(f"d{i}", vecs[i]) for i in range(len(vecs))])
+    tf = TFused(bm25, brute, min_n=1, walk_min_n=WALK_MIN_N)
+    assert tf.build()
+    embs = vecs[rng.choice(len(vecs), len(PARITY_QUERIES), replace=False)]
+    embs = embs + 0.3 * rng.standard_normal(embs.shape).astype(np.float32)
+    rows = _rows(tf, PARITY_QUERIES, embs, 30)
+    assert all(r["served_by"] == TIER_WALK_F32 for r in rows)
+    host = [rrf_fuse([lx, vx], limit=30) for lx, vx in
+            zip(bm25.search_batch(PARITY_QUERIES, 30), brute.search_batch(embs, 30))]
+    recall = np.mean([len({e for e, _ in r["fused"][:10]} & {e for e, _ in h[:10]})
+                      / min(10, len(h)) for r, h in zip(rows, host)])
+    assert recall >= 0.95
+
+
+@pytest.mark.parametrize("itopk,width", WALK_SETTINGS, ids=WALK_IDS)
+def test_walk_tier_reads_its_writes_as_jax(same_edges, itopk, width):
+    """After the graph build: a new vector and an update are scored
+    exactly and merged, removed docs are filtered; those rows re-fuse on
+    the host (``host``), the others stay on the walk."""
+    pair = Pair(1500, seed=62)
+    jf, tf = _walk_fused(pair, itopk, width)
+    embs = pair.embs(len(PARITY_QUERIES))
+    embs[0] = pair.tv.get("d5") * 3.0
+    gone = [e for e, _ in _rows(tf, PARITY_QUERIES[1:2], embs[1:2], 30)[0]["vec"][:5]]
+    pair.add("novel", embs[2])
+    pair.index("novel", "term7 term8 novelword")
+    pair.add("d5", -embs[0])  # an update far from its old place
+    for e in gone:
+        pair.remove(e)
+    rows_t = _rows(tf, PARITY_QUERIES, embs, 30)
+    rows_j = _rows(jf, PARITY_QUERIES, embs, 30)
+    _assert_walk_rows(rows_t, rows_j, 30)
+    assert rows_t[2]["vec"][0][0] == "novel"
+    assert "d5" not in [e for e, _ in rows_t[0]["vec"][:10]]
+    assert not set(gone) & {e for r in rows_t for e, _ in r["vec"]}
+    served = [r["served_by"] for r in rows_t]
+    assert "host" in served and tf.counts["walk_dispatch"] == 2
+    assert tf.cagra.builds == 1
+
+
+@pytest.mark.parametrize("itopk,width", WALK_SETTINGS, ids=WALK_IDS)
+def test_walk_tier_steps_down_to_the_brute_tier_as_jax(same_edges, itopk, width):
+    pair = Pair(1500, seed=63)
+    # no rebuild while the deletes below drain a pool
+    jf, tf = _walk_fused(pair, itopk, width, rebuild_stale_frac=1.0)
+    embs = pair.embs(4)
+    queries = PARITY_QUERIES[:4]
+    # a request deeper than the pool
+    deep = 2 * itopk
+    rows_t = _rows(tf, queries, embs, deep)
+    _assert_walk_rows(rows_t, _rows(jf, queries, embs, deep), deep)
+    assert all(r["served_by"] == TIER_BRUTE_F32 for r in rows_t)
+    assert tf.counts["walk_itopk_exceeded"] == 1
+    # a row the live filter leaves short: the batch re-runs on the exact tier
+    victims = [e for e, _ in pair.tv.search_batch(embs[:1], 2 * itopk)[0]]
+    for e in victims:
+        pair.remove(e, text=False)
+    rows_t = _rows(tf, queries, embs, 30)
+    _assert_walk_rows(rows_t, _rows(jf, queries, embs, 30), 30)
+    assert tf.counts["walk_underfill"] == 1 and tf.counts["walk_dispatch"] == 1
+    assert rows_t[0]["tier"] == "brute" and tf.counts["dispatch"] == 2
+    # the changelog no longer reaches the graph's build
+    for idx in (pair.jv, pair.tv):
+        idx._changelog_floor = idx.mutations
+    for g in (jf.cagra, tf.cagra):
+        g._delta_cache = None
+    rows_t = _rows(tf, queries, embs, 30)
+    _assert_walk_rows(rows_t, _rows(jf, queries, embs, 30), 30)
+    assert tf.counts["walk_changelog_overrun"] == 1
+    assert all(r["tier"] == "brute" for r in rows_t)
+    # below walk_min_n live vectors the walk is off
+    tf.walk_min_n = len(pair.tv) + 1
+    assert _rows(tf, queries, embs, 30)[0]["tier"] == "brute"
+    assert tf.handoffs() == 0
+
+
+def test_walk_tier_pending_build_serves_the_brute_tier():
+    pair = Pair(1200, seed=64)
+    tf = TFused(pair.tb, pair.tv, min_n=1, walk_min_n=WALK_MIN_N, build_inline=False)
+    assert (tf.cagra.itopk, tf.cagra.search_width) == (CAGRA_ITOPK, CAGRA_WIDTH)
+    assert tf.build()
+    embs = pair.embs(2)
+    rows = _rows(tf, PARITY_QUERIES[:2], embs, 30)
+    assert all(r["served_by"] == TIER_BRUTE_F32 for r in rows)
+    assert tf.counts["walk_pending_build"] == 1
+    deadline = time.time() + 30
+    while not tf.cagra.graph_built and time.time() < deadline:
+        time.sleep(0.02)
+    assert all(r["served_by"] == TIER_WALK_F32 for r in _rows(tf, PARITY_QUERIES[:2], embs, 30))
+
+
+def test_fused_tier_refuses_a_graph_over_another_index():
+    pair = Pair(300, seed=65)
+    other = t_cagra.CagraIndex(device="cpu")
+    tf = TFused(pair.tb, pair.tv, min_n=1, walk_min_n=100, cagra=other)
+    assert tf.cagra is not other and tf.cagra._brute is pair.tv
+    assert not tf.rebind_cagra(other) and tf.cagra._brute is pair.tv
+    shared = t_cagra.CagraIndex(brute=pair.tv)
+    assert tf.rebind_cagra(shared) and tf.cagra is shared
 
 
 # ---------------------------------------------------------------------------

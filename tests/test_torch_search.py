@@ -346,6 +346,7 @@ def test_db_store_of_a_mismatched_embedding_matches_jax():
 from nornicdb_tpu.search.service import SearchService as JService  # noqa: E402
 from nornicdb_tpu.storage.memory import MemoryEngine as JEngine  # noqa: E402
 from nornicdb_tpu.storage.types import Node as JNode  # noqa: E402
+from nornicdb_tpu_torch.search import cagra as t_cagra  # noqa: E402
 from nornicdb_tpu_torch.search.service import HNSW_EF_SEARCH  # noqa: E402
 from nornicdb_tpu_torch.search.service import SearchService as TService  # noqa: E402
 from nornicdb_tpu_torch.storage.memory import MemoryEngine as TEngine  # noqa: E402
@@ -550,13 +551,20 @@ def test_service_diag_timings(monkeypatch):
     assert svc.stats.last_timings == {}
 
 
+def _launch_failed(*args, **kw):
+    raise RuntimeError("cosine_topk kernel: launch failed")
+
+
 def test_service_raises_on_the_cagra_profile(monkeypatch):
+    """Under the cagra profile a graph build whose B1 launch fails raises
+    at the crossing write; no graph serves and the strategy stays brute."""
     monkeypatch.setenv("NORNICDB_VECTOR_ANN_QUALITY", "cagra")
+    monkeypatch.setattr(t_cagra, "fused_cosine_topk", _launch_failed)
     docs, vecs, _, _ = _hnsw_corpus(HNSW_THRESHOLD, seed=35)
     svc = TService(TEngine(), device="cpu", hnsw_threshold=HNSW_THRESHOLD)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(RuntimeError, match="launch failed"):
         _index_port(svc, docs, vecs)
-    assert svc.hnsw is None and svc.stats.strategy == "brute"
+    assert svc.hnsw is None and svc.cagra is None and svc.stats.strategy == "brute"
 
 
 def test_a_raising_switch_still_invalidates_the_cache(monkeypatch):
@@ -570,12 +578,13 @@ def test_a_raising_switch_still_invalidates_the_cache(monkeypatch):
     hits, gen = svc.stats.cache_hits, svc.generation
     assert hits == 1
     monkeypatch.setenv("NORNICDB_VECTOR_ANN_QUALITY", "cagra")
+    monkeypatch.setattr(t_cagra, "fused_cosine_topk", _launch_failed)
     last = len(docs) - 1
     node = _node(TNode, last, texts[0], vecs[last])
     svc.storage.create_node(node)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(RuntimeError, match="launch failed"):
         svc.index_node(node)
-    assert svc.generation == gen + 1 and svc.hnsw is None
+    assert svc.generation == gen + 1 and svc.hnsw is None and svc.cagra is None
     again = svc.search(texts[0], limit=5, mode="text")
     assert svc.stats.cache_hits == hits  # a miss, not the stale entry
     assert f"d{last}" in [h["id"] for h in again] and again != first
@@ -583,7 +592,7 @@ def test_a_raising_switch_still_invalidates_the_cache(monkeypatch):
     storage.create_node(node)
     backfill = TService(storage, device="cpu", hnsw_threshold=1)
     gen = backfill.generation
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(RuntimeError, match="launch failed"):
         backfill.build_indexes()
     assert backfill.generation > gen
 
@@ -607,3 +616,118 @@ def test_backfill_switches_once_and_builds_once():
     svc.index_node(node)
     assert svc.stats.hnsw_builds == 1 and "d900" in svc.hnsw
     assert svc.vector_search_candidates(queries[0], 1)[0][0] == "d900"
+
+
+# -- the cagra profile and the walk tier ---------------------------------------
+
+CAGRA_DOCS = 1500
+
+
+@pytest.fixture(params=["reference", "port"])
+def cagra_env(request, monkeypatch):
+    """Both services under the cagra profile at one walk setting, the
+    reference's (64, 1) or the port's defaults (ROADMAP C14), with the
+    k-NN edges of the JAX package (held tie-aware in test_torch_cagra.py)."""
+    from nornicdb_tpu.search import ann_quality as jann
+    from nornicdb_tpu.search import cagra as j_cagra
+    from nornicdb_tpu_torch.search import ann_quality as tann
+
+    monkeypatch.setenv("NORNICDB_VECTOR_ANN_QUALITY", "cagra")
+    setting = (64, 1) if request.param == "reference" else (tann.CAGRA_ITOPK, tann.CAGRA_WIDTH)
+    for mod in (jann, tann):
+        for name in ("cagra", "balanced"):
+            monkeypatch.setitem(mod.PROFILES, name, dataclasses.replace(
+                mod.PROFILES[name], cagra_itopk=setting[0], cagra_width=setting[1]))
+    monkeypatch.setattr(t_cagra, "knn_forward",
+                        lambda m, degree: j_cagra._knn_forward(m.cpu().numpy(), degree))
+    return request.param, setting
+
+
+def _cagra_services():
+    return (JService(JEngine(), hnsw_threshold=CAGRA_DOCS),
+            TService(TEngine(), device="cpu", hnsw_threshold=CAGRA_DOCS))
+
+
+def test_service_cagra_profile_builds_once_and_walks_as_jax(cagra_env):
+    name, (itopk, width) = cagra_env
+    docs, vecs, queries, texts = _hnsw_corpus(CAGRA_DOCS, seed=39)
+    pair = _cagra_services()
+    _index_both(pair, docs[:-1], vecs[:-1])
+    assert all(svc.cagra is None and svc.stats.strategy == "brute" for svc in pair)
+    _index_both(pair, docs, vecs, start=len(docs) - 1)  # the crossing write
+    for svc in pair:
+        assert svc.stats.strategy == "cagra" and svc.stats.cagra_builds == 1
+        assert svc.hnsw is None and svc.cagra.graph_built and svc.cagra._brute is svc.vectors
+    j, t = pair
+    assert (t.cagra.itopk, t.cagra.search_width) == (itopk, width)
+    np.testing.assert_array_equal(t.cagra._graph["adj"].numpy(), np.asarray(j.cagra._graph["adj"]))
+    for qv in queries:
+        for k in (10, 30):
+            assert _hits_agree(t.vector_search_candidates(qv, k), j.vector_search_candidates(qv, k))
+    # every vector query rode the batcher into the walk
+    assert t.cagra.counts["walk"] == t.microbatch_stats()["batches"] == 2 * len(queries)
+    for qv, text in zip(queries, texts):
+        for mode, kw in (("vector", {"query_embedding": qv}),
+                         ("hybrid", {"query": text, "query_embedding": qv})):
+            th = t.search(mode=mode, limit=10, **kw)
+            jh = j.search(mode=mode, limit=10, **kw)
+            assert [h["id"] for h in th] == [h["id"] for h in jh], (mode, text)
+    # exact=True takes brute force, never the walk
+    walks = t.cagra.counts["walk"]
+    for qv in queries:
+        assert _hits_agree(t.vector_search_candidates(qv, 10, exact=True),
+                           j.vector_search_candidates(qv, 10, exact=True))
+    assert t.cagra.counts["walk"] == walks
+    if name == "port":  # ROADMAP C14: recall@10 >= 0.95 against exact
+        hit = sum(len({i for i, _ in t.vector_search_candidates(qv, 10)}
+                      & {i for i, _ in t.vector_search_candidates(qv, 10, exact=True)})
+                  for qv in queries)
+        assert hit / (10 * len(queries)) >= 0.95
+
+
+def test_walk_tier_shares_the_cagra_strategys_graph_as_jax(cagra_env, monkeypatch):
+    """Below the threshold the fused tier walks a graph of its own; the
+    strategy's graph, once built, is rebound into it in place."""
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_WALK_F32
+
+    for key, value in (("HYBRID_MIN_N", "50"), ("HYBRID_INLINE_BUILD", "1"),
+                       ("HYBRID_WALK_MIN_N", "1000")):
+        monkeypatch.setenv("NORNICDB_" + key, value)
+    docs, vecs, queries, texts = _hnsw_corpus(CAGRA_DOCS, seed=40)
+    pair = _cagra_services()
+    _index_both(pair, docs[:-1], vecs[:-1])
+    answers = [[svc.search(text, limit=10, query_embedding=qv) for svc in pair]
+               for text, qv in zip(texts, queries)]
+    own = pair[1]._fused.cagra
+    assert own is not None and own.graph_built and pair[1].cagra is None
+    _index_both(pair, docs, vecs, start=len(docs) - 1)
+    for text, qv in zip(texts, queries):
+        answers.append([svc.search(text, limit=10, query_embedding=qv) for svc in pair])
+    for svc in pair:
+        assert svc._fused.cagra is svc.cagra and svc.stats.cagra_builds == 1
+    for jh, th in answers:
+        assert [h["id"] for h in th] == [h["id"] for h in jh]
+    fused = pair[1]._fused
+    assert fused.counts["walk_dispatch"] == 2 * len(texts) and fused.counts["dispatch"] == 0
+    assert fused.counts[TIER_WALK_F32] + fused.counts["host"] == 2 * len(texts)
+    assert pair[1].cagra.builds == 1 and own.builds == 1
+
+
+def test_hybrid_walk_off_keeps_the_brute_tier(monkeypatch):
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32, TIER_WALK_F32
+
+    for key, value in (("HYBRID_MIN_N", "50"), ("HYBRID_INLINE_BUILD", "1"),
+                       ("HYBRID_WALK_MIN_N", "100"), ("HYBRID_WALK", "0")):
+        monkeypatch.setenv("NORNICDB_" + key, value)
+    docs, vecs, queries, texts = _hnsw_corpus(300, seed=41)
+    svc = TService(TEngine(), device="cpu")
+    _index_port(svc, docs, vecs)
+    off = svc.search(texts[0], limit=10, query_embedding=queries[0])
+    assert svc._fused.walk_min_n is None and svc._fused.cagra is None
+    assert svc._fused.counts[TIER_BRUTE_F32] == 1
+    # read when the tier is created, as the reference does
+    monkeypatch.delenv("NORNICDB_HYBRID_WALK")
+    svc._fused = None
+    on = svc.search(texts[0], limit=10, query_embedding=queries[0])
+    assert svc._fused.walk_min_n == 100 and svc._fused.counts[TIER_WALK_F32] == 1
+    assert [h["id"] for h in on] == [h["id"] for h in off]
