@@ -26,48 +26,63 @@ Phases, in order; any failure exits non-zero:
    documents, ``flush`` (the embed queue must have failed no node, and the
    vector index must hold every document). The host HNSW library
    (``csrc/hnsw_host.cpp``) is built with ``c++`` and timed apart. The
-   first ``db.search`` backfills the indexes; at 10,000 vectors and above the strategy machine
-   builds HNSW once at its end (``stats.strategy`` must read ``hnsw``,
-   ``hnsw_builds`` 1; the build's seconds are printed). Then 64 queries
-   each in vector, text and hybrid mode, one at a time, with the result
-   cache invalidated (a generation bump) before each mode, so no timed
-   query is a cache hit. Vector mode is served from HNSW, approximate as
-   in the reference: its 64 answers must hold recall@10 >= 0.95 against
-   ``vector_search_candidates(..., exact=True)``, and the self-probe (a
-   stored document's text finds that document) and the wide-k check call
-   that exact path. Above ``NORNICDB_HYBRID_MIN_N`` (4,096)
-   documents the first hybrid query starts the fused tier's snapshot build
-   in the background; the phase waits for it (failing after
-   ``HYBRID_BUILD_TIMEOUT_S``) before timing hybrid mode, and every timed
-   hybrid query must be served by the fused tier (``hybrid_brute_f32``,
-   no host hand-off) with lexical and vector lists that agree tie-aware
-   with the host path's and a fused list bitwise the host ``rrf_fuse`` of
-   its two lists. Both kernels' launch counters must grow, and the vector
+   first ``db.search`` backfills the indexes; at 10,000 vectors and above
+   the strategy machine builds HNSW once at its end (``stats.strategy``
+   must read ``hnsw``, ``hnsw_builds`` 1). Then 64 queries each in vector,
+   text and hybrid mode, one at a time, with the result cache invalidated
+   (a generation bump) before each mode, so no timed query is a cache hit.
+   Vector mode is served from HNSW, held to recall@10 >= 0.95 against
+   ``vector_search_candidates(..., exact=True)``. Above
+   ``NORNICDB_HYBRID_MIN_N`` (4,096) documents the first hybrid query
+   starts the fused tier's snapshot build in the background, and the
+   phase waits for it (``HYBRID_BUILD_TIMEOUT_S``); at
+   ``NORNICDB_HYBRID_WALK_MIN_N`` (100,000) vectors the next one starts
+   the walk graph's build (B1 over the rows in chunks of 1,024 at k 33,
+   then the host reorder), and the phase waits for that too and prints
+   its seconds by part, B1's launches by B, ``iters`` and the graph's
+   device bytes against the ``memory_allocated`` delta. (A run with fewer
+   documents lowers both floors to half its size.) Every timed hybrid
+   query must then be served by the walk tier (``hybrid_walk_f32``, no
+   step down, no hand-off) with lexical lists tie-aware the host path's,
+   fused lists bitwise the host ``rrf_fuse`` of their own lists, and
+   walk-parity (fused top 10 against the host hybrid ranking) and vector
+   recall@10 (against ``exact=True``) >= 0.95 at the port's walk
+   defaults; both recalls are printed at the reference's (itopk 64, width
+   1) too. A block with the walk off on the live pipeline times the same
+   queries on the exact tier (``hybrid_brute_f32``, one B1 launch each,
+   lists agreeing with the host path). The walk runs again on the CPU on
+   the same graph and queries, and must agree (ids tie-aware, scores
+   within 1e-5). Both kernels' launch counters must grow, and the vector
    answers must match the plain path (B = 64). Then 16 client threads
    send 32 queries each, alternating vector and hybrid, with the cache's
    probe missing so that every request reaches its tier: the hybrid
-   batcher must coalesce (mean batch above 1) into B1 launches at B >= 5;
+   batcher must coalesce (mean batch above 1, a dispatch at B >= 5);
    vector queries call HNSW directly (no vector rides) above the
-   threshold; every answer must agree with the one-at-a-time answer.
-   Then the same threads ride the brute tier's vector batcher directly
+   threshold; every answer must agree with the one-at-a-time answer. Then
+   the same threads ride the brute tier's vector batcher directly
    (``svc._microbatch.search``, the route of every deployment under the
    threshold) over the same index: mean batch above 1, a B1 launch at
    B >= 5 on that route, answers equal to one-at-a-time ``exact=True``
-   answers. The
+   answers. The fused dispatch is timed by part (host plan, device by
+   events and by ``torch.profiler`` with its kernel count, decode, the
+   whole ``search_batch``) on both tiers at B in ``FUSED_TIMED_B``. The
    cache phase repeats the 64 hybrid queries twice after an invalidation:
    the second pass must be 64 cache hits equal to the first pass's
-   answers, and after one ``store`` the next repeat must miss. The fused
-   dispatch is timed by part (host plan, device by events and by
-   ``torch.profiler``, decode) at B in ``FUSED_TIMED_B``. Then
+   answers, and after one ``store`` the next repeat must miss. Then
    ``vector_search_candidates(qv, 300, exact=True)`` must take the
-   wide-k route and not B1, and agree with the plain path. Last, stores
+   wide-k route and not B1, and agree with the plain path. Then stores
    while it recalls: ``WRITE_MIX_BLOCKS`` blocks of ``WRITE_MIX_ROUNDS``
    rounds, each one ``store`` and one timed hybrid ``recall``, blocks
-   alternating the fused tier and the host path (whose vector half is
-   HNSW); it reports each path's p50/p99 and host ms per query by part,
-   with the HNSW insert each store makes, accepts no hand-off but a
-   vector race, and after a flush every recent document must be found by
-   its own text with fused answers that agree with the host path.
+   cycling through the walk tier, the host path (whose vector half is
+   HNSW) and the exact tier; it reports each arm's p50/p99 and host ms
+   per query by part, with the HNSW insert each store makes, accepts no
+   hand-off but a vector race, requires the walk to merge the stores
+   (rows re-fused on the host), and after a flush every recent document
+   must be found by its own text with fused answers that agree with the
+   host path. Last, the ``cagra`` ANN profile: a second service over the
+   same rows' embeddings builds the device graph once (``strategy
+   cagra``), and 64 vector queries must each ride the vector batcher into
+   a walk, with recall@10 >= 0.95 against ``exact=True``.
 5. Index at deployment scale: a 1,048,576 x 1024 float32
    ``BruteForceIndex`` filled through ``add_batch`` and searched at
    the (B, k) of ``INDEX_TIMED``, through B1, checked against the plain
@@ -76,8 +91,9 @@ Phases, in order; any failure exits non-zero:
 Timing uses CUDA events over back-to-back calls, and ``torch.profiler``
 for the device time of each kernel per call: B1 by stage and its library
 call (matmul + where + topk) at B in ``MAIN_TIMED_B`` on the main path's
-index and ``INDEX_TIMED`` on the deployment-scale one, B2 and SDPA at
-the shapes in ``ATTN_TIMED``. The second-to-last line is a JSON object with
+index, at the graph build's shape (B 1,024 of the rows, k 33), and at
+``INDEX_TIMED`` on the deployment-scale one, B2 and SDPA at the shapes in
+``ATTN_TIMED``. The second-to-last line is a JSON object with
 one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A copy of every measurement goes to ``chiprun_out/chip_smoke_report.json``.
@@ -128,12 +144,17 @@ LEX_RTOL = 1e-5
 # to recall@10 against exact search, as the reference holds its own
 RECALL_MIN = 0.95
 REFERENCE_EF_SEARCH = 64  # the JAX package's SearchService default
-HYBRID_BUILD_TIMEOUT_S = 300.0
+HYBRID_BUILD_TIMEOUT_S = 300.0  # the hybrid snapshot's and the walk graph's builds
+# the JAX package's CAGRA walk defaults (pool, frontier width), printed
+# beside the port's (ROADMAP C14)
+REFERENCE_WALK = (64, 1)
 CONCURRENT_THREADS = 16
 CONCURRENT_PER_THREAD = 32
 VECTOR_RIDE_K = 30  # a recall(limit=10)'s vector overfetch
 # the store-while-recall phase: blocks alternate fused tier and host path
-WRITE_MIX_BLOCKS = 4
+WRITE_MIX_ARMS = ("walk", "host", "brute")  # the fused tier on the walk, the host path,
+# the fused tier with its walk off; blocks cycle through them twice
+WRITE_MIX_BLOCKS = 6
 WRITE_MIX_ROUNDS = 48
 
 REPORT: dict = {}
@@ -171,11 +192,12 @@ def _kernel_name(key: str) -> str:
     return re.split(r"[<(]", key, maxsplit=1)[0].strip()
 
 
-def device_split(fn, iters: int = 10, expect: str = "") -> dict:
+def device_split(fn, iters: int = 10, expect: str = "", launches: dict = None) -> dict:
     """Device milliseconds per call of each kernel (and memset) that ``fn``
-    launches, from a torch.profiler trace of ``iters`` calls. A trace
-    that lost the kernel named ``expect`` (the profiler now and then drops
-    a ctypes launch's record) is taken again, up to three times."""
+    launches, from a torch.profiler trace of ``iters`` calls; ``launches``,
+    when given, receives each one's launches per call. A trace that lost
+    the kernel named ``expect`` (the profiler now and then drops a ctypes
+    launch's record) is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -186,13 +208,16 @@ def device_split(fn, iters: int = 10, expect: str = "") -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        out = {}
+        out, counts = {}, {}
         for ev in prof.key_averages():
             total_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
             if total_us and ev.device_type == torch.autograd.DeviceType.CUDA:
                 name = _kernel_name(ev.key)
                 out[name] = out.get(name, 0.0) + total_us / iters / 1e3
+                counts[name] = counts.get(name, 0) + ev.count / iters
         if out and any(expect.lower() in name.lower() for name in out):
+            if launches is not None:
+                launches.update(counts)
             return out
     raise AssertionError(f"the profiler recorded no device time for {expect or 'fn'}: {out}")
 
@@ -494,6 +519,24 @@ def trio_agrees(trio, lex, vec, overfetch):
     return not same or trio["fused"] == rrf_fuse([lex, vec], limit=overfetch)
 
 
+def walk_trio_agrees(trio, lex, overfetch):
+    """A walk-tier answer against the host's lexical list: that list
+    tie-aware, the fused list bitwise the host ``rrf_fuse`` of the trio's
+    own lists (its vector list is approximate: held by recall)."""
+    from nornicdb_tpu_torch.search.rrf import rrf_fuse
+
+    if not hits_agree(trio["lex"], lex, lex_atol(lex)):
+        return False
+    return not (trio["lex"] and trio["vec"]) or \
+        trio["fused"] == rrf_fuse([trio["lex"], trio["vec"]], limit=overfetch)
+
+
+def recall10(got, want):
+    """Recall@10 of one ranked list against another's top 10."""
+    truth = {i for i, _ in want[:10]}
+    return len({i for i, _ in got[:10]} & truth) / max(len(truth), 1)
+
+
 class TrioRecorder:
     """Keeps each fused-tier answer the service consumes (query, trio),
     for checking after the timed run; the service's behaviour is unchanged."""
@@ -520,6 +563,17 @@ def wait_for_snapshot(svc):
             raise AssertionError(
                 f"the hybrid snapshot was not built within {HYBRID_BUILD_TIMEOUT_S} s")
         time.sleep(0.05)
+
+
+def wait_for_graph(fused):
+    """The walk tier's graph once its background build has landed."""
+    t0 = time.perf_counter()
+    while not fused.cagra.graph_built:
+        if time.perf_counter() - t0 > HYBRID_BUILD_TIMEOUT_S:
+            raise AssertionError(
+                f"the walk graph was not built within {HYBRID_BUILD_TIMEOUT_S} s")
+        time.sleep(0.05)
+    return fused.cagra._graph, time.perf_counter() - t0
 
 
 def batcher_delta(mb, before):
@@ -587,13 +641,15 @@ def phase_main_path(dev, seed, n_docs):
     from nornicdb_tpu_torch.ops.topk import fused_cosine_topk, topk_agree
     from nornicdb_tpu_torch.search import hnsw_native
     from nornicdb_tpu_torch.search.hnsw import HNSWIndex
-    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32, TIER_WALK_F32
 
     rng = np.random.default_rng(seed + 1)
     docs, queries = make_corpus(rng, n_docs)
-    if n_docs < 4096:  # a quick run: bring the fused tier's floor under it
-        os.environ.setdefault("NORNICDB_HYBRID_MIN_N", str(max(n_docs // 2, 1)))
-        log(f"  NORNICDB_HYBRID_MIN_N={os.environ['NORNICDB_HYBRID_MIN_N']} for {n_docs} docs")
+    # a quick run: bring the fused tier's and the walk's floors under it
+    for knob, floor in (("NORNICDB_HYBRID_MIN_N", 4096), ("NORNICDB_HYBRID_WALK_MIN_N", 100_000)):
+        if n_docs < floor:
+            os.environ.setdefault(knob, str(max(n_docs // 2, 1)))
+            log(f"  {knob}={os.environ[knob]} for {n_docs} docs")
 
     flash_attention.launches = 0
     fused_cosine_topk.launches = 0
@@ -648,18 +704,23 @@ def phase_main_path(dev, seed, n_docs):
     lat = {}
     results = {}
 
-    def timed(mode):
-        invalidate_cache(svc, f"before the timed {mode} queries")
+    def timed(mode, label=None):
+        label = label or mode
+        invalidate_cache(svc, f"before the timed {label} queries")
         hits0 = svc.stats.cache_hits
         ts = []
         for q in queries:
             t = time.perf_counter()
-            results[(mode, q)] = db.recall(q, limit=10, mode=mode)
+            results[(label, q)] = db.recall(q, limit=10, mode=mode)
             torch.cuda.synchronize()
             ts.append((time.perf_counter() - t) * 1e3)
-        lat[mode] = ts
+        lat[label] = ts
         if svc.stats.cache_hits != hits0 + len(queries) - len(set(queries)):
-            raise AssertionError(f"a timed {mode} query was served by the result cache")
+            raise AssertionError(f"a timed {label} query was served by the result cache")
+
+    def counts_since(before):
+        return {key: n - before.get(key, 0) for key, n in fused.counts.items()
+                if n != before.get(key, 0)}
 
     timed("vector")
     timed("text")
@@ -675,24 +736,100 @@ def phase_main_path(dev, seed, n_docs):
     log(f"  hybrid snapshot: built in {fused.lex.build_s:.3f} s (waited {wait_s:.3f} s), "
         f"{snap_bytes} bytes of columns on the card, memory_allocated grew {snap_alloc} "
         f"bytes; capacity {fused.lex._snap['c']} rows")
+    # the next hybrid query is the first fused dispatch: at walk_min_n
+    # vectors it starts the walk graph's build in the background and the
+    # exact tier serves it meanwhile. The brute matrix's device copy is
+    # made first, so that the memory delta below is the graph's (and the
+    # exact tier's join map's)
+    walk_min_n = fused.walk_min_n
+    use_walk = walk_min_n is not None and len(svc.vectors) >= walk_min_n
+    svc.vectors.device_view()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    invalidate_cache(svc, "before the query that starts the walk graph's build")
+    db.recall(queries[1], limit=10, mode="hybrid")
+    walk = {"used": use_walk, "walk_min_n": walk_min_n}
+    graph = None
+    if use_walk:
+        graph, graph_wait_s = wait_for_graph(fused)
+        torch.cuda.synchronize()
+        graph_alloc = torch.cuda.memory_allocated() - mem0
+        cg = fused.cagra
+        l2v = fused.lex._snap["row_maps"]["l2v"][1]
+        l2v_bytes = l2v.numel() * l2v.element_size()
+        knn_sizes = dict(sorted(fused_cosine_topk.launch_sizes.items()))
+        n = graph["n"]
+        if knn_sizes.get(1024, 0) != n // 1024 or (n % 1024 and not knn_sizes.get(n % 1024)):
+            raise AssertionError(f"the graph build's B1 launches by B are {knn_sizes} for {n} rows")
+        if graph["iters"] != cg._auto_iters(n) or cg.builds != 1:
+            raise AssertionError(f"graph: iters {graph['iters']}, builds {cg.builds}")
+        walk.update(graph_rows=n, graph_capacity=graph["rows"], build_s=cg.build_s,
+                    graph_wait_s=graph_wait_s, iters=graph["iters"], degree=cg.degree,
+                    itopk=cg.itopk, width=cg.search_width,
+                    graph_device_bytes=cg.device_bytes(), l2v_map_bytes=l2v_bytes,
+                    memory_allocated_delta=graph_alloc, b1_launch_sizes=knn_sizes)
+        log(f"  walk graph: built in {cg.build_s['total']:.3f} s (k-NN forward "
+            f"{cg.build_s['knn_forward']:.3f} s, reorder {cg.build_s['reorder']:.3f} s, device "
+            f"copy {cg.build_s['device_copy']:.3f} s; waited {graph_wait_s:.3f} s), {n} rows, "
+            f"capacity {graph['rows']}, degree {cg.degree}, iters {graph['iters']}, itopk "
+            f"{cg.itopk}, width {cg.search_width}; B1 launches by B {knn_sizes} "
+            f"(fused_cosine_topk.launch_sizes); {cg.device_bytes()} bytes of graph on the card "
+            f"+ {l2v_bytes} of the exact tier's join map, memory_allocated grew {graph_alloc}")
+    else:
+        log(f"  walk tier off: {len(svc.vectors)} vectors, walk_min_n {walk_min_n}")
     recorder = TrioRecorder(svc)
     counts0 = dict(fused.counts)
-    timed("hybrid")  # invalidates first: the warm-up query above was cached
-    served = {key: n - counts0.get(key, 0) for key, n in fused.counts.items()
-              if n != counts0.get(key, 0)}
+    timed("hybrid")  # invalidates first: the warm-up queries above were cached
+    served = counts_since(counts0)
     launches = {"flash_attention": flash_attention.launches,
                 "cosine_topk": fused_cosine_topk.launches}
     sizes = dict(sorted(fused_cosine_topk.launch_sizes.items()))
-    routes = route_split(sizes, batcher_delta(svc._microbatch, vec_mark)[2],
-                         batcher_delta(svc._hybrid_batch, hyb_mark)[2])
+    vec_rides = batcher_delta(svc._microbatch, vec_mark)[2]
+    if use_walk:
+        # a walk launches no B1: the graph build's chunks are a route of
+        # their own, and the hybrid rides that launched B1 are those the
+        # exact tier served (the query that started the build)
+        build = {1024: graph["n"] // 1024, graph["n"] % 1024: 1} if graph["n"] % 1024 \
+            else {1024: graph["n"] // 1024}
+        fused_b1 = {b: n - build.get(b, 0) - vec_rides.get(b, 0) for b, n in sizes.items()}
+        routes = {"graph_build": build, "vector_ride": vec_rides,
+                  "fused_hybrid": {b: n for b, n in fused_b1.items() if n}}
+    else:
+        routes = route_split(sizes, vec_rides, batcher_delta(svc._hybrid_batch, hyb_mark)[2])
     embedded = db._embedder.misses  # texts that reached the encoder
     log(f"main path launches: {launches} ({embedded} texts through the encoder); "
         f"B1 launches by B {sizes}, by route {routes}; fused tier {served}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if served.get(TIER_BRUTE_F32) != len(queries) or served.get("dispatch") != len(queries) \
-            or fused.handoffs():
-        raise AssertionError(f"timed hybrid queries not all served by the fused tier: {served}")
+    tier = TIER_WALK_F32 if use_walk else TIER_BRUTE_F32
+    dispatch = "walk_dispatch" if use_walk else "dispatch"
+    if served != {tier: len(queries), dispatch: len(queries)}:
+        raise AssertionError(f"timed hybrid queries not all served by {tier}: {served}")
+    walk_trios = dict(recorder.rows)
+    brute_trios, brute = walk_trios, {"served": served}
+    if use_walk:
+        # the exact tier in a block of its own: the walk off on the live
+        # pipeline, B1's counts set to 0 just before and read just after
+        recorder.rows = []
+        counts0 = dict(fused.counts)
+        fused_cosine_topk.launches = 0
+        fused_cosine_topk.launch_sizes.clear()
+        flash_attention.launches = 0
+        fused.walk_min_n = None
+        try:
+            timed("hybrid", "hybrid_brute")
+        finally:
+            fused.walk_min_n = walk_min_n
+        brute = {"served": counts_since(counts0),
+                 "flash_attention_launches": flash_attention.launches,
+                 "cosine_topk_launches": fused_cosine_topk.launches,
+                 "cosine_topk_launch_sizes": dict(fused_cosine_topk.launch_sizes)}
+        log(f"  exact tier block (walk off): fused tier {brute['served']}; B1 launches "
+            f"{brute['cosine_topk_launches']} by B {brute['cosine_topk_launch_sizes']}")
+        if brute["served"] != {TIER_BRUTE_F32: len(queries), "dispatch": len(queries)} \
+                or brute["cosine_topk_launch_sizes"] != {1: len(queries)}:
+            raise AssertionError(f"the exact tier's block: {brute}")
+        brute_trios = dict(recorder.rows)
 
     # the vector tier's answers against exact search (after the counts
     # were read): HNSW is approximate above the threshold, held to
@@ -701,10 +838,10 @@ def phase_main_path(dev, seed, n_docs):
     for q in queries:
         qv = np.asarray(db._embedder.embed(q), np.float32)
         exact[q] = svc.vector_search_candidates(qv, 10, exact=True)
-    recall10 = float(np.mean([
+    recall10_vec = float(np.mean([
         len({h["id"] for h in results[("vector", q)]} & {i for i, _ in exact[q]}) / 10
         for q in queries]))
-    strategy["vector_recall_at_10"] = recall10
+    strategy["vector_recall_at_10"] = recall10_vec
     extra = ""
     if use_hnsw:
         # the same queries at the reference's query beam (64), beside the
@@ -717,10 +854,10 @@ def phase_main_path(dev, seed, n_docs):
         strategy["recall_at_10_reference_ef"] = ref_recall
         extra = (f" at ef_search {hnsw.ef_search}; {ref_recall:.4f} at the reference's "
                  f"ef_search {REFERENCE_EF_SEARCH}")
-    log(f"  vector mode ({svc.stats.strategy}): recall@10 {recall10:.4f} against "
+    log(f"  vector mode ({svc.stats.strategy}): recall@10 {recall10_vec:.4f} against "
         f"exact=True over {len(queries)} queries{extra}")
-    if recall10 < RECALL_MIN:
-        raise AssertionError(f"vector recall@10 {recall10:.4f} < {RECALL_MIN}")
+    if recall10_vec < RECALL_MIN:
+        raise AssertionError(f"vector recall@10 {recall10_vec:.4f} < {RECALL_MIN}")
     # right answers: hits are well-formed
     for (mode, q), hits in results.items():
         if not hits or len(hits) > 10:
@@ -728,19 +865,23 @@ def phase_main_path(dev, seed, n_docs):
         if any(not np.isfinite(h["score"]) for h in hits):
             raise AssertionError(f"{mode} search returned a non-finite score")
     # the fused tier's answers against the host path for the same query
-    seq_trios = dict(recorder.rows)
-    if sorted(seq_trios) != sorted(set(queries)):
-        raise AssertionError("the recorder missed timed hybrid queries")
-    for q, trio in seq_trios.items():
-        qv = np.asarray(db._embedder.embed(q), np.float32)
-        lex = svc.bm25.search(q, 30)
-        vec = svc.vectors.search_batch(qv[None, :], 30)[0]
+    qvs = np.asarray(db._embedder.embed_batch(queries), np.float32)
+    host_lex = {q: svc.bm25.search(q, 30) for q in queries}
+    exact30 = {q: svc.vectors.search_batch(qv[None, :], 30)[0] for q, qv in zip(queries, qvs)}
+    for trios in (walk_trios, brute_trios):
+        if sorted(trios) != sorted(set(queries)):
+            raise AssertionError("the recorder missed timed hybrid queries")
+    for q, trio in brute_trios.items():
         if trio is None or trio["served_by"] != TIER_BRUTE_F32 \
-                or not trio_agrees(trio, lex, vec, 30):
-            raise AssertionError(f"the fused tier disagrees with the host path on {q!r}")
-    log(f"  hybrid: {len(seq_trios)} fused answers agree with the host path (lexical "
-        f"tie-aware within {LEX_RTOL} relative, vector within {TOPK_SCORE_ATOL}, fused "
-        f"bitwise the host rrf_fuse)")
+                or not trio_agrees(trio, host_lex[q], exact30[q], 30):
+            raise AssertionError(f"the exact tier disagrees with the host path on {q!r}")
+    log(f"  hybrid, exact tier: {len(brute_trios)} fused answers agree with the host path "
+        f"(lexical tie-aware within {LEX_RTOL} relative, vector within {TOPK_SCORE_ATOL}, "
+        f"fused bitwise the host rrf_fuse)")
+    if use_walk:
+        walk.update(check_walk_answers(fused, walk_trios, queries, qvs, host_lex, exact30))
+        walk.update(check_walk_on_cpu(dev, fused, qvs))
+    seq_trios = walk_trios
     # a stored document's own text finds that document first by exact
     # search (HNSW's answer is approximate by contract)
     probe = [int(x) for x in rng.integers(0, n_docs, 16)]
@@ -784,7 +925,9 @@ def phase_main_path(dev, seed, n_docs):
         raise AssertionError("main-path vector answers disagree with the plain path")
 
     conc = phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios)
-    fused_rows = [time_fused(db, svc, fused, queries, b, REPORT["card"]) for b in FUSED_TIMED_B]
+    fused_rows = [time_fused(db, svc, fused, queries, b, REPORT["card"], tier)
+                  for tier in (("walk", "brute") if use_walk else ("brute",))
+                  for b in FUSED_TIMED_B]
 
     cache = phase_cache(db, svc, fused, queries)
 
@@ -811,6 +954,7 @@ def phase_main_path(dev, seed, n_docs):
     log(f"  vector_search_candidates(k=300, exact=True): {len(wide_q)} wide-k calls, "
         f"0 B1 launches, answers agree")
     write_mix = phase_write_mix(db, svc, fused, docs, queries, rng)
+    profile = phase_cagra_profile(dev, svc, qvs)
 
     def pct(xs, p):
         return float(np.percentile(np.asarray(xs), p))
@@ -829,10 +973,11 @@ def phase_main_path(dev, seed, n_docs):
         "queries_per_mode": len(queries),
         "texts_embedded": embedded,
         "launches_per_query": {
-            # a hybrid search scans the index once; above the threshold a
-            # vector search (and the host-served hybrid query that starts
-            # the snapshot build) takes HNSW, below it one B1 ride more
-            "cosine_topk": launches["cosine_topk"] / (len(queries) * (1 if use_hnsw else 2)),
+            # on the exact tier a hybrid search scans the index once (the
+            # walk launches no kernel); above the threshold a vector
+            # search takes HNSW, below it one B1 ride more
+            "cosine_topk": (brute["cosine_topk_launches"] / len(queries) if use_walk else
+                            launches["cosine_topk"] / (len(queries) * (1 if use_hnsw else 2))),
             # per text through the encoder (one launch per layer per batch)
             "flash_attention": launches["flash_attention"] / max(embedded, 1),
         },
@@ -843,8 +988,11 @@ def phase_main_path(dev, seed, n_docs):
             "snapshot_rows": fused.lex._snap["n"], "snapshot_capacity": fused.lex._snap["c"],
             "builds": fused.lex.builds, "dispatch_split": fused_rows,
         },
+        "walk": walk,
+        "exact_tier_block": brute,
         "concurrent": conc,
         "write_mix": write_mix,
+        "cagra_profile": profile,
     }
     for mode, ts in lat.items():
         mp[f"{mode}_p50_ms"] = pct(ts, 50)
@@ -858,22 +1006,171 @@ def phase_main_path(dev, seed, n_docs):
         f"flush {flush_s:.2f} s, index build {index_s:.2f} s, "
         f"capacity {vecs._capacity} x {vecs.dims}")
     for mode in lat:
-        tier = f" ({svc.stats.strategy})" if mode == "vector" else ""
+        tier = {"vector": f" ({svc.stats.strategy})", "hybrid_brute": " (exact tier, walk off)",
+                "hybrid": " (walk tier)" if use_walk else ""}.get(mode, "")
         log(f"  search {mode}{tier}: p50 {mp[mode + '_p50_ms']:.3f} ms "
             f"p99 {mp[mode + '_p99_ms']:.3f} ms (first {mp[mode + '_first_ms']:.3f} ms, "
             f"max after it {mp[mode + '_max_after_first_ms']:.3f} ms)")
     db.close()
-    return launches, conc["launches"], write_mix["launches"], vecs
+    path_launches = [launches, conc["launches"], write_mix["launches"], profile["launches"]]
+    if use_walk:
+        path_launches.append({"cosine_topk": brute["cosine_topk_launches"],
+                              "flash_attention": brute["flash_attention_launches"]})
+    return path_launches, vecs, graph
+
+
+def check_walk_answers(fused, trios, queries, qvs, host_lex, exact30):
+    """The walk tier's timed answers: each trio served by the walk, its
+    lexical list tie-aware the host's and its fused list bitwise the host
+    ``rrf_fuse`` of its own lists; walk-parity (its fused top 10 against
+    the host hybrid ranking) and vector recall@10 (its vector list against
+    ``exact=True``), both held to RECALL_MIN at the port's walk defaults
+    and printed at the reference's (ROADMAP C14)."""
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_WALK_F32
+    from nornicdb_tpu_torch.search.rrf import rrf_fuse
+
+    host = {q: rrf_fuse([host_lex[q], exact30[q]], limit=30) for q in queries}
+    for q, trio in trios.items():
+        if trio is None or trio["served_by"] != TIER_WALK_F32 or trio["tier"] != "walk" \
+                or not walk_trio_agrees(trio, host_lex[q], 30):
+            raise AssertionError(f"the walk tier's answer for {q!r} disagrees with the host path")
+    parity = float(np.mean([recall10(trios[q]["fused"], host[q]) for q in queries]))
+    vector = float(np.mean([recall10(trios[q]["vec"], exact30[q]) for q in queries]))
+    cg = fused.cagra
+    itopk, width = REFERENCE_WALK
+    ref = cg.search_batch(qvs, 30, itopk=itopk, width=width)
+    ref_parity = float(np.mean([recall10(rrf_fuse([host_lex[q], r], limit=30), host[q])
+                                for q, r in zip(queries, ref)]))
+    ref_vector = float(np.mean([recall10(r, exact30[q]) for q, r in zip(queries, ref)]))
+    log(f"  hybrid, walk tier: {len(trios)} answers served by {TIER_WALK_F32}, lexical lists "
+        f"tie-aware the host's, fused lists bitwise the host rrf_fuse of their own lists; at "
+        f"itopk {cg.itopk}, width {cg.search_width}: walk-parity recall@10 {parity:.4f}, "
+        f"vector recall@10 {vector:.4f}; at the reference's itopk {itopk}, width {width}: "
+        f"{ref_parity:.4f} and {ref_vector:.4f}")
+    if min(parity, vector) < RECALL_MIN:
+        raise AssertionError(f"walk recall@10: parity {parity:.4f}, vector {vector:.4f} "
+                             f"< {RECALL_MIN}")
+    return {"walk_parity_recall_at_10": parity, "vector_recall_at_10": vector,
+            "reference_walk": {"itopk": itopk, "width": width,
+                               "walk_parity_recall_at_10": ref_parity,
+                               "vector_recall_at_10": ref_vector}}
+
+
+def check_walk_on_cpu(dev, fused, qvs):
+    """The same graph and queries through ``walk_body`` on the card and on
+    the CPU: ids tie-aware, scores within TOPK_SCORE_ATOL (batched
+    products summed in another order)."""
+    import torch
+
+    from nornicdb_tpu_torch.ops.similarity import l2_normalize
+    from nornicdb_tpu_torch.ops.topk import topk_agree
+    from nornicdb_tpu_torch.search.cagra import walk_body
+
+    cg, g = fused.cagra, fused.cagra._graph
+    args = (MAIN_K, g["iters"], cg.search_width, cg.itopk, cg.hash_bits, cg.n_seeds)
+    qn = l2_normalize(torch.from_numpy(qvs).to(dev)).contiguous()
+    arrays = (qn, g["matrix"], g["adj"], g["validf"])
+    t = time.perf_counter()
+    s_g, i_g = (x.cpu().numpy() for x in walk_body(*arrays, *args))
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    s_c, i_c = (x.numpy() for x in walk_body(*(a.cpu() for a in arrays), *args))
+    cpu_s = time.perf_counter() - t
+    err = float(np.abs(s_g - s_c).max())
+    same = float((i_g == i_c).mean())
+    log(f"  walk on the card against the CPU: B {len(qvs)}, k {MAIN_K}: max score err "
+        f"{err:.3g}, ids equal at {same:.4f} of positions ({card_s:.3f} s card, {cpu_s:.3f} s "
+        f"CPU)")
+    if not topk_agree(i_g, s_g, i_c, s_c, TOPK_SCORE_ATOL):
+        raise AssertionError(f"the walk on the card disagrees with the CPU's (max err {err:.3g})")
+    return {"card_vs_cpu_max_abs_err": err, "card_vs_cpu_ids_equal": same}
+
+
+def phase_cagra_profile(dev, svc, qvs):
+    """Vector search under the cagra ANN profile: a second service over
+    explicit embeddings of the main path's rows (no text), backfilled
+    once, so the strategy machine builds the device graph at its end. It
+    must read ``strategy cagra`` with one build; then ``qvs`` one at a time
+    in vector mode: every one rides the vector batcher into a walk
+    (``_ann_search_batch``), recall@10 against ``exact=True`` >= RECALL_MIN,
+    p50/p99 printed. The env knob is restored after."""
+    import torch
+
+    from nornicdb_tpu_torch.ops.attention import flash_attention
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+    from nornicdb_tpu_torch.search.service import SearchService
+    from nornicdb_tpu_torch.storage.memory import MemoryEngine
+    from nornicdb_tpu_torch.storage.types import Node
+
+    matrix, valid, ext_ids = svc.vectors.snapshot()
+    storage = MemoryEngine()
+    for slot, eid in enumerate(ext_ids):
+        if eid is not None and valid[slot]:
+            storage.create_node(Node(id=eid, labels=[], properties={},
+                                     embedding=matrix[slot].tolist()))
+    flash_attention.launches = 0
+    fused_cosine_topk.launches = 0
+    fused_cosine_topk.launch_sizes.clear()
+    old = os.environ.get("NORNICDB_VECTOR_ANN_QUALITY")
+    os.environ["NORNICDB_VECTOR_ANN_QUALITY"] = "cagra"
+    try:
+        prof = SearchService(storage, device=dev)
+        t0 = time.perf_counter()
+        n = prof.build_indexes()
+        index_s = time.perf_counter() - t0
+        cg = prof.cagra
+        if prof.stats.strategy != "cagra" or prof.stats.cagra_builds != 1 or cg is None \
+                or cg.builds != 1 or prof.hnsw is not None:
+            raise AssertionError(f"the cagra profile did not build one graph: {prof.stats}")
+        walks0, mark = cg.counts["walk"], batcher_mark(prof._microbatch)
+        lat, hits = [], []
+        for qv in qvs:
+            t = time.perf_counter()
+            hits.append(prof.search(query_embedding=qv, mode="vector", limit=10, enrich=False))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+        walks = cg.counts["walk"] - walks0
+        rides = batcher_delta(prof._microbatch, mark)
+        launches = {"flash_attention": flash_attention.launches,
+                    "cosine_topk": fused_cosine_topk.launches}
+        sizes = dict(fused_cosine_topk.launch_sizes)
+        exact = [prof.vector_search_candidates(qv, 10, exact=True) for qv in qvs]
+        recall = float(np.mean([recall10([(h["id"], h["score"]) for h in got], want)
+                                for got, want in zip(hits, exact)]))
+    finally:
+        if old is None:
+            del os.environ["NORNICDB_VECTOR_ANN_QUALITY"]
+        else:
+            os.environ["NORNICDB_VECTOR_ANN_QUALITY"] = old
+    out = {"vectors": n, "index_build_s": index_s, "build_s": cg.build_s,
+           "strategy": prof.stats.strategy, "cagra_builds": prof.stats.cagra_builds,
+           "walks": walks, "vector_rides": rides[1], "ride_batches": rides[0],
+           "recall_at_10": recall, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "itopk": cg.itopk,
+           "width": cg.search_width, "iters": cg._graph["iters"], "launches": launches,
+           "cosine_topk_launch_sizes": sizes, "fallbacks": {
+               k: v for k, v in cg.counts.items() if k.startswith("fallback_")}}
+    log(f"cagra profile: {n} vectors (explicit embeddings of the main path's rows, no "
+        f"text) backfilled in {index_s:.2f} s; strategy {out['strategy']}, "
+        f"{out['cagra_builds']} build in {cg.build_s['total']:.3f} s (B1 launches by B "
+        f"{sizes}); {len(qvs)} vector queries: {walks} walks from {rides[1]} vector rides in "
+        f"{rides[0]} batches, recall@10 {recall:.4f} against exact=True at itopk {cg.itopk}, "
+        f"width {cg.search_width}; p50 {out['p50_ms']:.3f} p99 {out['p99_ms']:.3f} ms")
+    if walks != len(qvs) or rides[1] != len(qvs) or out["fallbacks"]:
+        raise AssertionError(f"cagra profile: vector queries did not all walk: {out}")
+    if recall < RECALL_MIN:
+        raise AssertionError(f"cagra profile: recall@10 {recall:.4f} < {RECALL_MIN}")
+    return out
 
 
 def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
     """16 client threads, 32 queries each, alternating vector and hybrid,
     with every result-cache probe missing (each mode's 256 requests repeat
     its 64 queries, which the cache would otherwise answer): the
-    hybrid batcher must coalesce into B1 launches at B >= 5, vector
-    queries call HNSW directly above the threshold (no vector rides) and
-    ride their batcher below it, and each answer must agree with the
-    one-at-a-time answer. Then the same threads ride the vector batcher
+    hybrid batcher must coalesce into dispatches at B >= 5 (walks on the
+    walk tier, B1 launches on the exact tier), vector queries call HNSW
+    directly above the threshold (no vector rides) and ride their batcher
+    below it, and each answer must agree with the one-at-a-time answer. Then the same threads ride the vector batcher
     directly, as every recall does below the threshold: it must coalesce
     into a B1 launch at B >= 5, with answers equal to one-at-a-time
     exact answers."""
@@ -883,8 +1180,9 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
 
     from nornicdb_tpu_torch.ops.attention import flash_attention
     from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
-    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32, TIER_WALK_F32
 
+    walk = fused.walk_min_n is not None and fused.cagra is not None and fused.cagra.graph_built
     qvs = np.asarray(db._embedder.embed_batch(queries), np.float32)
     flash_attention.launches = 0
     fused_cosine_topk.launches = 0
@@ -964,6 +1262,7 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
     out = {"threads": CONCURRENT_THREADS, "queries": n_q, "wall_s": wall_s,
            "queries_per_s": n_q / wall_s, "launches": launches,
            "vector_tier": "hnsw" if use_hnsw else "brute",
+           "hybrid_tier": "walk" if walk else "brute",
            "cache_probes_missed": bypass.probes,
            "cosine_topk_launch_sizes": sizes,
            "cosine_topk_routes": route_split(sizes, vsizes, hsizes),
@@ -980,7 +1279,7 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
         f"vector tier {out['vector_tier']}: {recall_vq} recall vector rides; hybrid mean "
         f"batch {out['hybrid_mean_batch']:.3f} over {hb} batches (sizes {hsizes}); "
         f"B1 launches {launches['cosine_topk']} by B {sizes}; fused tier {served}; "
-        f"{bypass.probes} cache probes missed")
+        f"{bypass.probes} cache probes missed; hybrid tier {out['hybrid_tier']}")
     log(f"  direct vector rides: {rq} in {rb} batches in {ride_wall_s:.3f} s, mean batch "
         f"{rq / max(rb, 1):.3f} (sizes {rsizes}); vector batcher in all {vq} rides in "
         f"{vb} batches, mean {out['vector_mean_batch']:.3f}")
@@ -991,16 +1290,18 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
     if out["hybrid_mean_batch"] <= 1.0 or out["vector_mean_batch"] <= 1.0 \
             or rq / max(rb, 1) <= 1.0:
         raise AssertionError(f"the batchers did not coalesce: {out}")
-    # each ride is one B1 launch at its batch's size
-    if any(sizes.get(b, 0) < n + hsizes.get(b, 0) for b, n in vsizes.items()):
+    # each ride is one B1 launch at its batch's size (a walk launches none)
+    hybrid_b1 = {} if walk else hsizes
+    if any(sizes.get(b, 0) < n + hybrid_b1.get(b, 0) for b, n in vsizes.items()):
         raise AssertionError(f"a batcher's ride did not launch B1: {out}")
-    if not any(b >= 5 for b in hsizes) or not any(b >= 5 for b in sizes):
-        raise AssertionError(f"no hybrid ride launched B1's batched kernel (B >= 5): {out}")
+    if not any(b >= 5 for b in hsizes) or not (walk or any(b >= 5 for b in sizes)):
+        raise AssertionError(f"no hybrid ride was dispatched at B >= 5: {out}")
     if not any(b >= 5 for b in vsizes):
         raise AssertionError(f"no vector ride launched B1's batched kernel (B >= 5): {out}")
-    if served.get(TIER_BRUTE_F32) != hq or fused.handoffs():
-        raise AssertionError(
-            f"concurrent hybrid queries not all served by the fused tier: {served}")
+    tier, dispatch = ((TIER_WALK_F32, "walk_dispatch") if walk else (TIER_BRUTE_F32, "dispatch"))
+    if served.get(tier) != hq or served.get(dispatch) != hb or fused.handoffs() \
+            or any(key.startswith("walk_") and key != "walk_dispatch" for key in served):
+        raise AssertionError(f"concurrent hybrid queries not all served by {tier}: {served}")
 
     def lists(trio):
         return trio["lex"], trio["vec"], trio["fused"]
@@ -1032,6 +1333,11 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
     return out
 
 
+def dispatches(fused):
+    """The fused tier's dispatches on either vector tier."""
+    return fused.counts["dispatch"] + fused.counts["walk_dispatch"]
+
+
 def phase_cache(db, svc, fused, queries):
     """The result cache on its own: after an invalidation, the hybrid
     queries once as misses (served by the fused tier) and once more as
@@ -1044,7 +1350,7 @@ def phase_cache(db, svc, fused, queries):
     lat = {"miss": [], "hit": []}
     answers = {}
     for kind in ("miss", "hit"):
-        hits0, dispatch0 = svc.stats.cache_hits, fused.counts.get("dispatch", 0)
+        hits0, dispatch0 = svc.stats.cache_hits, dispatches(fused)
         for q in uniq:
             t = time.perf_counter()
             hits = db.recall(q, limit=10, mode="hybrid")
@@ -1054,7 +1360,7 @@ def phase_cache(db, svc, fused, queries):
                 answers[q] = hits
             elif hits != answers[q]:
                 raise AssertionError(f"cache: the hit for {q!r} differs from the miss's answer")
-        grew = (svc.stats.cache_hits - hits0, fused.counts.get("dispatch", 0) - dispatch0)
+        grew = (svc.stats.cache_hits - hits0, dispatches(fused) - dispatch0)
         want = (0, len(uniq)) if kind == "miss" else (len(uniq), 0)
         if grew != want:
             raise AssertionError(f"cache {kind} pass: (cache hits, fused dispatches) grew "
@@ -1123,29 +1429,36 @@ class PartTimer:
 def phase_write_mix(db, svc, fused, docs, queries, rng):
     """Stores while it recalls: each round stores one new document (the
     embed queue indexes it in the background) and times one hybrid
-    recall, in blocks that alternate the fused tier with the host path
-    (the service's hybrid branch with the fused ride answering None, so
-    the fused tier keeps its snapshot between blocks). Reports each
-    path's p50/p99 and host ms per query by part, the host ms of the HNSW
-    insert each store makes above the threshold (every store must make
-    one), and the fused tier's hand-offs and join-map derivations by
-    kind. After a flush, every written document must be found by its own
-    text, and the fused tier must agree with the host path."""
+    recall, in blocks that cycle through ``WRITE_MIX_ARMS``: the fused
+    tier on its walk (when the walk is on), the host path (the service's
+    hybrid branch with the fused ride answering None, so the fused tier
+    keeps its snapshot and graph between blocks), and the fused tier with
+    its walk off. Reports each arm's p50/p99 and host ms per query by
+    part, the host ms of the HNSW insert each store makes above the
+    threshold (every store must make one), and the fused tier's rows by
+    tier, hand-offs, walk step-downs and join-map derivations per arm. On
+    the walk, post-build stores are merged exactly, so those rows are
+    re-fused on the host (``host``). After a flush, every written document
+    must be found by its own text, and the fused tier must agree with the
+    host path."""
     from collections import Counter
 
     import torch
 
     from nornicdb_tpu_torch.ops.attention import flash_attention
     from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
-    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32, TIER_WALK_F32
 
     flash_attention.launches = 0
     fused_cosine_topk.launches = 0
     ride = svc._fused_hybrid_trio
-    lat = {"fused": [], "host": []}
-    parts = {"fused": Counter(), "host": Counter()}
+    walk_min_n = fused.walk_min_n
+    arms = WRITE_MIX_ARMS if walk_min_n is not None else ("brute", "host")
+    lat = {arm: [] for arm in arms}
+    parts = {arm: Counter() for arm in arms}
+    arm_counts = {arm: Counter() for arm in arms}
     timed_parts = {
-        # the matrix's copy to the card after vector writes (both paths)
+        # the matrix's copy to the card after vector writes (exact tier, host path)
         "vector_device_copy": (svc.vectors, "_device_arrays_locked"),
         "query_embed": (svc, "_query_embedding"),
         "host_bm25": (svc.bm25, "search"),
@@ -1162,18 +1475,18 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
         # each store's HNSW insert, on the embed queue's thread (index_node)
         timed_parts["hnsw_insert"] = (hnsw, "add")
     timer = PartTimer(timed_parts)
-    counts0 = dict(fused.counts)
     written = []
     n = 0
     # a recall may land before the embed queue has indexed the store just
-    # made, and so hit an entry cached before it: counted per path
+    # made, and so hit an entry cached before it: counted per arm
     invalidate_cache(svc, "before the write mix")
     cache_hits = Counter()
     try:
         for block in range(WRITE_MIX_BLOCKS):
-            arm = "fused" if block % 2 == 0 else "host"
-            svc._fused_hybrid_trio = ride if arm == "fused" else (lambda *a: None)
-            mark = Counter(timer.ms)
+            arm = arms[block % len(arms)]
+            svc._fused_hybrid_trio = ride if arm != "host" else (lambda *a: None)
+            fused.walk_min_n = walk_min_n if arm == "walk" else None
+            mark, counts0 = Counter(timer.ms), Counter(fused.counts)
             hits0 = svc.stats.cache_hits
             for _ in range(WRITE_MIX_ROUNDS):
                 a, b = (docs[int(i)].split() for i in rng.integers(0, len(docs), 2))
@@ -1188,26 +1501,33 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
                 lat[arm].append((time.perf_counter() - t) * 1e3)
             parts[arm].update(timer.ms)
             parts[arm].subtract(mark)
+            arm_counts[arm].update(fused.counts)
+            arm_counts[arm].subtract(counts0)
             cache_hits[arm] += svc.stats.cache_hits - hits0
         db.flush()
         inserts = (timer.calls["hnsw_insert"], timer.ms["hnsw_insert"])
     finally:
         svc._fused_hybrid_trio = ride
+        fused.walk_min_n = walk_min_n
         timer.close()
     if hnsw is not None and (svc.hnsw is not hnsw or inserts[0] != len(written)
                              or any(doc_id not in hnsw for doc_id, _ in written)):
         raise AssertionError(f"write mix: {inserts[0]} HNSW inserts for {len(written)} stores")
     launches = {"flash_attention": flash_attention.launches,
                 "cosine_topk": fused_cosine_topk.launches}
-    counts = {key: n - counts0.get(key, 0) for key, n in fused.counts.items()
-              if n != counts0.get(key, 0)}
-    fused_rows = counts.get(TIER_BRUTE_F32, 0) + counts.get("host", 0)
-    handoffs = {key: n for key, n in counts.items() if key.startswith("handoff_")}
-    if fused_rows + sum(handoffs.values()) + cache_hits["fused"] != len(lat["fused"]):
-        raise AssertionError(f"write mix: fused-arm queries unaccounted for: {counts}, "
-                             f"cache hits {dict(cache_hits)}")
-    if set(handoffs) - {"handoff_vec_race"}:
-        raise AssertionError(f"write mix: unexpected hand-offs {handoffs}")
+    counts = {arm: {key: n for key, n in c.items() if n} for arm, c in arm_counts.items()
+              if arm != "host"}
+    for arm, c in counts.items():
+        rows = c.get(TIER_BRUTE_F32, 0) + c.get(TIER_WALK_F32, 0) + c.get("host", 0)
+        handoffs = {key: n for key, n in c.items() if key.startswith("handoff_")}
+        if rows + sum(handoffs.values()) + cache_hits[arm] != len(lat[arm]):
+            raise AssertionError(f"write mix: {arm}-arm queries unaccounted for: {c}, "
+                                 f"cache hits {dict(cache_hits)}")
+        if set(handoffs) - {"handoff_vec_race"}:
+            raise AssertionError(f"write mix: unexpected hand-offs {handoffs}")
+    if "walk" in counts and not (counts["walk"].get("walk_dispatch")
+                                 and counts["walk"].get("host")):
+        raise AssertionError(f"write mix: the walk merged no post-build store: {counts}")
     # read-your-writes: each written document by its own text
     recorder = TrioRecorder(svc)
     for doc_id, text in written[-16:]:
@@ -1218,7 +1538,8 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
         qv = np.asarray(db._embedder.embed(q), np.float32)
         lex = svc.bm25.search(q, 30)
         vec = svc.vectors.search_batch(qv[None, :], 30)[0]
-        if trio is None or not trio_agrees(trio, lex, vec, 30):
+        if trio is None or not (walk_trio_agrees(trio, lex, 30) if trio["tier"] == "walk"
+                                else trio_agrees(trio, lex, vec, 30)):
             raise AssertionError(f"write mix: the fused tier disagrees with the host path on {q!r}")
     svc._fused_hybrid_trio = recorder.inner
 
@@ -1227,12 +1548,11 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
 
     out = {"rounds_per_path": {arm: len(ts) for arm, ts in lat.items()},
            "writes": len(written), "launches": launches, "fused_counts": counts,
-           "handoff_vec_race": counts.get("handoff_vec_race", 0),
            "cache_hits": dict(cache_hits),
            "hnsw_inserts": inserts[0],
            "hnsw_insert_ms_per_store": inserts[1] / len(written),
-           "read_back_served": dict(Counter(t["served_by"] for _, t in recorder.rows
-                                            if t is not None)),
+           "read_back_served": dict(Counter(f"{t['tier']}:{t['served_by']}"
+                                            for _, t in recorder.rows if t is not None)),
            "host_ms_per_query_by_part": {
                arm: {key: ms / len(lat[arm]) for key, ms in sorted(parts[arm].items()) if ms}
                for arm in lat}}
@@ -1240,31 +1560,35 @@ def phase_write_mix(db, svc, fused, docs, queries, rng):
         out[f"{arm}_p50_ms"] = pct(ts, 50)
         out[f"{arm}_p99_ms"] = pct(ts, 99)
         out[f"{arm}_max_ms"] = max(ts)
-    log(f"write mix: {len(written)} stores, each followed by a hybrid recall; fused tier "
-        f"p50 {out['fused_p50_ms']:.3f} p99 {out['fused_p99_ms']:.3f} max "
-        f"{out['fused_max_ms']:.3f} ms; host path p50 {out['host_p50_ms']:.3f} p99 "
-        f"{out['host_p99_ms']:.3f} max {out['host_max_ms']:.3f} ms; fused tier {counts}; "
-        f"cache hits {dict(cache_hits)}; "
-        f"16 written docs read back by their text ({out['read_back_served']}) and agree "
-        f"with the host path; {inserts[0]} HNSW inserts, "
-        f"{out['hnsw_insert_ms_per_store']:.3f} host ms per store")
+    by_arm = "; ".join(f"{arm} p50 {out[arm + '_p50_ms']:.3f} p99 {out[arm + '_p99_ms']:.3f} "
+                       f"max {out[arm + '_max_ms']:.3f} ms" for arm in lat)
+    log(f"write mix: {len(written)} stores, each followed by a hybrid recall; {by_arm}; "
+        f"fused tier by arm {counts}; cache hits {dict(cache_hits)}; 16 written docs read "
+        f"back by their text ({out['read_back_served']}) and agree with the host path; "
+        f"{inserts[0]} HNSW inserts, {out['hnsw_insert_ms_per_store']:.3f} host ms per store")
     for arm, by_part in out["host_ms_per_query_by_part"].items():
-        log(f"  write mix, {arm} path: host ms per query by part (nested: fused_search_batch "
-            f"holds the fused_* parts and one vector_device_copy) "
+        log(f"  write mix, {arm} arm: host ms per query by part (nested: fused_search_batch "
+            f"holds the fused_* parts and, on the exact tier, one vector_device_copy) "
             f"{json.dumps({key: round(ms, 4) for key, ms in by_part.items()})}")
     return out
 
 
-def time_fused(db, svc, fused, queries, b, card):
-    """One fused dispatch at B queries, by part: the host plan (with its
-    copies to the card), the device program (CUDA events over back-to-back
-    calls, and the profiler's device time by kernel), the decode, and the
-    whole ``search_batch``. Runs after the main path's counts were read."""
+def time_fused(db, svc, fused, queries, b, card, tier="brute"):
+    """One fused dispatch at B queries on ``tier`` (``walk`` or ``brute``),
+    by part: the host plan (with its copies to the card), the device
+    program (CUDA events over back-to-back calls, and the profiler's
+    device time by kernel), the decode, and the whole ``search_batch``
+    (the exact tier's with the walk off). Runs after the main path's
+    counts were read."""
     import torch
 
     from nornicdb_tpu_torch.ops.similarity import l2_normalize
     from nornicdb_tpu_torch.search.bm25 import tokenize
-    from nornicdb_tpu_torch.search.hybrid_fused import fused_single
+    from nornicdb_tpu_torch.search.hybrid_fused import (
+        TIER_WALK_F32,
+        fused_single,
+        walk_fused_single,
+    )
 
     qs = [queries[i % len(queries)] for i in range(b)]
     embs = np.asarray(db._embedder.embed_batch(qs), np.float32)
@@ -1285,38 +1609,73 @@ def time_fused(db, svc, fused, queries, b, card):
 
     plan_ms = host_ms(plan)
     lex_args = plan()
-    m, valid, vec_ids, mutations = svc.vectors.device_view()
-    l2v = fused._ensure_map(snap, mutations)
-    dev = m.device
+    dev = fused.lex.device
     qn = l2_normalize(torch.from_numpy(embs).to(dev)).contiguous()
     tail = (torch.full((b,), 30, device=dev), torch.ones(b, device=dev),
             torch.ones(b, device=dev))
+    walk_min_n = fused.walk_min_n
+    if tier == "walk":
+        cg, g = fused.cagra, fused.cagra._graph
+        l2g = fused._ensure_walk_map(snap, g)
+        kq = cg.itopk
 
-    def program():
-        return fused_single(*lex_args, l2v, qn, m, valid, *tail, kq=MAIN_K)
+        def program():
+            return walk_fused_single(*lex_args, l2g, qn, g["matrix"], g["adj"], g["validf"],
+                                     *tail, kq=kq, iters=g["iters"], width=cg.search_width,
+                                     itopk=kq, hash_bits=cg.hash_bits, n_seeds=cg.n_seeds)
+
+        def decode(out):
+            return fused._decode(snap, g["row_ids"], [], token_rows, extras, *out, kq,
+                                 tier=TIER_WALK_F32)
+    else:
+        m, valid, vec_ids, mutations = svc.vectors.device_view()
+        l2v = fused._ensure_map(snap, mutations)
+        kq = MAIN_K
+
+        def program():
+            return fused_single(*lex_args, l2v, qn, m, valid, *tail, kq=kq)
+
+        def decode(out):
+            return fused._decode(snap, vec_ids, [], token_rows, extras, *out, kq)
 
     event_ms = time_ms(program)
-    split = device_split(program, expect="merge_kernel")
+    per_kernel = {}
+    split = device_split(program, expect="" if tier == "walk" else "merge_kernel",
+                         launches=per_kernel)
     out = [x.cpu().numpy() for x in program()]
-    decode_ms = host_ms(lambda: fused._decode(snap, vec_ids, [], token_rows, extras, *out,
-                                              MAIN_K))
-    total_ms = host_ms(lambda: fused.search_batch(embs, MAIN_K, extras))
+    decode_ms = host_ms(lambda: decode(out))
+    if tier != "walk":
+        fused.walk_min_n = None
+    try:
+        counts0 = fused.counts["walk_dispatch" if tier == "walk" else "dispatch"]
+        total_ms = host_ms(lambda: fused.search_batch(embs, MAIN_K, extras))
+        if fused.counts["walk_dispatch" if tier == "walk" else "dispatch"] != counts0 + 21:
+            raise AssertionError(f"time_fused: search_batch did not take the {tier} tier")
+    finally:
+        fused.walk_min_n = walk_min_n
     n_terms = int(lex_args[2].shape[1])
-    row = {"B": b, "unique_terms": n_terms, "postings": int(lex_args[0].numel()),
-           "plan_ms": plan_ms, "device_event_ms": event_ms,
-           "device_ms": sum(split.values()), "device_split": split,
-           "decode_ms": decode_ms, "search_batch_ms": total_ms, "card": card}
-    log(f"fused dispatch B={b} ({n_terms} unique terms, {row['postings']} postings) [{card}]: "
-        f"plan_ms {plan_ms:.4f} device_event_ms {event_ms:.4f} device_ms "
-        f"{row['device_ms']:.4f} decode_ms {decode_ms:.4f} search_batch_ms {total_ms:.4f}; "
-        f"device ms by kernel {json.dumps(split)}")
+    device_ms = sum(split.values())
+    row = {"tier": tier, "B": b, "kq": kq, "unique_terms": n_terms,
+           "postings": int(lex_args[0].numel()), "plan_ms": plan_ms,
+           "device_event_ms": event_ms, "device_ms": device_ms, "device_split": split,
+           "kernels_per_call": sum(per_kernel.values()), "decode_ms": decode_ms, "search_batch_ms": total_ms,
+           "device_share_of_search_batch": device_ms / total_ms, "card": card}
+    top = dict(sorted(split.items(), key=lambda kv: -kv[1])[:8])
+    log(f"fused dispatch {tier} B={b} kq {kq} ({n_terms} unique terms, {row['postings']} "
+        f"postings) [{card}]: plan_ms {plan_ms:.4f} device_event_ms {event_ms:.4f} device_ms "
+        f"{device_ms:.4f} in {row['kernels_per_call']:.0f} kernels decode_ms {decode_ms:.4f} "
+        f"search_batch_ms {total_ms:.4f} (device {100 * device_ms / total_ms:.1f}% of it); "
+        f"device ms by kernel "
+        f"{json.dumps(top if tier == 'walk' else split)}")
     return row
 
 
 # -- timing at the main path's shapes -------------------------------------
 
 
-def time_topk(dev, m, valid, b, k, seed, card):
+def time_topk(dev, m, valid, b, k, seed, card, queries=None):
+    """B1 at [B, D] x [C, D], k, against its plain version and the library
+    call; ``queries`` (else seeded random unit rows) are the B queries."""
     import torch
 
     from nornicdb_tpu_torch.ops.similarity import cosine_topk_auto
@@ -1324,7 +1683,7 @@ def time_topk(dev, m, valid, b, k, seed, card):
 
     c, d = m.shape
     rng = np.random.default_rng(seed)
-    q = torch.from_numpy(_normalized(rng, b, d)).to(dev)
+    q = queries if queries is not None else torch.from_numpy(_normalized(rng, b, d)).to(dev)
     saved = fused_cosine_topk.launches
     kernel = time_ms(lambda: fused_cosine_topk(q, m, valid, k))
     stages = device_split(lambda: fused_cosine_topk(q, m, valid, k), expect="merge_kernel")
@@ -1464,7 +1823,7 @@ def main() -> int:
     card = REPORT["card"]
     phase_build()
     phase_kernels(dev, args.seed)
-    launches, conc_launches, mix_launches, vecs = phase_main_path(dev, args.seed, args.docs)
+    path_launches, vecs, graph = phase_main_path(dev, args.seed, args.docs)
 
     # each kernel timed at the shape the main path gives it
     mp = REPORT["main_path"]
@@ -1472,29 +1831,38 @@ def main() -> int:
         m, valid = vecs._device_arrays_locked()
     topk_rows = [time_topk(dev, m, valid, b, MAIN_K, args.seed, card) for b in MAIN_TIMED_B]
     topk_row = topk_rows[0]
+    del m, valid, vecs
+    if graph is not None:
+        # the walk graph's k-NN build: B = 1,024 queries of its own rows
+        # at k = degree + 1 (all rows valid)
+        rows = graph["matrix"][:graph["n"]]
+        topk_rows.append(time_topk(dev, rows, torch.ones(graph["n"], dtype=torch.bool, device=dev),
+                                   1024, 33, args.seed, card, queries=rows[:1024]))
+        del rows, graph
     # the main path's encoder runs in bf16, so B2 is timed in bf16; the
     # first row is the ingest shape, the one the kernels line reports
     attn_rows = [time_attention(dev, *shape, getattr(torch, dtype), args.seed, card)
                  for shape, dtype in ATTN_TIMED]
     attn_row = attn_rows[0]
     REPORT["main_path_timings"] = {"cosine_topk": topk_rows, "flash_attention": attn_rows}
-    del m, valid, vecs
     log(f"launches per query: cosine_topk {mp['launches_per_query']['cosine_topk']:.3f} "
-        f"(per hybrid search; per vector search too below the HNSW threshold), flash_attention "
+        f"(per hybrid search of the exact tier; the walk launches none; per vector search too "
+        f"below the HNSW threshold), flash_attention "
         f"{mp['launches_per_query']['flash_attention']:.4f} (per text through the encoder)")
 
     phase_index(dev, args.seed, args.index_rows, card)
     REPORT["total_s"] = time.perf_counter() - t_start
 
+    def path_sum(name):
+        return sum(p[name] for p in path_launches)
+
+    paths = ("one_at_a_time", "concurrent", "write_mix", "cagra_profile", "exact_tier_block")
     kernels = [
         {"name": "cosine_topk", "route": "cuda",
          "source": "nornicdb_tpu_torch/csrc/cosine_topk.cu",
          "replaces": "nornicdb_tpu/ops/pallas_topk.py:125",
-         "launches": (launches["cosine_topk"] + conc_launches["cosine_topk"]
-                      + mix_launches["cosine_topk"]),
-         "launches_one_at_a_time": launches["cosine_topk"],
-         "launches_concurrent": conc_launches["cosine_topk"],
-         "launches_write_mix": mix_launches["cosine_topk"],
+         "launches": path_sum("cosine_topk"),
+         **{f"launches_{name}": p["cosine_topk"] for name, p in zip(paths, path_launches)},
          "max_abs_err": REPORT["topk_max_abs_err"],
          "ms": topk_row["kernel_ms"], "device_ms": sum(topk_row["device_ms"].values()),
          "plain_ms": topk_row["plain_ms"],
@@ -1504,11 +1872,8 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "nornicdb_tpu_torch/csrc/flash_attention.cu",
          "replaces": "nornicdb_tpu/ops/pallas_attention.py:131",
-         "launches": (launches["flash_attention"] + conc_launches["flash_attention"]
-                      + mix_launches["flash_attention"]),
-         "launches_one_at_a_time": launches["flash_attention"],
-         "launches_concurrent": conc_launches["flash_attention"],
-         "launches_write_mix": mix_launches["flash_attention"],
+         "launches": path_sum("flash_attention"),
+         **{f"launches_{name}": p["flash_attention"] for name, p in zip(paths, path_launches)},
          "max_abs_err": REPORT["attention_max_abs_err"],
          "ms": attn_row["kernel_ms"], "device_ms": attn_row["device_ms"],
          "plain_ms": attn_row["plain_ms"],

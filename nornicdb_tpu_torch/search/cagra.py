@@ -275,14 +275,8 @@ class CagraIndex:
         self.build_s: Dict[str, float] = {}
         self.counts: Counter = Counter()
 
-    # -- delegation: the brute index owns the vectors; writes may reach it
-    # directly (the service does), so freshness reads its own counters
-
-    def __len__(self) -> int:
-        return len(self._brute)
-
-    def __contains__(self, ext_id: str) -> bool:
-        return ext_id in self._brute
+    # -- writes go to the brute index, the source of truth; they may also
+    # reach it directly (the service's do), so freshness reads its counters
 
     def add(self, ext_id: str, vector: Sequence[float]) -> None:
         self._brute.add(ext_id, vector)
@@ -292,12 +286,6 @@ class CagraIndex:
 
     def remove(self, ext_id: str) -> bool:
         return self._brute.remove(ext_id)
-
-    def get(self, ext_id: str):
-        return self._brute.get(ext_id)
-
-    def ids(self) -> List[str]:
-        return self._brute.ids()
 
     # -- build ------------------------------------------------------------
 
@@ -354,7 +342,10 @@ class CagraIndex:
                         "reorder": t4 - t3, "total": t5 - t0}
         return True
 
-    def _ensure_graph(self) -> Optional[Dict[str, Any]]:
+    def ensure_graph(self) -> Optional[Dict[str, Any]]:
+        """The current graph under the rebuild policy (churn starts a
+        background rebuild; the stale graph keeps serving), or None while
+        callers must take an exact tier."""
         g = self._graph
         if g is not None:
             churn = self._brute.mutations - g["built_mutations"]
@@ -390,17 +381,6 @@ class CagraIndex:
     @property
     def graph_built(self) -> bool:
         return self._graph is not None
-
-    def ensure_graph(self) -> Optional[Dict[str, Any]]:
-        """The current graph under the rebuild policy (churn starts a
-        background rebuild; the stale graph keeps serving), or None while
-        callers must take an exact tier."""
-        return self._ensure_graph()
-
-    def delta_block(self, g) -> Tuple[Optional[List[str]], Optional[np.ndarray]]:
-        """(ids, vectors) added or updated since ``g`` was built, or
-        (None, None) when the changelog no longer reaches back to it."""
-        return self._delta_block(g)
 
     def device_bytes(self) -> int:
         """Bytes of the graph's device arrays (matrix, adjacency, validity)."""
@@ -444,14 +424,14 @@ class CagraIndex:
             raise ValueError(f"queries must be [B, D], got {queries.shape}")
         if len(queries) == 0:
             return []
-        g = self._ensure_graph()
+        g = self.ensure_graph()
         if g is None:
             return self._brute.search_batch(queries, k)
         p = itopk or self.itopk
         if min(k, g["n"]) > p:
             # the pool only ever holds itopk candidates
             return self._fallback("itopk_exceeded", queries, k)
-        delta_ids, delta_vecs = self._delta_block(g)
+        delta_ids, delta_vecs = self.delta_block(g)
         if delta_ids is None:
             return self._fallback("changelog_overrun", queries, k)
         k_eff = min(k, g["n"], p)
@@ -484,10 +464,11 @@ class CagraIndex:
         self.counts["fallback_" + reason] += 1
         return self._brute.search_batch(queries, k)
 
-    def _delta_block(self, g):
-        """(ids, vectors [m, D]) written since the build, from the brute
-        changelog (writes that bypassed this wrapper included), memoized
-        on the mutation counter; (None, None) on a changelog overrun."""
+    def delta_block(self, g) -> Tuple[Optional[List[str]], Optional[np.ndarray]]:
+        """(ids, vectors [m, D]) added or updated since ``g`` was built,
+        from the brute changelog (writes that bypassed this wrapper
+        included), memoized on the mutation counter; (None, None) when the
+        changelog no longer reaches back to the build."""
         m = self._brute.mutations
         cached = self._delta_cache
         if cached is not None and cached[0] == m and cached[1] == g["built_mutations"]:

@@ -60,6 +60,7 @@ import torch
 
 from nornicdb_tpu_torch.ops.similarity import NEG_INF, l2_normalize, topk_stable
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+from nornicdb_tpu_torch.search.ann_quality import current_profile
 from nornicdb_tpu_torch.search.bm25 import BM25Index
 from nornicdb_tpu_torch.search.cagra import CagraIndex, merge_delta_hits, walk_body
 from nornicdb_tpu_torch.search.device_bm25 import (
@@ -210,8 +211,6 @@ class FusedHybrid:
         if cagra is not None and cagra._brute is not brute:
             cagra = None
         if cagra is None and walk_min_n is not None:
-            from nornicdb_tpu_torch.search.ann_quality import current_profile
-
             p = current_profile()
             cagra = CagraIndex(brute=brute, degree=p.cagra_degree, itopk=p.cagra_itopk,
                                search_width=p.cagra_width, min_n=walk_min_n,

@@ -204,11 +204,6 @@ class BruteForceIndex:
             self.mutations += 1
             return True
 
-    def ids(self) -> List[str]:
-        """Live ids, under one lock hold."""
-        with self._lock:
-            return list(self._slot_of)
-
     def get(self, ext_id: str) -> Optional[np.ndarray]:
         with self._lock:
             slot = self._slot_of.get(ext_id)

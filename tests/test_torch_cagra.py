@@ -78,7 +78,7 @@ def test_changelog_and_contains_many_match_jax():
     for seq in [0] + seqs:
         assert t.changed_since(seq) == j.changed_since(seq), seq
     ids = [f"v{i}" for i in range(25)]
-    assert t.contains_many(ids) == j.contains_many(ids) and sorted(t.ids()) == sorted(j.ids())
+    assert t.contains_many(ids) == j.contains_many(ids)
 
 
 def test_changelog_cap_moves_the_floor_as_jax():
@@ -218,6 +218,7 @@ def test_index_matches_jax_across_writes(same_edges, itopk, width):
     assert j.build() and t.build()
     np.testing.assert_array_equal(t._graph["adj"].numpy(), np.asarray(j._graph["adj"]))
     assert t._graph["iters"] == j._graph["iters"] and t._graph["row_ids"] == j._graph["row_ids"]
+    assert t.stats() == {k: v for k, v in j.stats().items() if k != "shards"}
     qs = _queries(x, 12)
     for k in (1, 10, 30):
         _assert_same_answers(j, t, qs, k)
