@@ -1102,6 +1102,7 @@ def phase_cagra_profile(dev, svc, qvs):
     from nornicdb_tpu_torch.storage.memory import MemoryEngine
     from nornicdb_tpu_torch.storage.types import Node
 
+    t_phase = time.perf_counter()
     matrix, valid, ext_ids = svc.vectors.snapshot()
     storage = MemoryEngine()
     for slot, eid in enumerate(ext_ids):
@@ -1149,13 +1150,15 @@ def phase_cagra_profile(dev, svc, qvs):
            "p99_ms": float(np.percentile(lat, 99)), "itopk": cg.itopk,
            "width": cg.search_width, "iters": cg._graph["iters"], "launches": launches,
            "cosine_topk_launch_sizes": sizes, "fallbacks": {
-               k: v for k, v in cg.counts.items() if k.startswith("fallback_")}}
+               k: v for k, v in cg.counts.items() if k.startswith("fallback_")},
+           "phase_s": time.perf_counter() - t_phase}
     log(f"cagra profile: {n} vectors (explicit embeddings of the main path's rows, no "
         f"text) backfilled in {index_s:.2f} s; strategy {out['strategy']}, "
         f"{out['cagra_builds']} build in {cg.build_s['total']:.3f} s (B1 launches by B "
         f"{sizes}); {len(qvs)} vector queries: {walks} walks from {rides[1]} vector rides in "
         f"{rides[0]} batches, recall@10 {recall:.4f} against exact=True at itopk {cg.itopk}, "
-        f"width {cg.search_width}; p50 {out['p50_ms']:.3f} p99 {out['p99_ms']:.3f} ms")
+        f"width {cg.search_width}; p50 {out['p50_ms']:.3f} p99 {out['p99_ms']:.3f} ms; the "
+        f"phase took {out['phase_s']:.2f} s")
     if walks != len(qvs) or rides[1] != len(qvs) or out["fallbacks"]:
         raise AssertionError(f"cagra profile: vector queries did not all walk: {out}")
     if recall < RECALL_MIN:
