@@ -428,6 +428,8 @@ def phase_kernels(dev, seed):
         for b in (1, 2, 3, 4, 5, 7, 8, 16, 33, 64, 65, 200, 256):
             for k in (1, 10, 30, 128, 256):
                 errs.append(check_topk(dev, rng, c, d, b, k, m=m))
+        if d == 160:  # the walk graph's k-NN chunk (search/cagra.py:knn_forward)
+            errs.append(check_topk(dev, rng, c, d, 1024, 33, m=m))
     for b in (1, 4, 7, 64):
         for k in (10, 256):
             errs.append(check_topk(dev, rng, 5000, 33, b, k))  # D % 4 != 0: scalar copies
@@ -566,9 +568,10 @@ def wait_for_snapshot(svc):
 
 
 def wait_for_graph(fused):
-    """The walk tier's graph once its background build has landed."""
+    """The walk tier's graph once its background build has landed; a
+    failed build raises from ``ensure_graph`` at once."""
     t0 = time.perf_counter()
-    while not fused.cagra.graph_built:
+    while fused.cagra.ensure_graph() is None:
         if time.perf_counter() - t0 > HYBRID_BUILD_TIMEOUT_S:
             raise AssertionError(
                 f"the walk graph was not built within {HYBRID_BUILD_TIMEOUT_S} s")
@@ -925,6 +928,10 @@ def phase_main_path(dev, seed, n_docs):
         raise AssertionError("main-path vector answers disagree with the plain path")
 
     conc = phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios)
+    # the exact tier's coalesced dispatch under the same clients, the walk
+    # off on the live pipeline (the route below walk_min_n vectors)
+    conc_exact = (phase_concurrent(db, svc, fused, recorder, queries, results, brute_trios,
+                                   exact_tier=True) if use_walk else None)
     fused_rows = [time_fused(db, svc, fused, queries, b, REPORT["card"], tier)
                   for tier in (("walk", "brute") if use_walk else ("brute",))
                   for b in FUSED_TIMED_B]
@@ -991,6 +998,7 @@ def phase_main_path(dev, seed, n_docs):
         "walk": walk,
         "exact_tier_block": brute,
         "concurrent": conc,
+        "concurrent_exact_tier": conc_exact,
         "write_mix": write_mix,
         "cagra_profile": profile,
     }
@@ -1012,10 +1020,14 @@ def phase_main_path(dev, seed, n_docs):
             f"p99 {mp[mode + '_p99_ms']:.3f} ms (first {mp[mode + '_first_ms']:.3f} ms, "
             f"max after it {mp[mode + '_max_after_first_ms']:.3f} ms)")
     db.close()
-    path_launches = [launches, conc["launches"], write_mix["launches"], profile["launches"]]
+    # each path's launches, its counts set to 0 just before it
+    path_launches = {"one_at_a_time": launches, "concurrent": conc["launches"],
+                     "write_mix": write_mix["launches"], "cagra_profile": profile["launches"]}
     if use_walk:
-        path_launches.append({"cosine_topk": brute["cosine_topk_launches"],
-                              "flash_attention": brute["flash_attention_launches"]})
+        path_launches["exact_tier_block"] = {
+            "cosine_topk": brute["cosine_topk_launches"],
+            "flash_attention": brute["flash_attention_launches"]}
+        path_launches["concurrent_exact_tier"] = conc_exact["launches"]
     return path_launches, vecs, graph
 
 
@@ -1166,17 +1178,25 @@ def phase_cagra_profile(dev, svc, qvs):
     return out
 
 
-def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
+def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios,
+                     exact_tier=False):
     """16 client threads, 32 queries each, alternating vector and hybrid,
     with every result-cache probe missing (each mode's 256 requests repeat
     its 64 queries, which the cache would otherwise answer): the
     hybrid batcher must coalesce into dispatches at B >= 5 (walks on the
     walk tier, B1 launches on the exact tier), vector queries call HNSW
     directly above the threshold (no vector rides) and ride their batcher
-    below it, and each answer must agree with the one-at-a-time answer. Then the same threads ride the vector batcher
-    directly, as every recall does below the threshold: it must coalesce
-    into a B1 launch at B >= 5, with answers equal to one-at-a-time
-    exact answers."""
+    below it, and each answer must agree with the one-at-a-time answer
+    (``results`` and ``seq_trios`` of the same tier). Then the same
+    threads ride the vector batcher directly, as every recall does below
+    the threshold: it must coalesce into a B1 launch at B >= 5, with
+    answers equal to one-at-a-time exact answers.
+
+    ``exact_tier`` switches the walk off on the live pipeline for the
+    clients, so their hybrid queries take the exact tier's coalesced
+    dispatch (``hybrid_brute_f32``, B1 at the batch's size), the route of
+    every deployment between the fused floor and the walk's; the direct
+    rides are left to the walk run."""
     import threading
 
     import torch
@@ -1185,7 +1205,10 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
     from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
     from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32, TIER_WALK_F32
 
-    walk = fused.walk_min_n is not None and fused.cagra is not None and fused.cagra.graph_built
+    walk_min_n = fused.walk_min_n
+    walk = (not exact_tier and walk_min_n is not None and fused.cagra is not None
+            and fused.cagra.graph_built)
+    hybrid_label = "hybrid_brute" if exact_tier else "hybrid"
     qvs = np.asarray(db._embedder.embed_batch(queries), np.float32)
     flash_attention.launches = 0
     fused_cosine_topk.launches = 0
@@ -1203,21 +1226,27 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
             for j in range(CONCURRENT_PER_THREAD):
                 q = queries[(t * 5 + j) % len(queries)]
                 mode = "vector" if j % 2 == 0 else "hybrid"
-                answers.append((mode, q, db.recall(q, limit=10, mode=mode)))
+                label = mode if mode == "vector" else hybrid_label
+                answers.append((label, q, db.recall(q, limit=10, mode=mode)))
         except BaseException as exc:  # noqa: BLE001 -- re-raised below
             errors.append(exc)
 
     threads = [threading.Thread(target=client, args=(t,)) for t in range(CONCURRENT_THREADS)]
     invalidate_cache(svc, "before the concurrent phase; inside it every probe misses")
     hits0 = svc.stats.cache_hits
-    with CacheBypass(svc) as bypass:
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+    if exact_tier:
+        fused.walk_min_n = None
+    try:
+        with CacheBypass(svc) as bypass:
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        fused.walk_min_n = walk_min_n
     if any(th.is_alive() for th in threads):
         raise AssertionError("a concurrent client did not finish")
     if errors:
@@ -1240,7 +1269,8 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
         except BaseException as exc:  # noqa: BLE001 -- re-raised below
             errors.append(exc)
 
-    threads = [threading.Thread(target=rider, args=(t,)) for t in range(CONCURRENT_THREADS)]
+    threads = [] if exact_tier else [threading.Thread(target=rider, args=(t,))
+                                     for t in range(CONCURRENT_THREADS)]
     t0 = time.perf_counter()
     for th in threads:
         th.start()
@@ -1273,33 +1303,37 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
            "vector_batches": vb, "vector_queries": vq, "vector_mean_batch": vq / max(vb, 1),
            "vector_batch_sizes": vsizes,
            "direct_vector_rides": {"queries": rq, "batches": rb, "wall_s": ride_wall_s,
-                                   "queries_per_s": rq / ride_wall_s,
+                                   "queries_per_s": rq / ride_wall_s if rq else 0.0,
                                    "mean_batch": rq / max(rb, 1), "batch_sizes": rsizes},
            "hybrid_batches": hb, "hybrid_queries": hq, "hybrid_mean_batch": hq / max(hb, 1),
            "hybrid_batch_sizes": hsizes,
            "mean_batch": (vq + hq) / max(vb + hb, 1), "fused_served": served}
-    log(f"concurrent: {n_q} queries from {CONCURRENT_THREADS} threads in {wall_s:.3f} s; "
+    log(f"concurrent{' (walk off)' if exact_tier else ''}: {n_q} queries from "
+        f"{CONCURRENT_THREADS} threads in {wall_s:.3f} s; "
         f"vector tier {out['vector_tier']}: {recall_vq} recall vector rides; hybrid mean "
         f"batch {out['hybrid_mean_batch']:.3f} over {hb} batches (sizes {hsizes}); "
         f"B1 launches {launches['cosine_topk']} by B {sizes}; fused tier {served}; "
         f"{bypass.probes} cache probes missed; hybrid tier {out['hybrid_tier']}")
-    log(f"  direct vector rides: {rq} in {rb} batches in {ride_wall_s:.3f} s, mean batch "
-        f"{rq / max(rb, 1):.3f} (sizes {rsizes}); vector batcher in all {vq} rides in "
-        f"{vb} batches, mean {out['vector_mean_batch']:.3f}")
+    if not exact_tier:
+        log(f"  direct vector rides: {rq} in {rb} batches in {ride_wall_s:.3f} s, mean batch "
+            f"{rq / max(rb, 1):.3f} (sizes {rsizes}); vector batcher in all {vq} rides in "
+            f"{vb} batches, mean {out['vector_mean_batch']:.3f}")
     if bypass.probes != n_q or svc.stats.cache_hits != hits0:
         raise AssertionError(f"the result cache answered in the concurrent phase: {out}")
-    if hq != n_q // 2 or recall_vq != (0 if use_hnsw else n_q // 2) or rq != n_q:
+    n_rides = 0 if exact_tier else n_q
+    if hq != n_q // 2 or recall_vq != (0 if use_hnsw else n_q // 2) or rq != n_rides:
         raise AssertionError(f"vector or hybrid queries took the wrong route: {out}")
-    if out["hybrid_mean_batch"] <= 1.0 or out["vector_mean_batch"] <= 1.0 \
-            or rq / max(rb, 1) <= 1.0:
+    if out["hybrid_mean_batch"] <= 1.0 or (vq and out["vector_mean_batch"] <= 1.0) \
+            or (rq and rq / rb <= 1.0):
         raise AssertionError(f"the batchers did not coalesce: {out}")
     # each ride is one B1 launch at its batch's size (a walk launches none)
     hybrid_b1 = {} if walk else hsizes
-    if any(sizes.get(b, 0) < n + hybrid_b1.get(b, 0) for b, n in vsizes.items()):
+    if any(sizes.get(b, 0) < vsizes.get(b, 0) + hybrid_b1.get(b, 0)
+           for b in set(vsizes) | set(hybrid_b1)):
         raise AssertionError(f"a batcher's ride did not launch B1: {out}")
     if not any(b >= 5 for b in hsizes) or not (walk or any(b >= 5 for b in sizes)):
         raise AssertionError(f"no hybrid ride was dispatched at B >= 5: {out}")
-    if not any(b >= 5 for b in vsizes):
+    if vq and not any(b >= 5 for b in vsizes):
         raise AssertionError(f"no vector ride launched B1's batched kernel (B >= 5): {out}")
     tier, dispatch = ((TIER_WALK_F32, "walk_dispatch") if walk else (TIER_BRUTE_F32, "dispatch"))
     if served.get(tier) != hq or served.get(dispatch) != hb or fused.handoffs() \
@@ -1316,13 +1350,13 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios):
             raise AssertionError(f"concurrent hybrid answer for {q!r} differs from one at a time")
         if lists(trio) != lists(seq):
             changed.add(q)
-    for mode, q, hits in answers:
-        want = results[(mode, q)]
+    for label, q, hits in answers:
+        want = results[(label, q)]
         got = [(h["id"], h["score"]) for h in hits]
-        if mode == "vector" and not hits_agree(got, [(h["id"], h["score"]) for h in want],
-                                               TOPK_SCORE_ATOL):
+        if label == "vector" and not hits_agree(got, [(h["id"], h["score"]) for h in want],
+                                                TOPK_SCORE_ATOL):
             raise AssertionError(f"concurrent vector answer for {q!r} differs from one at a time")
-        if mode == "hybrid" and q not in changed and got != [(h["id"], h["score"]) for h in want]:
+        if label == hybrid_label and q not in changed and got != [(h["id"], h["score"]) for h in want]:
             raise AssertionError(f"concurrent hybrid hits for {q!r} differ from one at a time")
     one = {i: svc.vector_search_candidates(qvs[i], VECTOR_RIDE_K, exact=True)
            for i in sorted({i for i, _ in rides})}
@@ -1677,17 +1711,27 @@ def time_fused(db, svc, fused, queries, b, card, tier="brute"):
 
 
 def time_topk(dev, m, valid, b, k, seed, card, queries=None):
-    """B1 at [B, D] x [C, D], k, against its plain version and the library
-    call; ``queries`` (else seeded random unit rows) are the B queries."""
+    """B1 at [B, D] x [C, D], k, held to its plain version on the same
+    inputs (tie-aware, TOPK_SCORE_ATOL) and timed against it and the
+    library call; ``queries`` (else seeded random unit rows) are the B
+    queries."""
     import torch
 
     from nornicdb_tpu_torch.ops.similarity import cosine_topk_auto
-    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk, topk_agree
 
     c, d = m.shape
     rng = np.random.default_rng(seed)
     q = queries if queries is not None else torch.from_numpy(_normalized(rng, b, d)).to(dev)
     saved = fused_cosine_topk.launches
+    s_k, i_k = fused_cosine_topk(q, m, valid, k)
+    s_p, i_p = cosine_topk_auto(q, m, valid, k)
+    s_k, i_k, s_p, i_p = (x.cpu().numpy() for x in (s_k, i_k, s_p, i_p))
+    err = float(np.abs(s_k - s_p).max())
+    if not topk_agree(i_k, s_k, i_p, s_p, TOPK_SCORE_ATOL):
+        raise AssertionError(f"B1 disagrees with its plain version at the timed shape C={c} "
+                             f"D={d} B={b} k={k} (max score err {err:.3g})")
+    REPORT["topk_max_abs_err"] = max(REPORT["topk_max_abs_err"], err)
     kernel = time_ms(lambda: fused_cosine_topk(q, m, valid, k))
     stages = device_split(lambda: fused_cosine_topk(q, m, valid, k), expect="merge_kernel")
     fused_cosine_topk.launches = saved  # comparison launches do not count
@@ -1702,11 +1746,13 @@ def time_topk(dev, m, valid, b, k, seed, card, queries=None):
     lib_split = device_split(library, expect="topk")
     n_bytes, flops = topk_cost(b, c, d, k)
     bnd, by = bound_ms(n_bytes, flops)
-    row = {"C": c, "D": d, "B": b, "k": k, "kernel_ms": kernel, "plain_ms": plain,
+    row = {"C": c, "D": d, "B": b, "k": k, "max_abs_err": err,
+           "kernel_ms": kernel, "plain_ms": plain,
            "library_ms": lib, "library_device_ms": sum(lib_split.values()),
            "library_split": lib_split, "bound_ms": bnd, "bound_by": by,
            "device_ms": stages, "card": card}
-    log(f"B1 C={c} D={d} B={b} k={k} [{card}]: kernel_ms {kernel:.4f} device_ms "
+    log(f"B1 C={c} D={d} B={b} k={k} [{card}]: agrees with plain (max score err "
+        f"{err:.3g}); kernel_ms {kernel:.4f} device_ms "
         f"{sum(stages.values()):.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
         f"library_device_ms {row['library_device_ms']:.4f} bound_ms {bnd:.4f} ({by}); "
         f"device ms per call by stage {json.dumps(stages)} library kernels "
@@ -1857,15 +1903,14 @@ def main() -> int:
     REPORT["total_s"] = time.perf_counter() - t_start
 
     def path_sum(name):
-        return sum(p[name] for p in path_launches)
+        return sum(p[name] for p in path_launches.values())
 
-    paths = ("one_at_a_time", "concurrent", "write_mix", "cagra_profile", "exact_tier_block")
     kernels = [
         {"name": "cosine_topk", "route": "cuda",
          "source": "nornicdb_tpu_torch/csrc/cosine_topk.cu",
          "replaces": "nornicdb_tpu/ops/pallas_topk.py:125",
          "launches": path_sum("cosine_topk"),
-         **{f"launches_{name}": p["cosine_topk"] for name, p in zip(paths, path_launches)},
+         **{f"launches_{name}": p["cosine_topk"] for name, p in path_launches.items()},
          "max_abs_err": REPORT["topk_max_abs_err"],
          "ms": topk_row["kernel_ms"], "device_ms": sum(topk_row["device_ms"].values()),
          "plain_ms": topk_row["plain_ms"],
@@ -1876,7 +1921,7 @@ def main() -> int:
          "source": "nornicdb_tpu_torch/csrc/flash_attention.cu",
          "replaces": "nornicdb_tpu/ops/pallas_attention.py:131",
          "launches": path_sum("flash_attention"),
-         **{f"launches_{name}": p["flash_attention"] for name, p in zip(paths, path_launches)},
+         **{f"launches_{name}": p["flash_attention"] for name, p in path_launches.items()},
          "max_abs_err": REPORT["attention_max_abs_err"],
          "ms": attn_row["kernel_ms"], "device_ms": attn_row["device_ms"],
          "plain_ms": attn_row["plain_ms"],

@@ -268,6 +268,9 @@ class CagraIndex:
         self._build_lock = threading.Lock()
         self._rebuilding = False
         self._rebuild_flag_lock = threading.Lock()
+        # a background build that raised: re-raised by every later
+        # ensure_graph instead of building again
+        self._build_error: Optional[BaseException] = None
         # (brute mutations, built mutations, ids, vectors) of the last
         # delta block: unchanged until a write lands
         self._delta_cache: Optional[Tuple] = None
@@ -345,7 +348,11 @@ class CagraIndex:
     def ensure_graph(self) -> Optional[Dict[str, Any]]:
         """The current graph under the rebuild policy (churn starts a
         background rebuild; the stale graph keeps serving), or None while
-        callers must take an exact tier."""
+        callers must take an exact tier. Raises once a background build
+        has failed."""
+        if self._build_error is not None:
+            raise RuntimeError("the CAGRA graph's background build failed") \
+                from self._build_error
         g = self._graph
         if g is not None:
             churn = self._brute.mutations - g["built_mutations"]
@@ -372,6 +379,8 @@ class CagraIndex:
         def run():
             try:
                 self.build()
+            except BaseException as exc:  # noqa: BLE001 -- re-raised by ensure_graph
+                self._build_error = exc
             finally:
                 with self._rebuild_flag_lock:
                     self._rebuilding = False

@@ -196,7 +196,6 @@ class FusedHybrid:
         rebuild_stale_frac: float = 0.1,
         build_inline: bool = True,
         walk_min_n: Optional[int] = None,
-        cagra: Optional[CagraIndex] = None,
     ):
         self.bm25 = bm25
         self.brute = brute
@@ -204,18 +203,15 @@ class FusedHybrid:
                               rebuild_stale_frac=rebuild_stale_frac,
                               build_inline=build_inline, device=brute.device)
         self.counts: Counter = Counter()
-        # the walk tier: at and above walk_min_n live vectors (None: off).
-        # A graph over another brute index never serves: its rows and
-        # freshness counters belong to another corpus
+        # the walk tier: at and above walk_min_n live vectors (None: off),
+        # over a graph of its own until rebind_cagra shares another
         self.walk_min_n = walk_min_n
-        if cagra is not None and cagra._brute is not brute:
-            cagra = None
-        if cagra is None and walk_min_n is not None:
+        self.cagra: Optional[CagraIndex] = None
+        if walk_min_n is not None:
             p = current_profile()
-            cagra = CagraIndex(brute=brute, degree=p.cagra_degree, itopk=p.cagra_itopk,
-                               search_width=p.cagra_width, min_n=walk_min_n,
-                               build_inline=build_inline)
-        self.cagra = cagra
+            self.cagra = CagraIndex(brute=brute, degree=p.cagra_degree, itopk=p.cagra_itopk,
+                                    search_width=p.cagra_width, min_n=walk_min_n,
+                                    build_inline=build_inline)
         self._grow_cache: Optional[Tuple[int, Dict[str, int]]] = None
 
     def build(self) -> bool:
@@ -290,7 +286,8 @@ class FusedHybrid:
         """Walk ``cagra``'s graph from now on (the strategy machine built
         one over the same brute index): one graph, one rebuild cadence,
         and the lexical snapshot keeps serving. False, and nothing
-        changes, when it wraps another brute index."""
+        changes, when it wraps another brute index: its rows and
+        freshness counters belong to another corpus."""
         if cagra is not None and cagra._brute is not self.brute:
             return False
         self.cagra = cagra

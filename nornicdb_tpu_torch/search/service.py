@@ -213,8 +213,8 @@ class SearchService:
             f = self._fused = FusedHybrid(
                 self.bm25, self.vectors, min_n=min_n,
                 build_inline=env_bool("HYBRID_INLINE_BUILD", False),
-                walk_min_n=walk_min_n, cagra=self.cagra)
-        elif self.cagra is not None and f.cagra is not self.cagra:
+                walk_min_n=walk_min_n)
+        if self.cagra is not None and f.cagra is not self.cagra:
             # the strategy machine built a graph over the same brute index:
             # one graph, one rebuild cadence, and the snapshot keeps serving
             f.rebind_cagra(self.cagra)

@@ -4,7 +4,7 @@ recall by (itopk, width, iters).
 
 Run from the root of a checkout:
 
-    python3 scripts/cagra_sweep.py [--docs N] [--seed S] [--device cpu|cuda]
+    python3 scripts/cagra_sweep.py [--docs N] [--seed S] [--device cuda|cpu]
 
 Embeds the same seeded documents and 64 queries as ``chip_smoke.py``
 phase 4 through the port's DB (its default bf16 mini encoder on
@@ -73,11 +73,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=100_000)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
     import torch
 
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        print("no CUDA card: pass --device cpu to run on the CPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
     from nornicdb_tpu_torch.search.cagra import CagraIndex
     from nornicdb_tpu_torch.search.rrf import rrf_fuse
 

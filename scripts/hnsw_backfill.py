@@ -4,7 +4,7 @@ by query beam.
 
 Run from the root of a checkout:
 
-    python3 scripts/hnsw_backfill.py [--docs N] [--seed S] [--device cpu|cuda]
+    python3 scripts/hnsw_backfill.py [--docs N] [--seed S] [--device cuda|cpu]
         [--reference-order]
 
 Embeds the same seeded documents and 64 queries as ``chip_smoke.py``
@@ -82,9 +82,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=100_000)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--reference-order", action="store_true")
     args = ap.parse_args()
+    import torch
+
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        print("no CUDA card: pass --device cpu to run on the CPU", file=sys.stderr)
+        return 2
     sys.path.insert(0, ROOT)
     from nornicdb_tpu_torch.search.hnsw import HNSWIndex
     from nornicdb_tpu_torch.search.service import HNSW_EF_SEARCH

@@ -301,6 +301,28 @@ def test_pending_first_build_answers_from_brute():
     assert t.graph_built and t.builds == 1
 
 
+def test_failed_background_build_raises_and_is_not_retried(monkeypatch):
+    calls = []
+
+    def launch_failed(*args, **kw):
+        calls.append(1)
+        raise RuntimeError("B1 launch failed")
+
+    monkeypatch.setattr(tc, "fused_cosine_topk", launch_failed)
+    x = _clustered(600, seed=10)
+    t = tc.CagraIndex(min_n=256, build_inline=False, device="cpu")
+    t.add_batch([(f"v{i}", x[i]) for i in range(len(x))])
+    t.search(x[0], k=5)  # starts the build, brute answers
+    deadline = time.time() + 30
+    while t._build_error is None and time.time() < deadline:
+        time.sleep(0.02)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="background build failed") as err:
+            t.search(x[0], k=5)
+        assert "B1 launch failed" in str(err.value.__cause__)
+    assert len(calls) == 1 and t.counts["background_rebuild"] == 1 and not t.graph_built
+
+
 def test_recall_at_port_defaults_on_a_clustered_corpus():
     """ROADMAP C14: recall@10 >= 0.95 against exact search."""
     x = _clustered(3000, seed=0)

@@ -602,7 +602,8 @@ def _walk_fused(pair, itopk, width, **kw):
     jg = j_cagra.CagraIndex(brute=pair.jv, **kw)
     tg = t_cagra.CagraIndex(brute=pair.tv, **kw)
     jf = JFused(pair.jb, pair.jv, min_n=1, walk_min_n=WALK_MIN_N, cagra=jg)
-    tf = TFused(pair.tb, pair.tv, min_n=1, walk_min_n=WALK_MIN_N, cagra=tg)
+    tf = TFused(pair.tb, pair.tv, min_n=1, walk_min_n=WALK_MIN_N)
+    assert tf.rebind_cagra(tg)
     assert jf.build() and tf.build() and jg.build() and tg.build()
     return jf, tf
 
@@ -741,9 +742,10 @@ def test_walk_tier_pending_build_serves_the_brute_tier():
 def test_fused_tier_refuses_a_graph_over_another_index():
     pair = Pair(300, seed=65)
     other = t_cagra.CagraIndex(device="cpu")
-    tf = TFused(pair.tb, pair.tv, min_n=1, walk_min_n=100, cagra=other)
-    assert tf.cagra is not other and tf.cagra._brute is pair.tv
-    assert not tf.rebind_cagra(other) and tf.cagra._brute is pair.tv
+    tf = TFused(pair.tb, pair.tv, min_n=1, walk_min_n=100)
+    own = tf.cagra
+    assert own is not None and own._brute is pair.tv
+    assert not tf.rebind_cagra(other) and tf.cagra is own
     shared = t_cagra.CagraIndex(brute=pair.tv)
     assert tf.rebind_cagra(shared) and tf.cagra is shared
 
