@@ -87,6 +87,32 @@ Phases, in order; any failure exits non-zero:
    ``BruteForceIndex`` filled through ``add_batch`` and searched at
    the (B, k) of ``INDEX_TIMED``, through B1, checked against the plain
    path.
+6. Durable: phase 4's corpus stored again through ``open(data_dir,
+   engine="native")`` (the native KV engine, ``csrc/kv_host.cpp``, built
+   with ``c++``), all but the last 1,024 docs with phase 4's embeddings
+   passed explicitly and those 1,024 through the embed queue (B2), in a
+   git-ignored ``_durable/`` dir. The first search backfills and builds
+   HNSW; the index saves the debounce timer makes meanwhile are counted
+   and timed. 64 queries each of vector, text, hybrid on the exact tier
+   (walk off) and hybrid on the walk tier (its floor lowered to half the
+   docs, since the forgets drop the live count under 100,000); then 64
+   ``forget``s of ids those answers named, the four modes again (the
+   answers before the close), ``close`` (the final index save), and
+   ``memory_allocated`` must be back within 1 MB of its value before the
+   phase. The reopen (``engine="auto"``) must be the native engine, build
+   no HNSW, re-index and embed no node, count the docs less the
+   forgotten, answer no forgotten id, give vector, text and exact-tier
+   answers bitwise those before the close and walk answers tie-aware
+   (walk-parity and recall@10 against the answers before the close
+   >= 0.95), and launch B1 for the graph's rebuild and the exact tier. It
+   prints the time to recover by part (segment scan, BM25, vector read,
+   device upload, HNSW load, resume scan, first query per mode, snapshot
+   and graph waits), close times and bytes on disk per file, and the
+   record codec's MB/s. Then the same nodes through
+   ``engine="python"`` (WAL + snapshots, no search): store, close,
+   reopen, every id read back; and for each engine a child process that
+   writes with ``sync_every_write=True`` until it has acknowledged 1,000
+   writes and is SIGKILLed: the reopen must find every acknowledged id.
 
 Timing uses CUDA events over back-to-back calls, and ``torch.profiler``
 for the device time of each kernel per call: B1 by stage and its library
@@ -1026,6 +1052,10 @@ def phase_main_path(dev, seed, n_docs):
         log(f"  search {mode}{tier}: p50 {mp[mode + '_p50_ms']:.3f} ms "
             f"p99 {mp[mode + '_p99_ms']:.3f} ms (first {mp[mode + '_first_ms']:.3f} ms, "
             f"max after it {mp[mode + '_max_after_first_ms']:.3f} ms)")
+    # phase 6 stores this corpus again, most of it with these embeddings
+    nodes = db.storage.batch_get_nodes([f"d{i}" for i in range(n_docs)])
+    corpus = (docs, queries, np.asarray([n.embedding for n in nodes], np.float32))
+    del nodes
     db.close()
     # each path's launches, its counts set to 0 just before it
     path_launches = {"one_at_a_time": launches, "concurrent": conc["launches"],
@@ -1035,7 +1065,7 @@ def phase_main_path(dev, seed, n_docs):
             "cosine_topk": brute["cosine_topk_launches"],
             "flash_attention": brute["flash_attention_launches"]}
         path_launches["concurrent_exact_tier"] = conc_exact["launches"]
-    return path_launches, vecs, graph
+    return path_launches, vecs, graph, corpus
 
 
 def check_walk_answers(fused, trios, queries, qvs, host_lex, exact30):
@@ -1860,6 +1890,480 @@ def phase_index(dev, seed, n_rows, card):
     return rows
 
 
+# -- phase 6: durable ------------------------------------------------------
+
+DURABLE_QUEUE_DOCS = 1024  # stored without an embedding: the embed queue's (B2)
+DURABLE_FORGET = 64
+DURABLE_KILL_WRITES = 1000
+DURABLE_CODEC_RECORDS = 10_000
+DURABLE_MEM_SLACK = 1 << 20  # memory_allocated after the close, against before
+# a child process that writes until it is killed, printing each id once
+# its store returned (the write is acknowledged)
+_KILL_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import nornicdb_tpu_torch as nt
+from nornicdb_tpu_torch.embed.embedder import HashEmbedder
+db = nt.open(sys.argv[2], device="cpu", engine=sys.argv[3], sync_every_write=True,
+             auto_embed=False, embedder=HashEmbedder())
+print("open", flush=True)
+for i in range(10 ** 7):
+    db.store(f"kill test write {i}", node_id=f"k{i}")
+    print(f"k{i}", flush=True)
+"""
+
+
+def dir_bytes(path):
+    """Bytes on disk per file under ``path``, by path relative to it."""
+    out = {}
+    for root, _, names in os.walk(path):
+        for name in names:
+            full = os.path.join(root, name)
+            out[os.path.relpath(full, path)] = os.path.getsize(full)
+    return dict(sorted(out.items()))
+
+
+def reset_counts():
+    from nornicdb_tpu_torch.ops.attention import flash_attention
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+
+    flash_attention.launches = 0
+    fused_cosine_topk.launches = 0
+    fused_cosine_topk.launch_sizes.clear()
+
+
+def read_counts():
+    from nornicdb_tpu_torch.ops.attention import flash_attention
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+
+    return {"flash_attention": flash_attention.launches,
+            "cosine_topk": fused_cosine_topk.launches}
+
+
+def device_memory():
+    """memory_allocated after a collection, with the caches that hold no
+    data of the program (free blocks, cuBLAS workspaces) emptied."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def durable_modes(db, queries, tag):
+    """64 queries in each of vector, text, hybrid on the exact tier (walk
+    off) and hybrid on the walk tier, after a cache invalidation each.
+    The fused tier's snapshot and walk graph are waited for first, as in
+    phase 4. Returns (answers, latencies, first-query and wait times,
+    walk trios, fused-tier counts of each hybrid block)."""
+    import torch
+
+    svc = db.search
+    answers, lat, first = {}, {}, {}
+
+    def block(label, mode):
+        invalidate_cache(svc, f"before the {tag} {label} queries")
+        ts = []
+        for q in queries:
+            t = time.perf_counter()
+            answers[(label, q)] = [(h["id"], h["score"])
+                                   for h in db.recall(q, limit=10, mode=mode)]
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        lat[label] = ts
+
+    for mode in ("vector", "text"):
+        block(mode, mode)
+    # the first hybrid query starts the fused tier's snapshot build (the
+    # host path answers it); the next starts the walk graph's
+    invalidate_cache(svc, f"before the {tag} first hybrid query")
+    t = time.perf_counter()
+    db.recall(queries[0], limit=10, mode="hybrid")
+    first["hybrid_first_ms"] = (time.perf_counter() - t) * 1e3
+    fused, first["snapshot_wait_s"] = wait_for_snapshot(svc)
+    invalidate_cache(svc, f"before the {tag} query that starts the walk graph's build")
+    t = time.perf_counter()
+    db.recall(queries[1], limit=10, mode="hybrid")
+    first["hybrid_first_fused_ms"] = (time.perf_counter() - t) * 1e3
+    _, first["graph_wait_s"] = wait_for_graph(fused)
+    first["graph_build_s"] = fused.cagra.build_s
+    counts = {}
+    walk_min_n = fused.walk_min_n
+    c0 = dict(fused.counts)
+    fused.walk_min_n = None
+    try:
+        block("hybrid_exact", "hybrid")
+    finally:
+        fused.walk_min_n = walk_min_n
+    counts["hybrid_exact"] = {k: n - c0.get(k, 0) for k, n in fused.counts.items()
+                              if n != c0.get(k, 0)}
+    recorder = TrioRecorder(svc)
+    c0 = dict(fused.counts)
+    try:
+        block("hybrid_walk", "hybrid")
+    finally:
+        del svc._fused_hybrid_trio  # the recorder holds the service
+    counts["hybrid_walk"] = {k: n - c0.get(k, 0) for k, n in fused.counts.items()
+                             if n != c0.get(k, 0)}
+    return answers, lat, first, dict(recorder.rows), counts
+
+
+def durable_kill(dev, engine, root):
+    """A child stores with sync_every_write=True until it has acknowledged
+    DURABLE_KILL_WRITES writes and is SIGKILLed mid-stream; the parent
+    reopens the dir and must find every acknowledged id."""
+    import signal
+    import tempfile
+
+    import nornicdb_tpu_torch as nt
+    from nornicdb_tpu_torch.embed.embedder import HashEmbedder
+
+    d = tempfile.mkdtemp(prefix=f"kill-{engine}-", dir=root)
+    proc = subprocess.Popen([sys.executable, "-c", _KILL_CHILD, HERE, d, engine],
+                            stdout=subprocess.PIPE, text=True)
+    acked = []
+    try:
+        if proc.stdout.readline().strip() != "open":
+            raise AssertionError(f"the {engine} kill child did not open its store")
+        t0 = time.perf_counter()
+        while len(acked) < DURABLE_KILL_WRITES:
+            line = proc.stdout.readline().strip()
+            if not line:
+                raise AssertionError(f"the {engine} kill child died after {len(acked)} writes")
+            acked.append(line)
+        write_s = time.perf_counter() - t0
+        os.kill(proc.pid, signal.SIGKILL)
+    finally:
+        proc.kill()
+        proc.wait()
+    t = time.perf_counter()
+    db = nt.open(d, device=dev, auto_embed=False, embedder=HashEmbedder())
+    reopen_s = time.perf_counter() - t
+    try:
+        kind = type(db._base).__name__
+        missing = [i for i in acked if not db.storage.has_node(i)]
+        stored = db.storage.count_nodes()
+        repair = (db._base.repaired if kind == "DiskEngine"
+                  else db._base.replay_result.torn_tail_repaired)
+    finally:
+        db.close()
+    out = {"engine": kind, "acknowledged": len(acked), "found": len(acked) - len(missing),
+           "stored": stored, "write_s": write_s, "reopen_s": reopen_s,
+           "torn_tail_repaired": repair}
+    log(f"  kill ({engine}): {len(acked)} acknowledged writes in {write_s:.2f} s "
+        f"(sync_every_write), SIGKILL, reopened as {kind} in {reopen_s:.3f} s: "
+        f"{out['found']} found, {stored} stored, torn tail repaired {repair}")
+    if missing or kind != {"native": "DiskEngine", "python": "DurableEngine"}[engine]:
+        raise AssertionError(f"kill ({engine}): {len(missing)} acknowledged writes lost: {out}")
+    return out
+
+
+def durable_python(dev, docs, emb, root):
+    """The same nodes with their embeddings through the WAL + snapshot
+    engine, no search: close (snapshot), reopen (snapshot load + tail
+    replay), every id read back."""
+    import tempfile
+
+    import nornicdb_tpu_torch as nt
+    from nornicdb_tpu_torch.embed.embedder import HashEmbedder
+    from nornicdb_tpu_torch.storage.wal_engine import DurableEngine
+
+    d = tempfile.mkdtemp(prefix="python-", dir=root)
+    n = len(docs)
+    db = nt.open(d, device=dev, engine="python", auto_embed=False, embedder=HashEmbedder())
+    t = time.perf_counter()
+    for i, text in enumerate(docs):
+        db.store(text, node_id=f"d{i}", embedding=emb[i].tolist())
+    store_s = time.perf_counter() - t
+    wal = db._base.wal.counters
+    auto_snapshots = db._base.snapshots
+    t = time.perf_counter()
+    db.close()
+    close_s = time.perf_counter() - t
+    on_disk = dir_bytes(d)
+    t = time.perf_counter()
+    db = nt.open(d, device=dev, auto_embed=False, embedder=HashEmbedder())
+    reopen_s = time.perf_counter() - t
+    try:
+        base = db._base
+        if not isinstance(base, DurableEngine):
+            raise AssertionError(f"the Python engine's dir reopened as {type(base).__name__}")
+        rr = base.replay_result
+        t = time.perf_counter()
+        got = db.storage.batch_get_nodes([f"d{i}" for i in range(n)])
+        read_s = time.perf_counter() - t
+        missing = sum(1 for g in got if g is None)
+        bad = [i for i in range(0, n, 997)
+               if got[i] is None or got[i].embedding != emb[i].tolist()]
+        count = db.storage.count_nodes()
+    finally:
+        db.close()
+    out = {"nodes": n, "store_s": store_s, "store_nodes_per_s": n / store_s,
+           "wal_appends": wal["appends"], "wal_append_s": wal["append_s"],
+           "auto_snapshots": auto_snapshots, "close_s": close_s, "reopen_s": reopen_s,
+           "engine_open_s": base.open_s, "replayed_records": rr.records_applied,
+           "snapshot_seq": rr.snapshot_seq, "read_back_s": read_s, "bytes": on_disk}
+    log(f"  python engine: stored {n} nodes in {store_s:.2f} s ({n / store_s:.0f}/s, "
+        f"{auto_snapshots} auto-compaction snapshot(s)), close (snapshot) {close_s:.2f} s, "
+        f"reopen {reopen_s:.2f} s (snapshot load + replay {base.open_s:.2f} s, "
+        f"{rr.records_applied} records replayed over snapshot seq {rr.snapshot_seq}), "
+        f"read back {n - missing} ids in {read_s:.2f} s; on disk {on_disk}")
+    if missing or bad or count != n:
+        raise AssertionError(f"python engine: {missing} ids missing, {len(bad)} embeddings "
+                             f"differ, {count} of {n} counted")
+    return out
+
+
+def phase_durable(dev, corpus):
+    """Phase 6 (module docstring): phase 4's corpus stored durably through
+    the native engine, searched, partly forgotten, closed and reopened on
+    the card; then the Python engine, and a SIGKILLed writer per engine.
+    Returns the kernel launches of the durable path (native engine, from
+    the open to the last query after the reopen)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import nornicdb_tpu_torch as nt
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32, TIER_WALK_F32
+    from nornicdb_tpu_torch.storage import codec
+    from nornicdb_tpu_torch.storage.disk import DiskEngine
+
+    docs, queries, emb = corpus
+    n = len(docs)
+    n_explicit = max(n - DURABLE_QUEUE_DOCS, 0)
+    out = {"docs": n, "explicit_embeddings": n_explicit, "queue_docs": n - n_explicit}
+    REPORT["durable"] = out
+    log(f"durable: {n} docs ({n_explicit} with phase 4's embeddings, {n - n_explicit} "
+        f"through the embed queue)")
+
+    # the record codec's rate on node records of this corpus
+    recs = [{"id": f"neo4j:d{i}", "labels": ["Memory"], "properties": {"content": docs[i]},
+             "created_at": 1, "updated_at": 1, "embedding": emb[i].tolist()}
+            for i in range(min(DURABLE_CODEC_RECORDS, n))]
+    t = time.perf_counter()
+    packed = [codec.pack(r) for r in recs]
+    pack_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = [codec.unpack(b) for b in packed]
+    unpack_s = time.perf_counter() - t
+    mb = sum(len(b) for b in packed) / 1e6
+    if back != recs:
+        raise AssertionError("the codec does not round-trip node records")
+    out["codec"] = {"records": len(recs), "mb": mb, "pack_mb_per_s": mb / pack_s,
+                    "unpack_mb_per_s": mb / unpack_s,
+                    "record_bytes": len(packed[0])}
+    log(f"  codec: {len(recs)} node records ({mb:.1f} MB, {len(packed[0])} bytes each): "
+        f"pack {mb / pack_s:.1f} MB/s, unpack {mb / unpack_s:.1f} MB/s")
+    del recs, packed, back
+
+    # the walk tier at the forgotten corpus's size: the live count falls
+    # under the 100,000 floor after the forgets
+    saved_env = {k: os.environ.get(k) for k in ("NORNICDB_HYBRID_WALK_MIN_N",)}
+    os.environ["NORNICDB_HYBRID_WALK_MIN_N"] = str(max(n // 2, 1))
+    root = os.path.join(HERE, "_durable")
+    os.makedirs(root, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="native-", dir=root)
+    try:
+        mem0 = device_memory()
+        reset_counts()
+        t0 = time.perf_counter()
+        db = nt.open(d, device=dev, engine="native")
+        open_s = time.perf_counter() - t0
+        if not isinstance(db._base, DiskEngine):
+            raise AssertionError(f"engine='native' opened {type(db._base).__name__}")
+        t = time.perf_counter()
+        for i in range(n_explicit):
+            db.store(docs[i], node_id=f"d{i}", embedding=emb[i].tolist())
+        store_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for i in range(n_explicit, n):
+            db.store(docs[i], node_id=f"d{i}")
+        db.flush()
+        queue_s = time.perf_counter() - t
+        embedded = (db._embed_queue.embedded_count, db._embed_queue.failed_count)
+        b2_ingest = read_counts()["flash_attention"]
+        if embedded != (n - n_explicit, 0) or b2_ingest < 1:
+            raise AssertionError(f"the embed queue embedded and failed {embedded}, B2 "
+                                 f"launched {b2_ingest}")
+        t = time.perf_counter()
+        svc = db.search  # backfill + the HNSW build
+        first_search_s = time.perf_counter() - t
+        if svc.stats.strategy != "hnsw" or svc.stats.hnsw_builds != 1 or len(svc.vectors) != n:
+            raise AssertionError(f"the first search: strategy {svc.stats.strategy}, "
+                                 f"{svc.stats.hnsw_builds} HNSW builds, {len(svc.vectors)} vectors")
+        saves_after_build = dict(svc.save_stats)
+        log(f"  native engine: opened in {open_s:.3f} s, stored {n_explicit} docs with "
+            f"embeddings in {store_s:.2f} s ({n_explicit / store_s:.0f}/s), {n - n_explicit} "
+            f"through the queue + flush in {queue_s:.2f} s (B2 launches {b2_ingest}); first "
+            f"search (backfill + HNSW build) {first_search_s:.2f} s, "
+            f"{saves_after_build['saves']} debounced saves meanwhile "
+            f"({saves_after_build['save_s']:.2f} s in all)")
+        ans0, lat0, first0, _, counts0 = durable_modes(db, queries, "first")
+        # forget ids the answers name
+        forget = []
+        for (label, _), hits in ans0.items():
+            for i, _ in hits[:2]:
+                if i not in forget and len(forget) < DURABLE_FORGET:
+                    forget.append(i)
+        for i in range(n):
+            if len(forget) >= DURABLE_FORGET:
+                break
+            if f"d{i}" not in forget:
+                forget.append(f"d{i}")
+        t = time.perf_counter()
+        for i in forget:
+            db.forget(i)
+        forget_s = time.perf_counter() - t
+        saves_at_forget = svc.save_stats["saves"]
+        before, lat1, _, _, counts1 = durable_modes(db, queries, "before-close")
+        gone = set(forget)
+        for hits in before.values():
+            if gone & {i for i, _ in hits}:
+                raise AssertionError("a forgotten id was answered before the close")
+        svc_saves = dict(svc.save_stats)
+        save_stats = svc.save_stats  # the close's save lands here too
+        del svc
+        t = time.perf_counter()
+        db.close()
+        close_s = time.perf_counter() - t
+        final = dict(save_stats)
+        on_disk = dir_bytes(d)
+        del db
+        mem_after = device_memory()
+        split = final["last_split_s"]
+        closing = final["saves"] - svc_saves["saves"]
+        log(f"  close: {close_s:.2f} s, {closing} index save in it; the last save "
+            f"{split['total']:.2f} s (vectors {split['vectors']:.2f}, HNSW {split['hnsw']:.2f}, "
+            f"BM25 + meta {split['bm25_meta']:.2f}); {svc_saves['saves']} saves before the close "
+            f"({svc_saves['timer_saves']} by the debounce timer, {svc_saves['save_s']:.2f} s "
+            f"in all, longest {svc_saves['max_save_s']:.2f} s); memory_allocated {mem_after} "
+            f"against {mem0} before the phase")
+        if abs(mem_after - mem0) > DURABLE_MEM_SLACK:
+            raise AssertionError(f"memory_allocated after the close {mem_after} vs {mem0} "
+                                 f"before the phase")
+        if final["failed"] or final["saves"] <= saves_at_forget:
+            raise AssertionError(f"index saves: no save after the forgets, or one failed: {final}")
+
+        # -- reopen -------------------------------------------------------
+        t0 = time.perf_counter()
+        db = nt.open(d, device=dev)
+        reopen_open_s = time.perf_counter() - t0
+        base = db._base
+        if not isinstance(base, DiskEngine):
+            raise AssertionError(f"the dir reopened as {type(base).__name__}")
+        engine_open_s = base.open_s
+        b1_at_reopen = read_counts()["cosine_topk"]
+        t = time.perf_counter()
+        svc = db.search  # index load + the resume scan
+        search_open_s = time.perf_counter() - t
+        ls = dict(svc.load_stats)
+        if svc.stats.hnsw_builds != 0 or svc.hnsw is None or ls.get("reindexed") != 0:
+            raise AssertionError(f"the reopen rebuilt: hnsw_builds {svc.stats.hnsw_builds}, "
+                                 f"load {ls}")
+        count = db.storage.count_nodes()
+        if count != n - len(forget):
+            raise AssertionError(f"count_nodes {count} after the reopen, want {n - len(forget)}")
+        after, lat2, first2, trios, counts2 = durable_modes(db, queries, "after-reopen")
+        db.flush()
+        if db._embed_queue.embedded_count or db._embed_queue.failed_count:
+            raise AssertionError(f"the embed queue processed {db._embed_queue.embedded_count} "
+                                 "nodes after the reopen")
+        path = read_counts()
+        b1_reopen = path["cosine_topk"] - b1_at_reopen
+        fused = svc._fused
+        g = fused.cagra._graph
+        graph_b1 = g["n"] // 1024 + (1 if g["n"] % 1024 else 0)
+        if b1_reopen < graph_b1 + len(queries):
+            raise AssertionError(f"B1 launched {b1_reopen} times after the reopen, fewer than "
+                                 f"the graph build's {graph_b1} + the exact tier's {len(queries)}")
+        if counts2["hybrid_exact"] != {TIER_BRUTE_F32: len(queries), "dispatch": len(queries)} \
+                or counts2["hybrid_walk"] != {TIER_WALK_F32: len(queries),
+                                              "walk_dispatch": len(queries)}:
+            raise AssertionError(f"hybrid tiers after the reopen: {counts2}")
+        for (label, qq), hits in after.items():
+            if gone & {i for i, _ in hits}:
+                raise AssertionError(f"a forgotten id was answered after the reopen ({label})")
+            if label != "hybrid_walk" and hits != before[(label, qq)]:
+                raise AssertionError(f"{label} answer for {qq!r} after the reopen differs from "
+                                     "the one before the close")
+        # the walk: a graph built anew over the compacted rows
+        qvs = np.asarray(db._embedder.embed_batch(queries), np.float32)
+        host_lex = {qq: svc.bm25.search(qq, 30) for qq in queries}
+        exact30 = {qq: svc.vectors.search_batch(qv[None, :], 30)[0]
+                   for qq, qv in zip(queries, qvs)}
+        walk = check_walk_answers(fused, trios, queries, qvs, host_lex, exact30)
+        same = [hits_agree(after[("hybrid_walk", qq)], before[("hybrid_walk", qq)],
+                           TOPK_SCORE_ATOL) for qq in queries]
+        walk["agree_with_before_close"] = float(np.mean(same))
+        walk["recall_at_10_vs_before_close"] = float(np.mean(
+            [recall10(after[("hybrid_walk", qq)], before[("hybrid_walk", qq)])
+             for qq in queries]))
+        log(f"  walk after the reopen: {walk['agree_with_before_close']:.4f} of answers "
+            f"tie-aware (within {TOPK_SCORE_ATOL}) those before the close, recall@10 against "
+            f"them {walk['recall_at_10_vs_before_close']:.4f}")
+        if walk["recall_at_10_vs_before_close"] < RECALL_MIN:
+            raise AssertionError(f"walk answers after the reopen: {walk}")
+        del fused, g, svc, trios
+        t = time.perf_counter()
+        db.close()
+        close2_s = time.perf_counter() - t
+        del db, base
+        recovery = {
+            "db_open_s": reopen_open_s, "engine_open_s": engine_open_s,
+            "search_open_s": search_open_s, "index_load": ls,
+            "first_query_ms": {"vector": lat2["vector"][0], "text": lat2["text"][0],
+                               **first2},
+        }
+        out.update({
+            "open_s": open_s, "store_s": store_s, "store_docs_per_s": n_explicit / store_s,
+            "queue_flush_s": queue_s, "first_search_s": first_search_s,
+            "saves_during_build": saves_after_build, "saves_before_close": svc_saves,
+            "forget": len(forget), "forget_s": forget_s,
+            "close_s": close_s, "final_save": final, "close_after_reopen_s": close2_s,
+            "bytes": on_disk,
+            "memory_allocated": {"before": mem0, "after_close": mem_after},
+            "recovery": recovery, "launches": path, "b1_after_reopen": b1_reopen,
+            "graph_b1_launches": graph_b1, "walk": walk,
+            "first_ms": {"first": first0, "after_reopen": first2},
+            "fused_counts": {"first": counts0, "before_close": counts1, "after_reopen": counts2},
+        })
+        for tag, lat in (("first", lat0), ("before_close", lat1), ("after_reopen", lat2)):
+            out[f"p50_ms_{tag}"] = {m: float(np.percentile(v, 50)) for m, v in lat.items()}
+        log(f"  reopen: DB open {reopen_open_s:.3f} s (segment scan "
+            f"{recovery['engine_open_s']:.3f} s), search open {search_open_s:.2f} s (BM25 "
+            f"{ls['bm25_s']:.2f} s, vectors read {ls['vectors_read_s']:.2f} s, device upload "
+            f"{ls['vectors_upload_s']:.3f} s, HNSW {ls['hnsw_s']:.2f} s, resume scan "
+            f"{search_open_s - ls['total_s']:.2f} s; {ls['reindexed']} reindexed); first "
+            f"query vector {lat2['vector'][0]:.1f} ms, text {lat2['text'][0]:.1f} ms, hybrid "
+            f"{first2['hybrid_first_ms']:.1f} ms (snapshot wait {first2['snapshot_wait_s']:.2f} "
+            f"s, graph wait {first2['graph_wait_s']:.2f} s); B1 {b1_reopen} launches after the "
+            f"reopen ({graph_b1} the graph build's); close {close2_s:.2f} s")
+        log(f"  answers after the reopen: vector, text and exact-tier hybrid bitwise those "
+            f"before the close ({len(queries)} queries each), {len(forget)} forgotten ids "
+            f"answered nowhere, count_nodes {count}; on disk {on_disk}")
+        log(f"durable path launches: {path}")
+        if min(path.values()) < 1:
+            raise AssertionError(f"a kernel of the durable path never launched: {path}")
+
+        out["python_engine"] = durable_python(dev, docs, emb, root)
+        out["kill"] = {e: durable_kill(dev, e, root) for e in ("native", "python")}
+        return path
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # -- driver ----------------------------------------------------------------
 
 
@@ -1877,11 +2381,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
+    phase_s = REPORT["phase_s"] = {}
+
+    def lap(name):
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+
     dev = phase_device()
     card = REPORT["card"]
     phase_build()
+    lap("build")
     phase_kernels(dev, args.seed)
-    path_launches, vecs, graph = phase_main_path(dev, args.seed, args.docs)
+    lap("kernels")
+    path_launches, vecs, graph, corpus = phase_main_path(dev, args.seed, args.docs)
 
     # each kernel timed at the shape the main path gives it
     mp = REPORT["main_path"]
@@ -1908,7 +2419,12 @@ def main() -> int:
         f"below the HNSW threshold), flash_attention "
         f"{mp['launches_per_query']['flash_attention']:.4f} (per text through the encoder)")
 
+    lap("main_path")
     phase_index(dev, args.seed, args.index_rows, card)
+    lap("index")
+    path_launches["durable"] = phase_durable(dev, corpus)
+    del corpus
+    lap("durable")
     REPORT["total_s"] = time.perf_counter() - t_start
 
     def path_sum(name):
@@ -1945,7 +2461,8 @@ def main() -> int:
     if REPORT.get("profiler_lost"):
         log(f"profiler: {len(REPORT['profiler_lost'])} split(s) timed by CUDA events instead: "
             f"{json.dumps(REPORT['profiler_lost'])}")
-    log(f"total {REPORT['total_s']:.1f} s")
+    log(f"total {REPORT['total_s']:.1f} s; by phase (s) "
+        f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,48 @@
-"""DB facade: open / store / flush / search / recall (counterpart of
-``nornicdb_tpu/db.py:DB``, in-memory).
+"""DB facade: open / store / flush / search / recall / forget / close
+(counterpart of ``nornicdb_tpu/db.py:DB``).
 
-Nodes land in an in-memory engine behind the listener layer; the embed
-queue embeds them with the default embedder (the committed mini encoder,
-or ``HashEmbedder`` when no checkpoint exists) and the search service
-indexes them. Disk engines, WAL, encryption, replication, Cypher and the
-graph surfaces wait for later slices.
+The engine chain is the reference's: a base engine (``MemoryEngine``
+without a data dir; with one, the native KV ``DiskEngine`` or the WAL +
+snapshot ``DurableEngine``, chosen by ``engine``), then ``AsyncEngine``
+when ``async_writes``, then ``NamespacedEngine(chain, "neo4j")``, then
+the listener layer. So a data dir holds the reference's files, and each
+package opens the other's. The embed queue embeds stored nodes with the
+default embedder (the committed mini encoder, or ``HashEmbedder`` when no
+checkpoint exists), whose identity a data dir records in
+``embedder.json`` and keeps on reopen. The search service indexes them
+and, with a data dir, persists its indexes under ``data_dir/search``.
+Encryption at rest, replication, Cypher and the graph surfaces wait for
+later slices: ``passphrase`` and ``replication`` raise
+``NotPortedError``.
 """
 
 from __future__ import annotations
 
+import io
+import json
+import logging
+import os
 import threading
 import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device
-from nornicdb_tpu_torch.storage import ListenableEngine, MemoryEngine, Node
+from nornicdb_tpu_torch.errors import NotPortedError
+from nornicdb_tpu_torch.storage import (
+    DEFAULT_DB,
+    AsyncEngine,
+    DurableEngine,
+    Engine,
+    ListenableEngine,
+    MemoryEngine,
+    NamespacedEngine,
+    Node,
+    make_persistent_engine,
+)
+
+log = logging.getLogger(__name__)
+
+ENGINES = ("auto", "native", "python", "memory")
 
 
 class DB:
@@ -23,17 +50,52 @@ class DB:
 
     def __init__(
         self,
+        data_dir: Optional[str] = None,
         device: DeviceLike = None,
+        async_writes: bool = False,
+        sync_every_write: bool = False,
         embedder: Optional[Any] = None,
         auto_embed: bool = True,
+        engine: str = "auto",
+        replication: Optional[Any] = None,
+        passphrase: Optional[str] = None,
     ):
         self.device = resolve_device(device)
-        self._listenable = ListenableEngine(MemoryEngine())
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}")
+        if engine in ("native", "python") and not data_dir:
+            raise ValueError(f"engine={engine!r} requires data_dir")
+        if passphrase is not None:
+            raise NotPortedError("encryption at rest (passphrase) is not ported yet")
+        if replication is not None:
+            raise NotPortedError("replication is not ported yet")
+        self._data_dir = data_dir if engine != "memory" else None
+        if self._data_dir:
+            if engine == "python":
+                base: Engine = DurableEngine(data_dir, sync_every_write=sync_every_write)
+            elif engine == "native":
+                from nornicdb_tpu_torch.storage.disk import DiskEngine
+
+                base = DiskEngine(data_dir, sync_every_write=sync_every_write)
+            else:
+                base = make_persistent_engine(data_dir, sync_every_write=sync_every_write)
+        else:
+            base = MemoryEngine()
+        self._base = base
+        chain: Engine = AsyncEngine(base) if async_writes else base
+        # the listener layer sits on top, so callbacks carry logical ids
+        self._listenable = ListenableEngine(NamespacedEngine(chain, DEFAULT_DB))
         self.storage = self._listenable
         self._lock = threading.Lock()
         self._closed = False
         self._search = None
-        self._embedder = embedder if embedder is not None else self._default_embedder()
+        if embedder is None:
+            try:
+                embedder = self._default_embedder()
+            except BaseException:
+                self._listenable.close()  # release the open store
+                raise
+        self._embedder = embedder
         self._embed_queue = None
         if auto_embed:
             from nornicdb_tpu_torch.embed.queue import EmbedQueue
@@ -44,13 +106,69 @@ class DB:
             self._embed_queue.start()
 
     def _default_embedder(self):
-        """The committed mini encoder behind an LRU; ``HashEmbedder``
-        when the checkpoint is absent."""
+        """The default embedder behind an LRU: the committed mini encoder,
+        or ``HashEmbedder`` when the checkpoint is absent or
+        ``NORNICDB_TPU_EMBEDDER=hash`` forces it. A data dir records the
+        choice (``embedder.json``: kind and dims) and keeps it on reopen,
+        as the reference's does, so a store keeps its embedding space. A
+        sidecar that cannot be read raises (unless hash is forced), and
+        the ``hf`` kind (imported weights) raises ``NotPortedError``."""
         from nornicdb_tpu_torch.embed.embedder import CachedEmbedder, HashEmbedder
         from nornicdb_tpu_torch.models.checkpoint import load_default_embedder
 
-        inner = load_default_embedder(self.device)
-        return CachedEmbedder(inner if inner is not None else HashEmbedder())
+        env_force = os.environ.get("NORNICDB_TPU_EMBEDDER", "")
+        sidecar = os.path.join(self._data_dir, "embedder.json") if self._data_dir else None
+        recorded = None
+        sidecar_unreadable = False
+        if sidecar and os.path.exists(sidecar):
+            try:
+                with io.open(sidecar, encoding="utf-8") as f:
+                    recorded = json.load(f)
+            except Exception as exc:
+                # a corrupt sidecar is not "no recorded identity": the
+                # default embedder could write vectors of another space
+                sidecar_unreadable = True
+                if env_force != "hash":
+                    raise ValueError(
+                        f"embedder sidecar {sidecar} is unreadable ({exc}); fix or "
+                        "remove the file to re-bind the store's embedding space, or "
+                        "force NORNICDB_TPU_EMBEDDER=hash to open anyway") from exc
+                log.error("embedder sidecar %s is unreadable (%s); forced hash "
+                          "embedder is active", sidecar, exc)
+        model_dir = os.environ.get("NORNICDB_TPU_MODEL_DIR", "")
+        if env_force == "hash":
+            want = "hash"  # the escape hatch always wins
+        elif model_dir and os.path.exists(os.path.join(model_dir, "config.json")):
+            want = "hf"
+        else:
+            want = "encoder-mini"
+        kind = want
+        if recorded and env_force != "hash":
+            kind = recorded.get("kind", want)
+        if kind == "hf":
+            raise NotPortedError(
+                "the hf embedder (imported weights) is not ported yet; this "
+                "store's embedding space needs it")
+        inner = None
+        if kind == "encoder-mini":
+            inner = load_default_embedder(self.device)
+            if inner is None:
+                log.warning("the encoder checkpoint is missing; falling back to the "
+                            "hash embedder (another embedding space)")
+                kind = "hash"
+        if kind == "hash":
+            # recorded dims apply only to a hash store
+            dims = 256
+            if recorded and recorded.get("kind") == "hash":
+                dims = int(recorded.get("dims", 256))
+            inner = HashEmbedder(dims=dims)
+        if recorded and recorded.get("kind") != kind:
+            log.warning("store was created with embedder %r but %r is active; "
+                        "reindex to migrate", recorded.get("kind"), kind)
+        if sidecar and recorded is None and not sidecar_unreadable:
+            with io.open(sidecar, "w", encoding="utf-8") as f:
+                json.dump({"kind": kind, "dims": inner.dims}, f)
+        return CachedEmbedder(inner)
 
     @property
     def search(self):
@@ -60,8 +178,10 @@ class DB:
             if self._search is None:
                 from nornicdb_tpu_torch.search.service import SearchService
 
+                persist = (os.path.join(self._data_dir, "search")
+                           if self._data_dir else None)
                 svc = SearchService(self.storage, embedder=self._embedder,
-                                    device=self.device)
+                                    device=self.device, persist_dir=persist)
                 # publish before the backfill so an embed finishing
                 # meanwhile lands through _on_embedded (index_node is
                 # idempotent)
@@ -114,6 +234,12 @@ class DB:
         """Hybrid search over stored memories."""
         return self.search.search(query, limit=limit, **kw)
 
+    def forget(self, node_id: str) -> None:
+        """Delete a node (and its edges) and drop it from the indexes."""
+        self.storage.delete_node(node_id)
+        if self._search is not None:
+            self._search.remove_node(node_id)
+
     def flush(self) -> None:
         """Wait until every stored node is embedded (and indexed)."""
         if self._embed_queue is not None and not self._embed_queue.drain(None):
@@ -121,13 +247,19 @@ class DB:
         self.storage.flush()
 
     def close(self) -> None:
+        """Stop the embed queue, make the search service's final index
+        save, then close storage (which snapshots the Python engine)."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
-        if self._embed_queue is not None:
-            self._embed_queue.stop()
-        self.storage.close()
+        try:
+            if self._embed_queue is not None:
+                self._embed_queue.stop()
+            if self._search is not None:
+                self._search.close()
+        finally:
+            self.storage.close()
 
     def __enter__(self) -> "DB":
         return self
@@ -136,6 +268,7 @@ class DB:
         self.close()
 
 
-def open(device: DeviceLike = None, **kw) -> DB:  # noqa: A001
-    """Open an in-memory database on ``device`` (None = cuda)."""
-    return DB(device=device, **kw)
+def open(data_dir: Optional[str] = None, device: DeviceLike = None, **kw) -> DB:  # noqa: A001
+    """Open a database on ``device`` (None = cuda): durable in
+    ``data_dir``, in memory without one."""
+    return DB(data_dir=data_dir, device=device, **kw)

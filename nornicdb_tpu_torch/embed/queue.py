@@ -1,9 +1,13 @@
 """Background embed queue: embeds un-embedded nodes and triggers indexing
-(counterpart of ``nornicdb_tpu/embed/queue.py``; the periodic rescan and
-the clustering trigger wait for a later slice).
+(counterpart of ``nornicdb_tpu/embed/queue.py``; the clustering trigger
+waits for a later slice).
 
 It is a ``MutationListener``: the listenable engine feeds it node ids,
 one worker thread embeds them in batches and writes the vectors back.
+Every ``rescan_interval_s`` (900 s; 0 turns it off) a second thread
+sweeps storage for nodes that missed the event path; like the
+reference's, it does not sweep at start, so a reopened store is not
+scanned.
 """
 
 from __future__ import annotations
@@ -41,19 +45,23 @@ class EmbedQueue(MutationListener):
         on_embedded: Optional[Callable[[Node], None]] = None,
         batch_size: int = 16,
         max_retries: int = 3,
+        rescan_interval_s: float = 900.0,
     ):
         self.storage = storage
         self.embedder = embedder
         self.on_embedded = on_embedded
         self.batch_size = batch_size
         self.max_retries = max_retries
+        self.rescan_interval_s = rescan_interval_s
         self._q: "queue.Queue[Optional[str]]" = queue.Queue()
         self._pending = set()
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._worker: Optional[threading.Thread] = None
+        self._rescanner: Optional[threading.Thread] = None
         self.embedded_count = 0
         self.failed_count = 0
+        self.rescans = 0
 
     # -- MutationListener ------------------------------------------------
 
@@ -84,12 +92,29 @@ class EmbedQueue(MutationListener):
                 target=self._run, name="embed-queue", daemon=True
             )
             self._worker.start()
+        if self._rescanner is None and self.rescan_interval_s > 0:
+            self._rescanner = threading.Thread(
+                target=self._rescan_loop, name="embed-rescan", daemon=True
+            )
+            self._rescanner.start()
 
     def stop(self) -> None:
         self._stop.set()
         self._q.put(None)
-        if self._worker is not None:
-            self._worker.join(timeout=10)
+        for t in (self._worker, self._rescanner):
+            if t is not None:
+                t.join(timeout=10)
+
+    def _rescan_loop(self) -> None:
+        """Enqueue every node that missed the event path, once per
+        interval."""
+        while not self._stop.wait(self.rescan_interval_s):
+            try:
+                for node in self.storage.all_nodes():
+                    self.on_node_upsert(node)
+                self.rescans += 1
+            except Exception:
+                logger.exception("rescan failed")
 
     def drain(self, timeout_s: Optional[float] = 60.0) -> bool:
         """Block until all currently-pending nodes are embedded (no limit

@@ -10,7 +10,7 @@ memory report (``-Xptxas -v``) is kept beside each library as a
 ``.log``.
 
 Host code in ``csrc/*.cpp`` (``HOST_SOURCES``: the HNSW build and query
-kernels) compiles the same way with the host compiler, ``c++``, into a
+kernels, and the native KV store) compiles the same way with the host compiler, ``c++``, into a
 library keyed also by the CPU it was built on, since ``-march=native``
 code must not run on another instruction set (``host_library``).
 """
@@ -38,6 +38,7 @@ SOURCES = {
 
 HOST_SOURCES = {
     "hnsw_host": "hnsw_host.cpp",
+    "kv_host": "kv_host.cpp",
 }
 
 # the JAX package's flags for the same source, so both build one graph

@@ -3,8 +3,9 @@ of ``nornicdb_tpu/search/bm25.py`` the main path uses (index, remove,
 search, idf, compaction), the seeds of the HNSW build (``seed_doc_ids``)
 and what the device snapshot (``search/device_bm25.py``) reads: the
 mutation generation, the capped changelog, live term statistics, exact
-scoring of chosen documents, the CSR flattening and per-slot liveness.
-Host scoring stays vectorized with NumPy over the postings arrays, in
+scoring of chosen documents, the CSR flattening and per-slot liveness,
+and ``to_dict``/``from_dict``, JSON-equal to the reference's for the
+same inserts and deletes. Host scoring stays vectorized with NumPy over the postings arrays, in
 float32 with terms in sorted order.
 """
 
@@ -433,3 +434,43 @@ class BM25Index:
                 if len(seen) >= max_seeds:
                     break
             return [self._ext_ids[i] for i in list(seen)[:max_seeds]]
+
+    # -- persistence ------------------------------------------------------
+
+    def to_dict(self) -> dict:
+        with self._lock:
+            return {
+                "ext_ids": list(self._ext_ids),
+                "doc_len": list(self._doc_len),
+                "alive": [bool(a) for a in self._alive],
+                "postings": {
+                    t: {"ids": list(p.doc_ids), "tfs": list(p.tfs)}
+                    for t, p in self._postings.items()
+                },
+            }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BM25Index":
+        idx = cls()
+        idx._ext_ids = list(d["ext_ids"])
+        idx._doc_len = list(d["doc_len"])
+        idx._alive = list(d["alive"])
+        idx._int_of = {e: i for i, e in enumerate(idx._ext_ids) if idx._alive[i]}
+        terms_per_doc: List[List[str]] = [[] for _ in idx._ext_ids]
+        for t, p in d["postings"].items():
+            post = _Posting()
+            post.doc_ids = list(p["ids"])
+            post.tfs = list(p["tfs"])
+            idx._postings[t] = post
+            df = 0
+            for did in post.doc_ids:
+                if idx._alive[did]:
+                    df += 1
+                    terms_per_doc[did].append(t)
+            if df:
+                idx._df[t] = df
+        idx._doc_terms = [tuple(ts) if idx._alive[i] else None
+                          for i, ts in enumerate(terms_per_doc)]
+        idx._total_len = sum(n for n, a in zip(idx._doc_len, idx._alive) if a)
+        idx._n_alive = sum(1 for a in idx._alive if a)
+        return idx

@@ -24,8 +24,9 @@ of ``nornicdb_tpu/search/cagra.py``, one device, float32).
   changelog that no longer reaches the build, a row left short by the
   live filter), the brute index answers, counted by reason in ``counts``.
 
-The sharded and quantized walks, the audit, admission and cost calls,
-``resource_stats`` and ``save``/``load`` wait for later slices.
+``save``/``load`` keep the vectors only, as the reference's do; the
+graph is rebuilt on demand. The sharded and quantized walks, the audit,
+admission and cost calls and ``resource_stats`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -289,6 +290,17 @@ class CagraIndex:
 
     def remove(self, ext_id: str) -> bool:
         return self._brute.remove(ext_id)
+
+    # -- persistence ------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Vectors only (the brute index's ``.npz``): the graph is derived
+        state, rebuilt on demand after a load."""
+        self._brute.save(path)
+
+    @classmethod
+    def load(cls, path: str, device: DeviceLike = None, **kwargs) -> "CagraIndex":
+        return cls(brute=BruteForceIndex.load(path, device=device), **kwargs)
 
     # -- build ------------------------------------------------------------
 

@@ -20,7 +20,9 @@ chasing per query, the host tier of the search service.
 The RNG (``default_rng(seed=42)``) and the constants are the reference's,
 so both packages build the same graph from the same inputs. Tombstoned
 entries are traversed but never returned; past ``rebuild_threshold`` the
-owner rebuilds. Persistence waits for a later slice.
+owner rebuilds. ``save``/``load`` use the reference's ``.npz`` fields
+(neighbour lists as an object array, read with ``allow_pickle=True``),
+so each package loads the other's file.
 """
 
 from __future__ import annotations
@@ -732,3 +734,59 @@ class HNSWIndex:
                         break
                 out.append(hits)
             return out
+
+    # -- persistence -------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the graph to ``path`` (``np.savez_compressed`` appends
+        ``.npz`` to a path without it)."""
+        with self._lock:
+            neighbors = np.empty(self._count, dtype=object)
+            for slot in range(self._count):
+                neighbors[slot] = [self._neighbors_of(slot, lv).tolist()
+                                   for lv in range(self._levels[slot] + 1)]
+            np.savez_compressed(
+                path,
+                vectors=self._vectors[: self._count]
+                if self._vectors is not None
+                else np.zeros((0, 0), np.float32),
+                levels=np.asarray(self._levels, dtype=np.int32),
+                alive=np.asarray(self._alive, dtype=bool),
+                ext_ids=np.asarray([e if e is not None else "" for e in self._ext_ids],
+                                   dtype=object),
+                neighbors=neighbors,
+                meta=np.asarray([self._entry, self._max_level, self.m, self.dims or 0,
+                                 self.ef_construction, self.ef_search], dtype=np.int64),
+            )
+
+    @classmethod
+    def load(cls, path: str) -> "HNSWIndex":
+        with np.load(path if path.endswith(".npz") else path + ".npz",
+                     allow_pickle=True) as data:
+            meta = [int(x) for x in data["meta"]]
+            vecs = data["vectors"]
+            levels = data["levels"]
+            alive = data["alive"]
+            ext_ids = data["ext_ids"]
+            neighbors = data["neighbors"]
+        entry, max_level, m, dims = meta[:4]
+        # a 4-field meta predates the persisted beams
+        ef_c = meta[4] if len(meta) > 4 else 200
+        ef_s = meta[5] if len(meta) > 5 else 64
+        idx = cls(dims=dims or None, m=m, ef_construction=ef_c, ef_search=ef_s)
+        idx._count = vecs.shape[0]
+        idx._capacity = vecs.shape[0]
+        idx._vectors = np.ascontiguousarray(vecs, dtype=np.float32)
+        idx._levels = [int(x) for x in levels]
+        idx._alive = [bool(x) for x in alive]
+        idx._ext_ids = [str(e) if e else None for e in ext_ids]
+        idx._ensure_level(max(idx._levels, default=0))
+        for slot, per_node in enumerate(neighbors):
+            for lv, lst in enumerate(per_node):
+                idx._set_neighbors(slot, lv, [int(x) for x in lst])
+        idx._slot_of = {e: i for i, e in enumerate(idx._ext_ids)
+                        if e is not None and idx._alive[i]}
+        idx._tombstones = sum(1 for a in idx._alive if not a)
+        idx._entry = entry
+        idx._max_level = max_level
+        return idx

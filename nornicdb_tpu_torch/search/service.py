@@ -36,8 +36,12 @@ accounting wait for later slices.
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 import threading
 import time
+import zipfile
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -55,6 +59,8 @@ from nornicdb_tpu_torch.search.microbatch import MicroBatcher
 from nornicdb_tpu_torch.search.rrf import rrf_fuse
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
 from nornicdb_tpu_torch.storage.types import Engine, Node
+
+logger = logging.getLogger(__name__)
 
 TEXT_PROPERTIES = ("content", "title", "name", "description", "text", "summary")
 MODES = ("hybrid", "vector", "text")
@@ -143,9 +149,12 @@ class SearchService:
         hnsw_threshold: int = 10_000,
         hnsw_m: int = 16,
         hnsw_ef_search: int = HNSW_EF_SEARCH,
+        persist_dir: Optional[str] = None,
+        save_debounce_s: float = 5.0,
     ):
         self.storage = storage
         self.embedder = embedder
+        self.device = device
         self.hnsw_threshold = hnsw_threshold
         self._lock = threading.RLock()
         self.bm25 = BM25Index()
@@ -165,6 +174,28 @@ class SearchService:
         self._fused: Optional[FusedHybrid] = None
         self._hybrid_batch = MicroBatcher(self._fused_hybrid_dispatch,
                                           pass_extras=True)
+        # index persistence: debounced saves, load on build
+        self.persist_dir = persist_dir
+        self.save_debounce_s = save_debounce_s
+        self._save_timer: Optional[threading.Timer] = None
+        # the pending timer; apart from the writer's lock, so that an index
+        # write never waits for a snapshot being written
+        self._timer_lock = threading.Lock()
+        self._timers: List[threading.Timer] = []  # joined at close
+        self._save_lock = threading.Lock()  # one snapshot writer at a time
+        self._saved_at_ms = 0
+        # an index write since the last save or load: the close saves only
+        # then (the reference saves on every close)
+        self._unsaved = False
+        self._closed = False
+        # saves: count, those the timer ran, failures, seconds (sum, most,
+        # and the last save's split), bytes per file of the last save
+        self.save_stats: Dict[str, Any] = {
+            "saves": 0, "timer_saves": 0, "failed": 0, "save_s": 0.0,
+            "max_save_s": 0.0, "last_split_s": {}, "last_bytes": {}}
+        # the last load's seconds by part; after a resumed build, the
+        # nodes it indexed again and the ids it removed
+        self.load_stats: Dict[str, Any] = {}
 
     def _ann_search_batch(self, queries: np.ndarray, k: int):
         """The vector batcher's dispatch: the CAGRA walk once the cagra
@@ -207,7 +238,8 @@ class SearchService:
             self._fused = None
             return None
         f = self._fused
-        if f is None:
+        if f is None or f.bm25 is not self.bm25 or f.brute is not self.vectors:
+            # none yet, or a load replaced the indexes it wraps
             walk_min_n = (env_int("HYBRID_WALK_MIN_N", 100_000)
                           if env_bool("HYBRID_WALK", True) else None)
             f = self._fused = FusedHybrid(
@@ -269,6 +301,7 @@ class SearchService:
         finally:
             # the write is in the indexes even when the switch raises
             self._clear_result_cache()
+            self._schedule_save()
 
     def _index_node_locked(self, node: Node, text: str, switch: bool) -> None:
         with self._lock:
@@ -307,26 +340,221 @@ class SearchService:
                 self.stats.indexed_vectors = len(self.vectors)
         finally:
             self._clear_result_cache()
+            self._schedule_save()
+
+    def prune_missing(self) -> int:
+        """Drop every indexed id whose node left storage without a
+        per-node event (a replayed ``delete_by_prefix``), through
+        ``remove_node``. Returns the number pruned."""
+        if self.storage is None:
+            return 0
+        with self._lock:
+            indexed = set(self.bm25.ids()) | set(self.vectors.ids())
+        pruned = 0
+        for nid in indexed:
+            if not self.storage.has_node(nid):
+                self.remove_node(nid)
+                pruned += 1
+        return pruned
 
     def build_indexes(self) -> int:
         """Index every node in storage. Returns the count indexed.
 
-        The strategy switch is held back until the backfill ends, so one
-        BM25-seeded wave build covers the whole corpus; the reference
-        switches at the threshold's node and then inserts every later
-        node alone, through the single-insert Python path."""
+        With a ``persist_dir`` a valid snapshot is loaded first, and only
+        the nodes written since it, or missing from it, are indexed; ids
+        that left storage meanwhile are removed. The strategy switch is
+        held back until the backfill ends, so one BM25-seeded wave build
+        covers the whole corpus; the reference switches at the
+        threshold's node and then inserts every later node alone, through
+        the single-insert Python path."""
         if self.storage is None:
             return 0
+        resumed = self.load_indexes()
         n = 0
+        live = set()
         try:
             for node in self.storage.all_nodes():
+                live.add(node.id)
+                if resumed and not self._needs_reindex(node):
+                    continue
                 self._index_node(node, switch=False)
                 n += 1
             with self._lock:
                 self._maybe_switch_strategy()
         finally:
             self._clear_result_cache()
+        if resumed:
+            # both halves: a text-only node never enters the vector index
+            with self._lock:
+                stale = (set(self.vectors.ids()) | set(self.bm25.ids())) - live
+            for ext_id in stale:
+                self.remove_node(ext_id)
+            self.load_stats.update(reindexed=n, removed=len(stale))
         return n
+
+    def _needs_reindex(self, node: Node) -> bool:
+        if any(lbl.startswith("_") for lbl in node.labels):
+            return False  # never indexed (index_node)
+        if (node.updated_at or 0) > self._saved_at_ms:
+            return True
+        has_vec = node.embedding is not None or node.chunk_embeddings
+        if has_vec and node.id not in self.vectors:
+            return True
+        return node.id not in self.bm25 and bool(extract_text(node))
+
+    # -- persistence ------------------------------------------------------
+
+    _FORMAT_VERSION = 1
+
+    def save_indexes(self) -> bool:
+        """Write BM25, vector (and HNSW) snapshots; False without a
+        ``persist_dir``. One writer at a time: a timer save and the close
+        save over the same temporary files would publish a torn one."""
+        if not self.persist_dir:
+            return False
+        with self._save_lock:
+            return self._save_indexes_locked()
+
+    def _save_indexes_locked(self) -> bool:
+        t0 = time.perf_counter()
+        d = self.persist_dir
+        os.makedirs(d, exist_ok=True)
+        # captured under the service lock; the slow compression and writes
+        # run outside it (the indexes snapshot under their own locks)
+        with self._lock:
+            self._unsaved = False  # a write after this capture sets it again
+            saved_at = int(time.time() * 1000)
+            bm25_doc = self.bm25.to_dict()
+            vectors = self.vectors
+            hnsw = self.hnsw
+            strategy = self.stats.strategy
+        t1 = time.perf_counter()
+        vectors.save(os.path.join(d, "vectors.npz.tmp"))
+        t2 = time.perf_counter()
+        if hnsw is not None:
+            hnsw.save(os.path.join(d, "hnsw.tmp"))  # np.savez adds .npz
+        t3 = time.perf_counter()
+        with open(os.path.join(d, "bm25.json.tmp"), "w") as f:
+            json.dump(bm25_doc, f)
+        meta = {"format": self._FORMAT_VERSION, "saved_at_ms": saved_at,
+                "has_hnsw": hnsw is not None, "strategy": strategy}
+        with open(os.path.join(d, "meta.json.tmp"), "w") as f:
+            json.dump(meta, f)
+        # publish meta last: a torn save is ignored on load
+        sizes = {}
+        for tmp_name, name in (("vectors.npz.tmp", "vectors.npz"),
+                               ("hnsw.tmp.npz", "hnsw.npz"),
+                               ("bm25.json.tmp", "bm25.json"),
+                               ("meta.json.tmp", "meta.json")):
+            tmp = os.path.join(d, tmp_name)
+            if os.path.exists(tmp):
+                sizes[name] = os.path.getsize(tmp)
+                os.replace(tmp, os.path.join(d, name))
+        self._saved_at_ms = saved_at
+        t4 = time.perf_counter()
+        st = self.save_stats
+        st["saves"] += 1
+        st["save_s"] += t4 - t0
+        st["max_save_s"] = max(st["max_save_s"], t4 - t0)
+        st["last_split_s"] = {"capture": t1 - t0, "vectors": t2 - t1, "hnsw": t3 - t2,
+                              "bm25_meta": t4 - t3, "total": t4 - t0}
+        st["last_bytes"] = sizes
+        return True
+
+    def load_indexes(self) -> bool:
+        """Load a persisted snapshot; False when it is absent, corrupt or
+        of another format version (the caller rebuilds). After a load the
+        service serves the restored indexes: the CAGRA graph and the fused
+        tier, which wrap the replaced ones, are dropped (the graph is
+        rebuilt now if the saved strategy was ``cagra``), and the result
+        cache's generation moves on."""
+        if not self.persist_dir:
+            return False
+        d = self.persist_dir
+        t0 = time.perf_counter()
+        try:
+            with open(os.path.join(d, "meta.json")) as f:
+                meta = json.load(f)
+            if meta.get("format") != self._FORMAT_VERSION:
+                return False
+            with open(os.path.join(d, "bm25.json")) as f:
+                bm25 = BM25Index.from_dict(json.load(f))
+            t1 = time.perf_counter()
+            vectors = BruteForceIndex.load(os.path.join(d, "vectors.npz"),
+                                           device=self.device)
+            t2 = time.perf_counter()
+            hnsw = None
+            if meta.get("has_hnsw"):
+                hnsw = HNSWIndex.load(os.path.join(d, "hnsw.npz"))
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            return False
+        t3 = time.perf_counter()
+        with self._lock:
+            self.bm25 = bm25
+            self.vectors = vectors
+            self.hnsw = hnsw
+            self.cagra = None
+            self._fused = None
+            self._saved_at_ms = int(meta.get("saved_at_ms", 0))
+            self._unsaved = False
+            self.stats.indexed_docs = len(self.bm25)
+            self.stats.indexed_vectors = len(self.vectors)
+            self.stats.strategy = "hnsw" if hnsw is not None else "brute"
+            self._clear_result_cache()
+            if hnsw is None and meta.get("strategy") == "cagra":
+                # derived state: rebuilt from the restored vectors now, so a
+                # read-only workload after a restart still walks the graph
+                self._maybe_switch_strategy()
+        self.load_stats = {"bm25_s": t1 - t0, "vectors_read_s": vectors.load_s["read"],
+                           "vectors_upload_s": vectors.load_s["upload"],
+                           "vectors_s": t2 - t1, "hnsw_s": t3 - t2,
+                           "total_s": time.perf_counter() - t0}
+        return True
+
+    def _schedule_save(self) -> None:
+        """At most one pending timer: a steady write stream saves every
+        debounce interval instead of pushing the save out for ever."""
+        if not self.persist_dir or self._closed:
+            return
+        self._unsaved = True
+        with self._timer_lock:
+            if self._save_timer is not None:
+                return
+            t = threading.Timer(self.save_debounce_s, self._timer_save)
+            t.daemon = True
+            self._save_timer = t
+            self._timers = [x for x in self._timers if x.is_alive()] + [t]
+            t.start()
+
+    def _timer_save(self) -> None:
+        with self._timer_lock:
+            self._save_timer = None
+        try:
+            with self._save_lock:
+                if self._closed:
+                    return  # the close makes the last save
+                self._save_indexes_locked()
+                self.save_stats["timer_saves"] += 1
+        except Exception:  # noqa: BLE001 -- counted; the close save raises
+            self.save_stats["failed"] += 1
+            logger.exception("index save failed")
+
+    def close(self) -> None:
+        """Cancel a pending save, wait for one in flight, and make the final
+        one, which raises on failure; none when no index write landed since
+        the last save or load (the snapshot on disk is already the indexes).
+        No timer thread outlives it."""
+        self._closed = True
+        with self._timer_lock:
+            if self._save_timer is not None:
+                self._save_timer.cancel()
+                self._save_timer = None
+            timers, self._timers = self._timers, []
+        for t in timers:
+            if t is not threading.current_thread():
+                t.join()
+        if self._unsaved:
+            self.save_indexes()
 
     # -- strategy state machine -------------------------------------------
 

@@ -14,13 +14,20 @@ reads a capped log of the ids whose slot changed, so a join derived once
 can be patched after writes. A second capped log, the changelog, keeps
 the ids added or updated after each mutation (``changed_since``), so a
 graph built over a snapshot (``search/cagra.py``) can score its writes
-exactly until it rebuilds. The quantized and tiered planes and
-compaction wait for later slices.
+exactly until it rebuilds. Once deleted rows outnumber both
+``compact_min_dead`` and ``compact_dead_frac`` of the used slots, the
+index compacts, as the reference's does: live rows move to the front in
+slot order, capacity shrinks to ``pad_dim(n_alive)`` and the device pair
+is dropped, so every slot-keyed join derives afresh. ``save`` writes the
+live rows, compacted, to an ``.npz`` the reference reads, and ``load``
+restores them verbatim. The quantized and tiered planes wait for later
+slices.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -43,6 +50,10 @@ class BruteForceIndex:
     # ids whose slot changed (new id or removal) kept for join patching
     _SLOT_LOG_CAP = 4096
 
+    # the reference's compaction policy: dead rows past both
+    compact_min_dead = 1024
+    compact_dead_frac = 0.5
+
     def __init__(self, dims: Optional[int] = None, device: DeviceLike = None):
         self.dims = dims
         self.device = resolve_device(device)
@@ -55,7 +66,9 @@ class BruteForceIndex:
         self._slot_of: Dict[str, int] = {}
         self._free: List[int] = []  # recycled slots (deletes)
         self._n_alive = 0
-        self.mutations = 0  # bumped on every add/remove
+        self.mutations = 0  # bumped on every add/remove/compaction
+        self.compactions = 0
+        self.load_s: Dict[str, float] = {}  # set by load
         self._dev_matrix: Optional[torch.Tensor] = None
         self._dev_valid: Optional[torch.Tensor] = None
         # slots written since the last device copy; None = copy it all
@@ -82,6 +95,11 @@ class BruteForceIndex:
         """The live members of ``ext_ids``, under one lock hold."""
         with self._lock:
             return {e for e in ext_ids if e in self._slot_of}
+
+    def ids(self) -> List[str]:
+        """Live external ids, under one lock hold."""
+        with self._lock:
+            return list(self._slot_of)
 
     @staticmethod
     def _normalize(v: np.ndarray) -> np.ndarray:
@@ -202,7 +220,62 @@ class BruteForceIndex:
             self._log_slot_locked(ext_id)
             self._mark_dirty_locked(slot)
             self.mutations += 1
+            self._maybe_compact_locked()
             return True
+
+    def _maybe_compact_locked(self) -> None:
+        dead = self._count - self._n_alive
+        if (dead < self.compact_min_dead
+                or dead < self.compact_dead_frac * max(self._count, 1)):
+            return
+        self._compact_locked()
+
+    def compact(self) -> bool:
+        """Re-pack the live rows and re-pad capacity; False when no row is
+        dead. The remove path triggers it by the policy above."""
+        with self._lock:
+            if self._count == self._n_alive:
+                return False
+            self._compact_locked()
+            return True
+
+    def _live_rows_locked(self) -> List[int]:
+        return [i for i, e in enumerate(self._ext_ids)
+                if e is not None and self._valid[i]]
+
+    def _compact_locked(self) -> None:
+        """Live rows move to the front in slot order and capacity shrinks
+        to ``pad_dim(n_alive)``. Every slot moves, so the slot log is
+        cut (joins derive afresh) and the device pair is dropped (it is
+        copied whole on the next read; readers holding the old pair keep
+        it until they let go)."""
+        rows = self._live_rows_locked()
+        if not rows:
+            self._capacity = 0
+            self._matrix = None
+            self._valid = None
+            self._ext_ids = []
+        else:
+            new_cap = pad_dim(len(rows))
+            new_m = np.zeros((new_cap, self.dims), dtype=np.float32)
+            new_m[: len(rows)] = self._matrix[rows]
+            new_v = np.zeros((new_cap,), dtype=bool)
+            new_v[: len(rows)] = True
+            self._ext_ids = ([self._ext_ids[i] for i in rows]
+                             + [None] * (new_cap - len(rows)))
+            self._matrix = new_m
+            self._valid = new_v
+            self._capacity = new_cap
+        self._slot_of = {e: s for s, e in enumerate(self._ext_ids) if e is not None}
+        self._count = len(rows)
+        self._free = []
+        self._dev_matrix = None
+        self._dev_valid = None
+        self._dirty_rows = None
+        self.mutations += 1
+        self.compactions += 1
+        self._slot_log.clear()
+        self._slot_log_floor = self.mutations
 
     def get(self, ext_id: str) -> Optional[np.ndarray]:
         with self._lock:
@@ -219,7 +292,58 @@ class BruteForceIndex:
                         np.zeros((0,), bool), [])
             return self._matrix.copy(), self._valid.copy(), list(self._ext_ids)
 
+    # -- persistence ------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the live rows, compacted, to an ``.npz`` (``ids``,
+        ``matrix``), the reference's format. Written through a file object,
+        since ``np.savez`` would append ``.npz`` to a bare path and break a
+        caller's write-then-rename."""
+        with self._lock:
+            if self._matrix is None or self._n_alive == 0:
+                ids = np.asarray([], dtype="U1")
+                matrix = np.zeros((0, 0), np.float32)
+            else:
+                rows = self._live_rows_locked()
+                ids = np.asarray([self._ext_ids[i] for i in rows])
+                matrix = self._matrix[rows]
+        with open(path, "wb") as f:
+            np.savez_compressed(f, ids=ids, matrix=matrix)
+
+    @classmethod
+    def load(cls, path: str, device: DeviceLike = None) -> "BruteForceIndex":
+        """Restore a saved index: rows go back verbatim (normalizing a
+        float32 row again can move it by a rounding step and reorder ties).
+        On the card the matrix is uploaded at once, in one copy.
+        ``load_s`` splits the seconds into ``read`` and ``upload``."""
+        t0 = time.perf_counter()
+        idx = cls(device=device)
+        with np.load(path, allow_pickle=False) as data:
+            ids = data["ids"]
+            matrix = np.asarray(data["matrix"], np.float32)
+        n = len(ids)
+        if n:
+            idx._ensure_capacity_locked(n, matrix.shape[1])
+            idx._matrix[:n] = matrix
+            idx._valid[:n] = True
+            ext = ids.tolist()
+            idx._ext_ids[:n] = ext
+            idx._slot_of = {e: i for i, e in enumerate(ext)}
+            idx._count = n
+            idx._n_alive = n
+        t1 = time.perf_counter()
+        if n and idx.device.type == "cuda" and not idx._host_served_locked():
+            with idx._lock:
+                idx._device_arrays_locked()
+            torch.cuda.synchronize(idx.device)
+        idx.load_s = {"read": t1 - t0, "upload": time.perf_counter() - t1}
+        return idx
+
     # -- search -----------------------------------------------------------
+
+    def _host_served_locked(self) -> bool:
+        """Small indexes answer on the host (``_SMALL_HOST``)."""
+        return self._capacity * (self.dims or 1) <= self._SMALL_HOST
 
     def _device_arrays_locked(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self._dev_matrix is None or self._dirty_rows is None:
@@ -326,7 +450,7 @@ class BruteForceIndex:
             if self._n_alive == 0:
                 return [[] for _ in range(len(queries))]
             k_eff = min(k, self._n_alive)
-            if self._capacity * (self.dims or 1) <= self._SMALL_HOST:
+            if self._host_served_locked():
                 return self._search_host(
                     np.asarray(queries, np.float32), self._matrix,
                     self._valid, self._ext_ids, k_eff)

@@ -284,3 +284,26 @@ def test_knn_forward_launches_b1_per_chunk_and_matches_plain(dev):
     plain = knn_forward(mat[:5000], 32)
     cos = [np.einsum("nkd,nd->nk", x[f], x) for f in (fwd, plain)]
     assert np.abs(cos[0] - cos[1]).max() <= SCORE_ATOL
+
+
+def test_device_index_save_and_load_answers_bitwise(dev, tmp_path):
+    """A device index saved with dead rows and loaded again (compacted,
+    uploaded at once) answers bitwise as before; B1 serves both."""
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    rng = np.random.default_rng(9)
+    vecs = rng.standard_normal((6000, 160)).astype(np.float32)
+    vecs[5000:5100] = vecs[:100]  # exact ties across distant rows
+    idx = BruteForceIndex(device=dev)
+    idx.add_batch([(f"n{i}", v) for i, v in enumerate(vecs)])
+    for i in range(100, 400, 3):
+        idx.remove(f"n{i}")
+    q = np.concatenate([vecs[:8], rng.standard_normal((8, 160))]).astype(np.float32)
+    launches = fused_cosine_topk.launches
+    before = idx.search_batch(q, 30)
+    idx.save(str(tmp_path / "v.npz"))
+    loaded = BruteForceIndex.load(str(tmp_path / "v.npz"), device=dev)
+    assert loaded._dev_matrix is not None and loaded._dev_matrix.is_cuda
+    assert loaded.load_s["upload"] > 0 and len(loaded) == len(idx)
+    assert loaded.search_batch(q, 30) == before
+    assert fused_cosine_topk.launches == launches + 2

@@ -576,6 +576,33 @@ def test_join_map_patched_after_writes_equals_full_derivation():
     assert (tf.counts["join_full"], tf.counts["join_patch"]) == (2, 1)
 
 
+def test_compaction_remaps_the_join_in_full_as_jax():
+    """Removes that compact the brute index (both packages at the same
+    removal, the floor lowered) move every slot: the fused tier derives
+    its join afresh instead of patching it, reads a new device pair, and
+    its rows agree with the JAX tier's and the host path."""
+    pair = Pair(400, seed=61, text_only=6, vec_only=6)
+    for idx in (pair.jv, pair.tv):
+        idx.compact_min_dead = 32
+    jf, tf = pair.fused()
+    queries = ["term1 term2", "term3 textonly0", "term5", "term7 term8"]
+    embs = pair.embs(len(queries))
+    _assert_parity(pair, jf, tf, queries, embs, 30)
+    old_pair = pair.tv.device_view()[0]
+    before = pair.tv.mutations
+    for i in range(0, 400, 2):
+        pair.remove(f"d{i}", text=False)
+    for i in range(1, 20, 2):  # past half the used slots
+        pair.remove(f"d{i}", text=False)
+    assert pair.tv.compactions == pair.jv.compactions == 1
+    assert pair.tv._capacity == pair.jv._capacity
+    assert pair.tv.slots_changed_since(before, pair.tv.mutations) is None
+    joins = tf.counts["join_full"]
+    _assert_parity(pair, jf, tf, queries, embs, 30)
+    assert tf.counts["join_full"] == joins + 1
+    assert pair.tv.device_view()[0] is not old_pair
+
+
 # ---------------------------------------------------------------------------
 # the walk tier
 # ---------------------------------------------------------------------------

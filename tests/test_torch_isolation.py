@@ -1,5 +1,6 @@
-"""The port stands alone: it loads no JAX, no flax and nothing of the JAX
-package, and its entry points refuse to run on the CPU unasked."""
+"""The port stands alone: it loads no JAX, no flax, nothing of the JAX
+package, no msgpack and no cryptography (the card's machine has neither),
+and its entry points refuse to run on the CPU unasked."""
 
 import ast
 import json
@@ -25,7 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(nornicdb_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "nornicdb_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "nornicdb_tpu",
+                                    "msgpack", "cryptography"))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
@@ -45,6 +47,7 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "nornicdb_tpu_torch.ops.topk" in result["imported"]
     assert "nornicdb_tpu_torch.db" in result["imported"]
+    assert "nornicdb_tpu_torch.storage.codec" in result["imported"]
     assert result["bad"] == []
 
 
@@ -61,7 +64,8 @@ def test_port_sources_import_nothing_of_jax(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "nornicdb_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "flax", "nornicdb_tpu",
+                               "msgpack", "cryptography"), (path, name)
 
 
 @pytest.mark.parametrize("make", [

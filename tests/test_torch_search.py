@@ -96,6 +96,34 @@ def test_brute_force_index_matches_jax(n, d):
             assert _hits_agree(a, b)
 
 
+def test_removes_compact_the_index_as_jax_does():
+    """3,000 rows, 1,500 removed: both indexes compact at the 1,500th
+    removal (1,024 dead rows and half the slots), so a row added after it
+    lands behind every live row, and its exact tie with a live row T
+    orders T first; capacity shrinks to pad_dim(1,500)."""
+    rng = np.random.default_rng(12)
+    j, t, vecs = _fill_both(rng, 3000, 160, dup=False)
+    for idx in (j, t):
+        for i in range(1499):
+            idx.remove(f"n{i}")
+        assert idx._capacity == 4096
+        idx.remove("n1499")  # the last removed slot, 1,499, lies below T's
+        assert idx._free == []
+        idx.add("twin", vecs[2000])  # equal to T = n2000
+    assert t._capacity == j._capacity == 2048
+    assert t._slot_of["twin"] == j._slot_of["twin"] == 1500
+    assert t._slot_of == j._slot_of and len(t) == len(j) == 1501
+    queries = np.concatenate([vecs[[2000, 2999]], rng.standard_normal((4, 160))]).astype(np.float32)
+    for k in (2, 10):
+        tt, jj = t.search_batch(queries, k), j.search_batch(queries, k)
+        assert [i for i, _ in tt[0][:2]] == [i for i, _ in jj[0][:2]] == ["n2000", "twin"]
+        for a, b in zip(tt, jj):
+            assert [i for i, _ in a] == [i for i, _ in b]
+            np.testing.assert_allclose([s for _, s in a], [s for _, s in b], atol=SCORE_ATOL)
+    assert t.compactions == j.compactions == 1
+    assert not t.compact() and not j.compact()  # nothing dead left
+
+
 def test_add_batch_equals_sequential_adds():
     rng = np.random.default_rng(11)
     vecs = rng.standard_normal((600, 32)).astype(np.float32)
