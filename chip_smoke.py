@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero:
    1024} x B in {1, 2, 3, 4, 5, 7, 8, 16, 33, 64, 65, 200, 256} x k in
    {1, 10, 30, 128, 256}; at B in {1, 4, 7, 64}: D = 33 and a misaligned
    base (the scalar or 4-byte copy variants), C = 5, an all-masked index
-   and fewer valid rows than k; two calls bitwise equal at B in {1, 4, 8,
-   64, 256}), and flash attention (B2) against the materializing softmax,
+   and fewer valid rows than k; phase 7's vector index, C 8,192 with
+   8,000 valid rows, k 10, at B in {1, 4, 5, 8, 15, 16}; two calls
+   bitwise equal at B in {1, 4, 8, 64, 256}), and flash attention (B2) against the materializing softmax,
    in f32 and in bf16: S in {1, 16, 33, 64, 100, 128, 512} x (H, Dh) in
    {(4, 16), (4, 40), (16, 64)} with one row fully masked, two calls
    bitwise equal at the ingest shape (and in f32 at 8, 512, 16, 64), and
@@ -113,6 +114,36 @@ Phases, in order; any failure exits non-zero:
    reopen, every id read back; and for each engine a child process that
    writes with ``sync_every_write=True`` until it has acknowledged 1,000
    writes and is SIGKILLed: the reopen must find every acknowledged id.
+7. Cypher, in three parts. (a) On the host: the reference's Cypher
+   benchmark graph (``bench.py:_bench_cypher``, ``random.Random(11)``:
+   50,000 persons with 20 KNOWS each, 100,000 messages, 50 cities, 40
+   tags, ~1.35 M edges) in ``NamespacedEngine(MemoryEngine(), "bench")``
+   under a ``CypherExecutor`` with its query cache off; the four LDBC
+   shapes and the Northwind write each run for ``LDBC_WINDOW_S``
+   (queries/s, p50, p99), and each read shape's fast-path rows must
+   equal the row interpreter's as multisets (8 rotating parameters per
+   point shape, one run per aggregate shape); every Northwind write must
+   create its edge, and no read shape any. (b) On the card, through
+   ``open(data_dir, engine="native")``: 8,000 ``Memory`` nodes of a
+   seeded Zipf corpus created by ``UNWIND $rows ... CREATE`` in batches
+   of 500, a flush (every memory embedded through the queue, B2), then 3
+   ``RELATES_TO`` edges each by ``UNWIND ... MATCH ... CREATE`` in
+   batches of 500;
+   then 64 queries each, one at a time: GraphRAG
+   (``db.index.vector.queryNodes`` then a ``MATCH``; below the HNSW
+   threshold the procedure rides the vector batcher into B1), rows
+   against B1's plain version over the index's device rows (ids
+   tie-aware, scores within 1e-5); ``db.index.fulltext.queryNodes``
+   against the BM25 index; a 2-hop ``MATCH`` against the row
+   interpreter. B1 is timed on the index's rows at B in {1, 4, 8}. 16 threads
+   × 16 GraphRAG queries must coalesce (mean batch above 1, a B1 launch
+   at B >= 5) and answer as one at a time. (c) 1,000 ``Event`` nodes with
+   ``datetime``, ``date`` and ``duration`` values created by Cypher; the
+   DB is closed and reopened (``engine="auto"``): the values, and
+   GraphRAG answers (bitwise), must be those before the close, with no
+   node re-embedded; then ``multidb_manager`` creates two databases,
+   writes to each, checks their counts are isolated and drops one. The
+   launches of (b) and (c) are the kernels line's ``launches_cypher``.
 
 Timing uses CUDA events over back-to-back calls, and ``torch.profiler``
 for the device time of each kernel per call: B1 by stage and its library
@@ -182,6 +213,12 @@ WRITE_MIX_ARMS = ("walk", "host", "brute")  # the fused tier on the walk, the ho
 # the fused tier with its walk off; blocks cycle through them twice
 WRITE_MIX_BLOCKS = 6
 WRITE_MIX_ROUNDS = 48
+
+RUN_LIMIT_S = 1200.0  # the whole run must end within this
+# phase 7's length at full windows, with room: it took 143-158 s on an
+# H100; a run that could not fit it before the limit measures (a)'s
+# shapes for 0.5 s each instead (its graph keeps its size)
+CYPHER_PHASE_S = 240.0
 
 REPORT: dict = {}
 
@@ -472,6 +509,11 @@ def phase_kernels(dev, seed):
         errs.append(check_topk(dev, rng, 3000, 160, b, 30, valid_frac=0.0))  # all masked
         # fewer valid rows than k: the tail carries the masked score
         errs.append(check_topk(dev, rng, 300, 160, b, 256, valid_frac=0.3))
+    # phase 7's vector procedure: C 8,192 (the index's capacity), 8,000
+    # valid rows, k 10, B as the batcher coalesces 16 clients
+    for b in CYPHER_TOPK_B:
+        errs.append(check_topk(dev, rng, CYPHER_CAPACITY, 160, b, 10,
+                               valid_frac=CYPHER_MEMORIES / CYPHER_CAPACITY))
     repeat_b = (1, 4, 8, 64, 256)
     for b in repeat_b:
         check_topk_deterministic(dev, rng, 131_072, 160, b, 30)
@@ -2364,6 +2406,476 @@ def phase_durable(dev, corpus):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 7 ---------------------------------------------------------------
+
+# (a) the reference's Cypher benchmark graph (bench.py:_bench_cypher)
+LDBC_PERSONS = 50_000
+LDBC_MESSAGES = 100_000
+LDBC_KNOWS = 20
+LDBC_WINDOW_S = 2.0  # per shape; shrinks first if the run nears its limit
+LDBC_PARITY_POINTS = 8  # rotating parameters per point shape
+# (b) the memory graph on the card
+CYPHER_MEMORIES = 8_000
+CYPHER_CAPACITY = 8_192  # the vector index's capacity at 8,000 rows
+CYPHER_TOPK_B = (1, 4, 5, 8, 15, 16)  # B1 checked at these B in phase 3
+CYPHER_TIMED_B = (1, 4, 8)  # and timed in phase 7 on the index's own rows
+CYPHER_BATCH = 500  # rows per UNWIND ... CREATE
+CYPHER_LINKS = 3  # RELATES_TO edges per memory
+CYPHER_THREADS = 16
+CYPHER_PER_THREAD = 16
+# (c) temporal values and restart
+CYPHER_EVENTS = 1_000
+CYPHER_RESTART_QUERIES = 16
+
+GRAPHRAG = ("CALL db.index.vector.queryNodes('memory', 10, $v) YIELD node, score "
+            "MATCH (node)-[:RELATES_TO]->(r:Memory) "
+            "RETURN node.mid, score, count(r) ORDER BY score DESC")
+FULLTEXT = ("CALL db.index.fulltext.queryNodes('memory', $q, 10) YIELD node, score "
+            "RETURN node.mid, score")
+TWO_HOP = ("MATCH (a:Memory {mid: $m})-[:RELATES_TO]->(b:Memory)-[:RELATES_TO]->(c:Memory) "
+           "RETURN count(DISTINCT c)")
+
+
+def ldbc_graph(n_people, n_msgs, knows_per):
+    """The LDBC-shaped social graph of the reference's Cypher benchmark,
+    seed 11, in ``NamespacedEngine(MemoryEngine(), "bench")``. Returns
+    (engine, counts, the five shapes as (query, params of iteration))."""
+    import random
+
+    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, NamespacedEngine, Node
+
+    eng = NamespacedEngine(MemoryEngine(), "bench")
+    rng = random.Random(11)
+    cities = [f"city{c}" for c in range(50)]
+    tags = [f"tag{t}" for t in range(40)]
+    seq = iter(range(10**9))
+
+    def add_node(labels, props):
+        n = Node(id=f"n{next(seq)}", labels=labels, properties=props)
+        eng.create_node(n)
+        return n.id
+
+    def add_edge(etype, a, b):
+        eng.create_edge(Edge(id=f"e{next(seq)}", type=etype, start_node=a, end_node=b))
+
+    city_ids = [add_node(["City"], {"name": c}) for c in cities]
+    tag_ids = [add_node(["Tag"], {"name": t}) for t in tags]
+    people = [add_node(["Person"], {"id": i, "name": f"p{i}", "age": 18 + (i * 7) % 50})
+              for i in range(n_people)]
+    n_knows = 0
+    for i, pid in enumerate(people):
+        add_edge("IS_LOCATED_IN", pid, city_ids[i % len(cities)])
+        for j in rng.sample(range(n_people), knows_per):
+            if j != i:
+                add_edge("KNOWS", pid, people[j])
+                n_knows += 1
+    for m in range(n_msgs):
+        mid = add_node(["Message"], {"id": 100000 + m, "content": f"msg {m}",
+                                     "creationDate": 1700000000 + m * 37})
+        add_edge("HAS_CREATOR", mid, people[rng.randrange(n_people)])
+        for t in rng.sample(range(len(tags)), rng.randrange(1, 4)):
+            add_edge("HAS_TAG", mid, tag_ids[t])
+    shapes = {
+        "msg_content_lookup": (
+            "MATCH (m:Message {id: $mid}) RETURN m.content",
+            lambda it: {"mid": 100000 + (it * 7) % n_msgs}),
+        "recent_messages_friends": (
+            "MATCH (p:Person {id: $pid})-[:KNOWS]->(f:Person)<-[:HAS_CREATOR]-(m:Message) "
+            "RETURN f.name, m.content, m.creationDate ORDER BY m.creationDate DESC LIMIT 10",
+            lambda it: {"pid": (it * 13) % n_people}),
+        "avg_friends_per_city": (
+            "MATCH (c:City)<-[:IS_LOCATED_IN]-(p:Person)-[:KNOWS]->(f:Person) "
+            "RETURN c.name, count(f) / count(DISTINCT p) AS avgFriends",
+            lambda it: {}),
+        "tag_cooccurrence": (
+            "MATCH (t1:Tag)<-[:HAS_TAG]-(m:Message)-[:HAS_TAG]->(t2:Tag) "
+            "WHERE t1 <> t2 RETURN t1.name, t2.name, count(m) AS freq",
+            lambda it: {}),
+        "northwind_writes": (
+            "MATCH (a:Person {id: $a}), (b:Person {id: $b}) CREATE (a)-[:BOUGHT_WITH]->(b)",
+            lambda it: {"a": (it * 7) % n_people, "b": (it * 13 + 1) % n_people}),
+    }
+    counts = {"persons": n_people, "knows_edges": n_knows, "messages": n_msgs,
+              "cities": len(cities), "tags": len(tags), "nodes": eng.count_nodes(),
+              "edges": eng.count_edges()}
+    return eng, counts, shapes
+
+
+def latency_summary(lat_ms):
+    lat = np.asarray(lat_ms)
+    return {"queries": int(lat.size), "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "mean_ms": float(lat.mean())}
+
+
+def cypher_ldbc(card, n_people, n_msgs, knows_per, window_s):
+    """Phase 7 (a): the LDBC shapes on the host, fast paths against the
+    row interpreter."""
+    from collections import Counter
+
+    from nornicdb_tpu_torch.query.executor import CypherExecutor
+
+    t = time.perf_counter()
+    eng, counts, shapes = ldbc_graph(n_people, n_msgs, knows_per)
+    build_s = time.perf_counter() - t
+    ex = CypherExecutor(eng)
+    ex.enable_query_cache = False
+    t = time.perf_counter()
+    ex.columnar.nodes()  # the node table and its label columns
+    catalog_s = time.perf_counter() - t
+    out = {"graph": counts, "build_s": build_s, "catalog_nodes_s": catalog_s, "shapes": {}}
+    log(f"cypher (a): LDBC graph {counts} built in {build_s:.2f} s; catalog node table "
+        f"{catalog_s:.3f} s ({card})")
+    slow = CypherExecutor(eng)
+    slow.enable_query_cache = False
+    slow.enable_fastpaths = False
+    for name, (q, mk) in shapes.items():
+        edges0 = eng.count_edges()
+        t = time.perf_counter()
+        created = ex.execute(q, mk(0)).stats.relationships_created  # cold: builds views
+        cold_ms = (time.perf_counter() - t) * 1e3
+        lat = []
+        t0 = time.perf_counter()
+        it = 1
+        while time.perf_counter() - t0 < window_s and it <= 20_000:
+            t = time.perf_counter()
+            created += ex.execute(q, mk(it)).stats.relationships_created
+            lat.append((time.perf_counter() - t) * 1e3)
+            it += 1
+        wall = time.perf_counter() - t0
+        # the write shape creates one edge a query, and no read shape any
+        want = it if name == "northwind_writes" else 0
+        if created != want or eng.count_edges() - edges0 != want:
+            raise AssertionError(f"{name}: {it} queries created {created} edges "
+                                 f"({eng.count_edges() - edges0} stored), want {want}")
+        row = {"cold_ms": cold_ms, "queries_per_s": len(lat) / wall, **latency_summary(lat)}
+        if name != "northwind_writes":
+            # the fast path's rows against the row interpreter's, as multisets
+            runs = [mk(i * 997 + 1) for i in range(LDBC_PARITY_POINTS)] if mk(0) else [{}]
+            t = time.perf_counter()
+            for params in runs:
+                fast = Counter(map(repr, ex.execute(q, params).rows))
+                rows = Counter(map(repr, slow.execute(q, params).rows))
+                if fast != rows or not rows:
+                    raise AssertionError(f"{name}: the fast path's rows differ from the row "
+                                         f"interpreter's for {params} ({sum(fast.values())} "
+                                         f"against {sum(rows.values())} rows)")
+            row["parity_runs"] = len(runs)
+            row["interpreter_s"] = time.perf_counter() - t
+        out["shapes"][name] = row
+        log(f"  {name}: {row['queries_per_s']:.1f} queries/s, p50 {row['p50_ms']:.3f} ms, "
+            f"p99 {row['p99_ms']:.3f} ms over {row['queries']} in {wall:.2f} s (cold "
+            f"{cold_ms:.1f} ms)" + (f"; rows equal to the row interpreter's on "
+                                    f"{row['parity_runs']} runs ({row['interpreter_s']:.2f} s)"
+                                    if "parity_runs" in row else "") + f" ({card})")
+    return out
+
+
+def graphrag_rows(db, qv):
+    return [tuple(r) for r in db.cypher(GRAPHRAG, {"v": qv}).rows]
+
+
+def graphrag_agrees(got, want):
+    """Two GraphRAG answers: mids tie-aware with scores within 1e-5, and
+    each mid's count of related memories equal."""
+    if not hits_agree([(m, s) for m, s, _ in got], [(m, s) for m, s, _ in want],
+                      TOPK_SCORE_ATOL):
+        return False
+    counts = {m: c for m, _, c in want}
+    return all(counts.get(m, c) == c for m, _, c in got)
+
+
+def plain_vector_hits(svc, qvs, k, mid_of):
+    """Each query's top ``k`` (mid, score) by B1's plain version (matmul,
+    mask, stable top-k) over the vector index's own device rows: the
+    answer the vector procedure must give, computed without the kernel."""
+    import torch
+
+    from nornicdb_tpu_torch.ops.similarity import cosine_topk, l2_normalize
+
+    m, valid, ids, _ = svc.vectors.device_view()
+    q = l2_normalize(torch.tensor(qvs, dtype=torch.float32, device=m.device))
+    s, i = (x.cpu().numpy() for x in cosine_topk(q, m, valid, k))
+    return [[(mid_of[ids[j]], float(v)) for v, j in zip(sr, ir)] for sr, ir in zip(s, i)]
+
+
+def cypher_reads(db, svc, queries, qvs, mid_of, card):
+    """Phase 7 (b)'s reads: 64 queries of each shape, one at a time,
+    each held against another route to the same answer."""
+    from nornicdb_tpu_torch.query.executor import CypherExecutor
+
+    lat = {"graphrag": [], "fulltext": [], "two_hop": []}
+    answers = []
+    for qv in qvs:
+        t = time.perf_counter()
+        rows = graphrag_rows(db, qv)
+        lat["graphrag"].append((time.perf_counter() - t) * 1e3)
+        answers.append(rows)
+    for rows, want in zip(answers, plain_vector_hits(svc, qvs, 10, mid_of)):
+        if len(rows) != 10 or not hits_agree([(m, s) for m, s, _ in rows], want,
+                                             TOPK_SCORE_ATOL):
+            raise AssertionError(f"GraphRAG rows {rows} differ from the plain top-k {want}")
+        if any(c != CYPHER_LINKS for _, _, c in rows):
+            raise AssertionError(f"GraphRAG counts {rows}, want {CYPHER_LINKS} each")
+    for q in queries:
+        t = time.perf_counter()
+        rows = db.cypher(FULLTEXT, {"q": q}).rows
+        lat["fulltext"].append((time.perf_counter() - t) * 1e3)
+        want = [mid_of[i] for i, _ in svc.bm25.search(q, 10)]
+        if [r[0] for r in rows] != want:
+            raise AssertionError(f"fulltext rows for {q!r} differ from the BM25 index's")
+    slow = CypherExecutor(db.storage)
+    slow.enable_fastpaths = False
+    slow.enable_query_cache = False
+    for i in range(len(queries)):
+        m = (i * 127) % len(mid_of)
+        t = time.perf_counter()
+        rows = db.cypher(TWO_HOP, {"m": m}).rows
+        lat["two_hop"].append((time.perf_counter() - t) * 1e3)
+        if rows != slow.execute(TWO_HOP, {"m": m}).rows or not rows[0][0]:
+            raise AssertionError(f"two-hop rows for mid {m}: {rows}")
+    out = {k: latency_summary(v) for k, v in lat.items()}
+    for k, v in out.items():
+        log(f"  {k}: p50 {v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms over {v['queries']} "
+            f"queries one at a time ({card})")
+    return out, answers
+
+
+def cypher_concurrent(db, svc, qvs, answers, card):
+    """16 client threads send GraphRAG queries through ``DB.cypher``: the
+    vector procedure's rides must coalesce, and every answer equal the
+    one-at-a-time answer."""
+    import threading
+
+    import torch
+
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+
+    mb = svc._microbatch
+    mark = batcher_mark(mb)
+    sizes0 = dict(fused_cosine_topk.launch_sizes)
+    got, errors = [], []
+    barrier = threading.Barrier(CYPHER_THREADS)
+
+    def client(t):
+        try:
+            barrier.wait()
+            for j in range(CYPHER_PER_THREAD):
+                i = (t * 5 + j) % len(qvs)
+                got.append((i, graphrag_rows(db, qvs[i])))
+        except BaseException as exc:  # noqa: BLE001 -- re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(CYPHER_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a GraphRAG client did not finish")
+    if errors:
+        raise errors[0]
+    batches, rode, bsizes = batcher_delta(mb, mark)
+    launched = {b: n - sizes0.get(b, 0) for b, n in fused_cosine_topk.launch_sizes.items()
+                if n != sizes0.get(b, 0)}
+    out = {"threads": CYPHER_THREADS, "queries": len(got), "wall_s": wall,
+           "queries_per_s": len(got) / wall, "batches": batches, "rides": rode,
+           "mean_batch": rode / max(batches, 1), "batch_sizes": bsizes,
+           "cosine_topk_launch_sizes": dict(sorted(launched.items()))}
+    log(f"  concurrent GraphRAG: {len(got)} queries from {CYPHER_THREADS} threads in "
+        f"{wall:.3f} s ({out['queries_per_s']:.1f}/s); {rode} vector rides in {batches} "
+        f"batches, mean {out['mean_batch']:.3f} (sizes {bsizes}); B1 launches by B "
+        f"{out['cosine_topk_launch_sizes']} ({card})")
+    if rode != len(got) or out["mean_batch"] <= 1.0 or not any(b >= 5 for b in launched):
+        raise AssertionError(f"the GraphRAG rides did not coalesce: {out}")
+    for i, rows in got:
+        if not graphrag_agrees(rows, answers[i]):
+            raise AssertionError(f"concurrent GraphRAG answer {rows} for query {i} differs "
+                                 f"from the one at a time, {answers[i]}")
+    out["identical"] = sum(rows == answers[i] for i, rows in got)
+    log(f"  concurrent answers agree with one at a time ({out['identical']} of {len(got)} "
+        f"identical)")
+    return out
+
+
+def cypher_events(db, rng):
+    """Phase 7 (c)'s writes: typed values created by Cypher."""
+    t = time.perf_counter()
+    for i in range(CYPHER_EVENTS):
+        day = int(rng.integers(0, 3650))
+        secs = int(rng.integers(0, 86400))
+        db.cypher("CREATE (:Event {eid: $i, at: datetime($s), d: date($d), span: duration($p)})",
+                  {"i": i,
+                   "s": f"20{10 + day // 365:02d}-{1 + day % 12:02d}-{1 + day % 28:02d}T"
+                        f"{secs // 3600:02d}:{secs // 60 % 60:02d}:{secs % 60:02d}Z",
+                   "d": f"19{50 + day // 100:02d}-{1 + day % 12:02d}-{1 + day % 28:02d}",
+                   "p": f"P{day}DT{secs}S"})
+    return time.perf_counter() - t
+
+
+EVENTS = "MATCH (e:Event) RETURN e.eid, e.at, e.d, e.span ORDER BY e.eid"
+
+
+def event_rows(db):
+    rows = db.cypher(EVENTS).rows
+    if len(rows) != CYPHER_EVENTS or {type(v).__name__ for r in rows for v in r[1:]} != {
+            "CypherDateTime", "CypherDate", "CypherDuration"}:
+        raise AssertionError(f"events read back: {len(rows)} rows, types "
+                             f"{ {type(v).__name__ for r in rows for v in r[1:]} }")
+    return [[repr(v) for v in r] for r in rows]
+
+
+def cypher_multidb(db):
+    """Two databases beside the DB's own through ``multidb_manager``."""
+    from nornicdb_tpu_torch.query.executor import CypherExecutor
+
+    mgr = db.multidb_manager()
+    own = mgr.counts("neo4j")
+    for name, n in (("tenant_a", 300), ("tenant_b", 200)):
+        mgr.create_database(name)
+        CypherExecutor(mgr.get_storage(name)).execute(
+            "UNWIND range(1, $n) AS i CREATE (:Doc {i: i})", {"n": n})
+    counts = {name: mgr.counts(name) for name in ("neo4j", "tenant_a", "tenant_b")}
+    want = {"neo4j": own, "tenant_a": {"nodes": 300, "edges": 0},
+            "tenant_b": {"nodes": 200, "edges": 0}}
+    if counts != want:
+        raise AssertionError(f"database counts {counts}, want {want}")
+    mgr.drop_database("tenant_b")
+    left = sorted(d.name for d in mgr.list_databases())
+    if left != ["neo4j", "system", "tenant_a"] or mgr.counts("tenant_a")["nodes"] != 300 \
+            or db.storage.count_nodes() != own["nodes"]:
+        raise AssertionError(f"after the drop: {left}, {mgr.counts('tenant_a')}")
+    log(f"  multidb: counts {counts}, isolated; tenant_b dropped, left {left}")
+    return {"counts": counts, "after_drop": left}
+
+
+def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S):
+    """Phase 7 (module docstring). Returns the kernel launches of parts
+    (b) and (c)."""
+    import shutil
+    import tempfile
+
+    import nornicdb_tpu_torch as nt
+    from nornicdb_tpu_torch.storage.disk import DiskEngine
+
+    out = REPORT["cypher"] = {}
+    out["ldbc"] = cypher_ldbc(card, LDBC_PERSONS, LDBC_MESSAGES, LDBC_KNOWS, window_s)
+    memories = CYPHER_MEMORIES
+
+    rng = np.random.default_rng(seed + 13)
+    docs, queries = make_corpus(rng, memories)
+    root = os.path.join(HERE, "_durable")
+    os.makedirs(root, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="cypher-", dir=root)
+    try:
+        reset_counts()
+        db = nt.open(d, device=dev, engine="native")
+        if not isinstance(db._base, DiskEngine):
+            raise AssertionError(f"engine='native' opened {type(db._base).__name__}")
+        svc = db.search  # empty: the embed queue indexes what it embeds
+        t = time.perf_counter()
+        for lo in range(0, memories, CYPHER_BATCH):
+            db.cypher("UNWIND $rows AS r CREATE (:Memory {mid: r.mid, content: r.content})",
+                      {"rows": [{"mid": i, "content": docs[i]}
+                                for i in range(lo, min(lo + CYPHER_BATCH, memories))]})
+        create_s = time.perf_counter() - t
+        t = time.perf_counter()
+        db.flush()
+        flush_s = time.perf_counter() - t
+        writes = read_counts()
+        targets = rng.integers(1, memories, size=(memories, CYPHER_LINKS))
+        pairs = [{"a": a, "b": int((a + off) % memories)}
+                 for a in range(memories) for off in targets[a]]
+        t = time.perf_counter()
+        for lo in range(0, len(pairs), CYPHER_BATCH):
+            db.cypher("UNWIND $pairs AS p MATCH (a:Memory {mid: p.a}), (b:Memory {mid: p.b}) "
+                      "CREATE (a)-[:RELATES_TO]->(b)", {"pairs": pairs[lo:lo + CYPHER_BATCH]})
+        link_s = time.perf_counter() - t
+        embedded = (db._embed_queue.embedded_count, db._embed_queue.failed_count)
+        if embedded != (memories, 0) or writes["flash_attention"] < 1 \
+                or len(svc.vectors) != memories:
+            raise AssertionError(f"the embed queue embedded and failed {embedded}, B2 launched "
+                                 f"{writes['flash_attention']}, {len(svc.vectors)} indexed")
+        if svc.hnsw is not None or svc.stats.strategy != "brute":
+            raise AssertionError(f"{memories} vectors took the {svc.stats.strategy} tier")
+        n_edges = db.storage.count_edges()
+        if n_edges != memories * CYPHER_LINKS:
+            raise AssertionError(f"{n_edges} RELATES_TO edges, want {memories * CYPHER_LINKS}")
+        b = {"memories": memories, "edges": n_edges, "create_s": create_s,
+             "creates_per_s": memories / create_s, "flush_s": flush_s, "link_s": link_s,
+             "links_per_s": n_edges / link_s, "write_launches": writes}
+        log(f"cypher (b): {memories} memories by UNWIND ... CREATE in {create_s:.2f} s "
+            f"({memories / create_s:.0f}/s), flush (the queue embeds them) {flush_s:.2f} s, "
+            f"B2 launches {writes['flash_attention']}; {n_edges} RELATES_TO by UNWIND ... "
+            f"MATCH ... CREATE in {link_s:.2f} s ({n_edges / link_s:.0f}/s) ({card})")
+        mid_of = {row[1].id: row[0] for row in db.cypher(
+            "MATCH (m:Memory) RETURN m.mid, m").rows}
+        qvs = [list(v) for v in db._embedder.embed_batch(queries)]
+        b1_before = read_counts()["cosine_topk"]
+        b["reads"], answers = cypher_reads(db, svc, queries, qvs, mid_of, card)
+        b1_reads = read_counts()["cosine_topk"] - b1_before
+        if b1_reads < len(qvs):
+            raise AssertionError(f"B1 launched {b1_reads} times for {len(qvs)} GraphRAG queries")
+        b["reads_b1_launches"] = b1_reads
+        b["concurrent"] = cypher_concurrent(db, svc, qvs, answers, card)
+        m, valid, _, _ = svc.vectors.device_view()
+        if tuple(m.shape) != (CYPHER_CAPACITY, 160) or int(valid.sum()) != memories:
+            raise AssertionError(f"the vector index is {tuple(m.shape)} with {int(valid.sum())} "
+                                 f"valid rows, not the shape phase 3 checked")
+        b["b1_timed"] = [time_topk(dev, m, valid, bb, 10, seed, card) for bb in CYPHER_TIMED_B]
+        del m, valid
+        out["memory_graph"] = b
+
+        # -- (c) temporal values and restart ---------------------------------
+        events_s = cypher_events(db, rng)
+        db.flush()
+        events_before = event_rows(db)
+        rag_before = [graphrag_rows(db, qv) for qv in qvs[:CYPHER_RESTART_QUERIES]]
+        del svc
+        t = time.perf_counter()
+        db.close()
+        close_s = time.perf_counter() - t
+        t = time.perf_counter()
+        db = nt.open(d, device=dev, engine="auto")
+        open_s = time.perf_counter() - t
+        try:
+            if not isinstance(db._base, DiskEngine):
+                raise AssertionError(f"the dir reopened as {type(db._base).__name__}")
+            t = time.perf_counter()
+            svc = db.search
+            search_open_s = time.perf_counter() - t
+            if event_rows(db) != events_before:
+                raise AssertionError("temporal values differ after the reopen")
+            rag_after = [graphrag_rows(db, qv) for qv in qvs[:CYPHER_RESTART_QUERIES]]
+            if rag_after != rag_before:
+                raise AssertionError("GraphRAG answers after the reopen differ from before")
+            db.flush()
+            reembedded = (db._embed_queue.embedded_count, svc.load_stats.get("reindexed"))
+            if reembedded != (0, 0):
+                raise AssertionError(f"the reopen re-embedded or reindexed: {reembedded}")
+            c = {"events": CYPHER_EVENTS, "events_s": events_s, "close_s": close_s,
+                 "open_s": open_s, "search_open_s": search_open_s,
+                 "graphrag_bitwise": len(rag_after), "reembedded": 0,
+                 "multidb": cypher_multidb(db)}
+        finally:
+            db.close()
+        path = read_counts()
+        log(f"cypher (c): {CYPHER_EVENTS} events with datetime, date and duration in "
+            f"{events_s:.2f} s; close {close_s:.2f} s; reopen {open_s:.3f} s + search open "
+            f"{search_open_s:.2f} s; events equal, {len(rag_after)} GraphRAG answers bitwise "
+            f"those before the close, 0 re-embedded ({card})")
+        out["restart"] = c
+        out["launches"] = path
+        log(f"cypher path launches: {path}")
+        if min(path.values()) < 1:
+            raise AssertionError(f"a kernel of the Cypher path never launched: {path}")
+        return path
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 # -- driver ----------------------------------------------------------------
 
 
@@ -2425,6 +2937,11 @@ def main() -> int:
     path_launches["durable"] = phase_durable(dev, corpus)
     del corpus
     lap("durable")
+    # a run near the chip call's limit shortens (a)'s windows, not its graph
+    late = time.perf_counter() - t_start + CYPHER_PHASE_S > RUN_LIMIT_S
+    window_s = 0.5 if late else LDBC_WINDOW_S
+    path_launches["cypher"] = phase_cypher(dev, args.seed, card, window_s=window_s)
+    lap("cypher")
     REPORT["total_s"] = time.perf_counter() - t_start
 
     def path_sum(name):

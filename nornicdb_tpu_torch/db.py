@@ -1,5 +1,5 @@
-"""DB facade: open / store / flush / search / recall / forget / close
-(counterpart of ``nornicdb_tpu/db.py:DB``).
+"""DB facade: open / store / link / neighbors / cypher / flush / search /
+recall / forget / close (counterpart of ``nornicdb_tpu/db.py:DB``).
 
 The engine chain is the reference's: a base engine (``MemoryEngine``
 without a data dir; with one, the native KV ``DiskEngine`` or the WAL +
@@ -11,9 +11,13 @@ default embedder (the committed mini encoder, or ``HashEmbedder`` when no
 checkpoint exists), whose identity a data dir records in
 ``embedder.json`` and keeps on reopen. The search service indexes them
 and, with a data dir, persists its indexes under ``data_dir/search``.
-Encryption at rest, replication, Cypher and the graph surfaces wait for
-later slices: ``passphrase`` and ``replication`` raise
-``NotPortedError``.
+``cypher`` runs the Cypher executor over the same storage; its
+``db.index.vector.queryNodes`` reads the search service, and writes
+arriving outside Cypher invalidate the executor's caches through a
+storage listener. ``multidb_manager`` hosts more databases on the chain
+below the namespace. Encryption at rest and replication wait for later
+slices: ``passphrase`` and ``replication`` raise ``NotPortedError``;
+``graph_vector_search`` and ``remember`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,10 +35,13 @@ from nornicdb_tpu_torch.errors import NotPortedError
 from nornicdb_tpu_torch.storage import (
     DEFAULT_DB,
     AsyncEngine,
+    Direction,
     DurableEngine,
+    Edge,
     Engine,
     ListenableEngine,
     MemoryEngine,
+    MutationListener,
     NamespacedEngine,
     Node,
     make_persistent_engine,
@@ -83,11 +90,14 @@ class DB:
             base = MemoryEngine()
         self._base = base
         chain: Engine = AsyncEngine(base) if async_writes else base
+        self._chain = chain  # below the namespace: multidb roots here
         # the listener layer sits on top, so callbacks carry logical ids
         self._listenable = ListenableEngine(NamespacedEngine(chain, DEFAULT_DB))
         self.storage = self._listenable
         self._lock = threading.Lock()
         self._closed = False
+        self._db_manager = None
+        self._executor = None
         self._search = None
         if embedder is None:
             try:
@@ -171,6 +181,23 @@ class DB:
         return CachedEmbedder(inner)
 
     @property
+    def executor(self):
+        """The Cypher executor, built on first use. Writes arriving
+        outside Cypher (``store``, ``link``, the embed queue's write-backs)
+        invalidate its query cache and columnar snapshot through a storage
+        listener; the executor skips its own writes there."""
+        with self._lock:
+            if self._executor is None:
+                from nornicdb_tpu_torch.query.executor import CypherExecutor
+
+                ex = CypherExecutor(self.storage)
+                if self._search is not None:
+                    ex.set_search_service(self._search)
+                self._listenable.add_listener(_CacheInvalidator(ex))
+                self._executor = ex
+            return self._executor
+
+    @property
     def search(self):
         """The search service, built on first use and backfilled from
         storage (nodes stored before it existed)."""
@@ -191,6 +218,8 @@ class DB:
                 except BaseException:
                     self._search = None
                     raise
+                if self._executor is not None:
+                    self._executor.set_search_service(svc)
             return self._search
 
     def _on_embedded(self, node: Node) -> None:
@@ -230,6 +259,40 @@ class DB:
                 pass
         return self.storage.get_node(nid)
 
+    def link(
+        self,
+        from_id: str,
+        to_id: str,
+        rel_type: str = "RELATES_TO",
+        properties: Optional[Dict[str, Any]] = None,
+        edge_id: Optional[str] = None,
+    ) -> Edge:
+        """Create a relationship between two stored nodes."""
+        eid = edge_id or str(uuid.uuid4())
+        self.storage.create_edge(Edge(id=eid, type=rel_type, start_node=from_id,
+                                      end_node=to_id, properties=dict(properties or {})))
+        return self.storage.get_edge(eid)
+
+    def neighbors(self, node_id: str, direction: str = Direction.BOTH) -> List[Node]:
+        ids = self.storage.neighbors(node_id, direction)
+        return [n for n in self.storage.batch_get_nodes(ids) if n is not None]
+
+    def cypher(self, query: str, params: Optional[Dict[str, Any]] = None) -> Any:
+        """Execute a Cypher query; a ``CypherResult``."""
+        return self.executor.execute(query, params or {})
+
+    def multidb_manager(self, max_databases: int = 64):
+        """The multi-database manager, built on first use over the chain
+        this DB namespaces, so other databases share its durability."""
+        with self._lock:
+            if self._db_manager is None:
+                from nornicdb_tpu_torch.multidb import DatabaseManager
+
+                self._db_manager = DatabaseManager(
+                    self._chain, default_database=DEFAULT_DB,
+                    max_databases=max_databases)
+            return self._db_manager
+
     def recall(self, query: str, limit: int = 10, **kw) -> List[Dict[str, Any]]:
         """Hybrid search over stored memories."""
         return self.search.search(query, limit=limit, **kw)
@@ -266,6 +329,25 @@ class DB:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class _CacheInvalidator(MutationListener):
+    """Drops the executor's caches on writes from outside Cypher."""
+
+    def __init__(self, executor):
+        self._ex = executor
+
+    def on_node_upsert(self, node: Node) -> None:
+        self._ex.on_external_node_upsert(node)
+
+    def on_node_delete(self, node_id: str) -> None:
+        self._ex.on_external_mutation()
+
+    def on_edge_upsert(self, edge: Edge) -> None:
+        self._ex.on_external_mutation()
+
+    def on_edge_delete(self, edge_id: str) -> None:
+        self._ex.on_external_mutation()
 
 
 def open(data_dir: Optional[str] = None, device: DeviceLike = None, **kw) -> DB:  # noqa: A001

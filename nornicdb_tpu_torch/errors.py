@@ -1,8 +1,17 @@
-"""Errors the port raises where the reference would run a part that has
-not been ported yet. Each names what is missing, so a store written with
-that part fails loudly instead of opening with it ignored."""
+"""Errors of the Cypher layer, and the errors the port raises where the
+reference would run a part that has not been ported yet. Each of the
+latter names what is missing, so a store or a query that needs that part
+fails loudly instead of running with it ignored."""
 
 from __future__ import annotations
+
+
+class CypherSyntaxError(Exception):
+    """A Cypher query failed to parse."""
+
+
+class CypherRuntimeError(Exception):
+    """A Cypher query failed during execution."""
 
 
 class NotPortedError(NotImplementedError):
@@ -14,8 +23,3 @@ class EncryptedStoreError(NotPortedError):
     records and its native store's sentinel): at-rest encryption is not
     ported."""
 
-
-class TemporalValueError(NotPortedError):
-    """A tagged temporal, duration or point value (``__nornic_value__``)
-    that the reference would revive into a typed value: those types are
-    not ported."""

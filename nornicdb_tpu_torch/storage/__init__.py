@@ -16,6 +16,7 @@ import glob
 import os
 
 from nornicdb_tpu_torch.storage.async_engine import AsyncEngine, FlushResult  # noqa: F401
+from nornicdb_tpu_torch.storage.composite import CompositeEngine  # noqa: F401
 from nornicdb_tpu_torch.storage.memory import MemoryEngine  # noqa: F401
 from nornicdb_tpu_torch.storage.namespaced import DEFAULT_DB, NamespacedEngine  # noqa: F401
 from nornicdb_tpu_torch.storage.types import (  # noqa: F401

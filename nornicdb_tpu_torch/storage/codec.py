@@ -8,12 +8,12 @@ is read too), str, bin, array and map. A list of floats, such as a
 node's embedding, is packed and unpacked with one ``struct`` call over
 the whole run instead of one Python step per value.
 
-Values the reference would turn into typed values are refused: packing
-anything but the plain types raises ``TypeError``, as the reference's
-``encode_value`` does for a type it does not know, and unpacking a map
-of exactly the shape the reference revives into a temporal, duration or
-point value raises ``TemporalValueError`` (those types are not ported);
-any other map comes back unchanged, as the reference returns it.
+Typed property values (temporal, duration and point values of
+``query/temporal_types.py``) pack as the reference's tagged maps
+(``encode_value``, its msgpack ``default=`` hook), and a map of exactly
+such a shape is revived on unpack (``decode_map``, its ``object_hook``);
+any other map comes back unchanged. Anything else that is not a plain
+type raises ``TypeError``, as the reference's ``encode_value`` does.
 """
 
 from __future__ import annotations
@@ -21,12 +21,21 @@ from __future__ import annotations
 import struct
 from typing import Any, Callable, Dict
 
-from nornicdb_tpu_torch.errors import TemporalValueError
+__all__ = ["pack", "unpack"]
 
-__all__ = ["pack", "unpack", "TemporalValueError"]
 
-_TAG = "__nornic_value__"
-_TEMPORAL_KINDS = ("date", "datetime", "localdatetime", "time", "localtime")
+def _typed_default(v: Any) -> Dict[str, Any]:
+    # the query package loads on a record's first typed value, not when
+    # storage is imported, as in the reference's WAL hooks
+    from nornicdb_tpu_torch.query.temporal_types import encode_value
+
+    return encode_value(v)
+
+
+def _typed_hook(m: dict) -> Any:
+    from nornicdb_tpu_torch.query.temporal_types import decode_map
+
+    return decode_map(m)
 
 _B = struct.Struct(">B")
 _BB = struct.Struct(">BB")
@@ -172,7 +181,8 @@ def _pack_into(obj: Any, out: bytearray) -> None:
     elif isinstance(obj, (list, tuple)):
         _pack_array(obj, out)
     else:
-        raise TypeError(f"can not serialize {type(obj).__name__}")
+        # a typed value becomes its tagged map; anything else raises
+        _pack_map(_typed_default(obj), out)
 
 
 def pack(obj: Any) -> bytes:
@@ -183,23 +193,6 @@ def pack(obj: Any) -> bytes:
 
 
 # -- unpack -----------------------------------------------------------------
-
-
-def _revive_check(m: dict) -> dict:
-    """The reference's ``decode_map`` revives a tagged map of exactly
-    these shapes; the port refuses them and returns every other map."""
-    kind = m.get(_TAG)
-    if kind is None:
-        return m
-    keys = set(m)
-    if (kind == "duration" and keys == {_TAG, "m", "d", "s", "n"}) \
-            or (kind == "point" and keys == {_TAG, "x", "y", "z", "crs"}) \
-            or (kind in _TEMPORAL_KINDS and keys == {_TAG, "v"}
-                and isinstance(m["v"], str)):
-        raise TemporalValueError(
-            f"a stored {kind!r} value: temporal, duration and point "
-            "types are not ported yet")
-    return m
 
 
 class _Reader:
@@ -262,7 +255,7 @@ class _Reader:
         for _ in range(n):
             k = self.value()
             d[k] = self.value()
-        return _revive_check(d)
+        return _typed_hook(d)
 
 
 _u8 = struct.Struct(">B")

@@ -445,6 +445,10 @@ class DiskEngine(Engine):
     def count_edges(self) -> int:
         return self.kv.count_prefix(b"e:")
 
+    def count_nodes_by_label(self, label: str) -> int:
+        """Key-only count over the label index (no node fetches)."""
+        return self.kv.count_prefix(b"l:" + label.encode() + _SEP)
+
     def count_nodes_with_prefix(self, prefix: str) -> int:
         """Key-only count through the ordered key index: the namespaced
         engine's count probes for it."""

@@ -208,6 +208,11 @@ class MemoryEngine(Engine):
         with self._lock:
             return edge_id in self._edges
 
+    def count_nodes_by_label(self, label: str) -> int:
+        """Label cardinality without materializing nodes."""
+        with self._lock:
+            return len(self._by_label.get(label, ()))
+
     def count_nodes_with_prefix(self, prefix: str) -> int:
         with self._lock:
             return sum(1 for i in self._nodes if i.startswith(prefix))
@@ -220,3 +225,11 @@ class MemoryEngine(Engine):
         with self._lock:
             return super().delete_by_prefix(prefix)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._nodes.clear()
+            self._edges.clear()
+            self._by_label.clear()
+            self._by_type.clear()
+            self._out.clear()
+            self._in.clear()

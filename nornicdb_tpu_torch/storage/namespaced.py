@@ -5,8 +5,8 @@ Prefixes every node and edge id with ``dbname:`` on the way in and strips
 it on the way out, so one store can host many logical databases. The DB
 wraps its chain in ``NamespacedEngine(chain, "neo4j")``, as the reference
 does, so ids on disk carry the ``neo4j:`` prefix and each package opens
-the other's data dirs. Only the default database is used until
-multi-database support is ported.
+the other's data dirs. ``multidb.py``'s ``DatabaseManager`` hosts more
+databases on the same chain, one namespace each.
 """
 
 from __future__ import annotations
@@ -177,6 +177,10 @@ class NamespacedEngine(EngineDecorator):
     # These would otherwise fall through EngineDecorator.__getattr__
     # unqualified, seeing every database; each is re-scoped here.
 
+    def count_nodes_by_label(self, label: str) -> int:
+        # the inner count spans all namespaces
+        return len(self.node_ids_by_label(label))
+
     def count_nodes_with_prefix(self, prefix: str) -> int:
         return self.inner.count_nodes_with_prefix(self._prefix + prefix)
 
@@ -185,3 +189,7 @@ class NamespacedEngine(EngineDecorator):
 
     def delete_by_prefix(self, prefix: str) -> Tuple[int, int]:
         return self.inner.delete_by_prefix(self._prefix + prefix)
+
+    def clear(self) -> None:
+        # this database only, not the store under it
+        self.inner.delete_by_prefix(self._prefix)

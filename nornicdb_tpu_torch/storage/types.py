@@ -5,8 +5,7 @@ mutation-listener layer (counterpart of
 The contract holds node and edge CRUD, label and edge-type lookups,
 adjacency, counts, batched reads and ``delete_by_prefix``: every engine
 stores edges, and a data dir holds edge records, so the contract needs
-them before the graph surfaces do. Namespace listing waits with
-multi-database support. All engines are thread-safe.
+them before the graph surfaces do. All engines are thread-safe.
 """
 
 from __future__ import annotations
@@ -221,6 +220,23 @@ class Engine(ABC):
     def degree(self, node_id: NodeID, direction: str = Direction.BOTH) -> int:
         return len(self.get_node_edges(node_id, direction))
 
+    def neighbors(
+        self, node_id: NodeID, direction: str = Direction.BOTH
+    ) -> List[NodeID]:
+        out: List[NodeID] = []
+        for e in self.get_node_edges(node_id, direction):
+            if e.start_node == node_id and direction in (
+                Direction.OUTGOING,
+                Direction.BOTH,
+            ):
+                out.append(e.end_node)
+            if e.end_node == node_id and direction in (
+                Direction.INCOMING,
+                Direction.BOTH,
+            ):
+                out.append(e.start_node)
+        return out
+
     # -- counts / maintenance -------------------------------------------
 
     @abstractmethod
@@ -251,6 +267,14 @@ class Engine(ABC):
             except KeyError:
                 pass
         return len(nodes), len(edges)
+
+    def list_namespaces(self) -> List[str]:
+        """The distinct ``db:`` prefixes of the stored node ids."""
+        seen = set()
+        for n in self.all_nodes():
+            if ":" in n.id:
+                seen.add(n.id.split(":", 1)[0])
+        return sorted(seen)
 
     def flush(self) -> None:
         """Flush buffered writes (no-op for synchronous engines)."""
@@ -338,6 +362,9 @@ class EngineDecorator(Engine):
     def delete_by_prefix(self, prefix: str) -> Tuple[int, int]:
         return self.inner.delete_by_prefix(prefix)
 
+    def list_namespaces(self) -> List[str]:
+        return self.inner.list_namespaces()
+
     def flush(self) -> None:
         self.inner.flush()
 
@@ -359,7 +386,7 @@ class MutationListener:
 
     def on_bulk_change(self) -> None:
         """A bulk mutation that carries no per-entity events
-        (``delete_by_prefix``)."""
+        (``clear``, ``delete_by_prefix``)."""
 
 
 class ListenableEngine(EngineDecorator):
@@ -415,3 +442,8 @@ class ListenableEngine(EngineDecorator):
         for listener in self._each():
             listener.on_bulk_change()
         return out
+
+    def clear(self) -> None:
+        self.inner.clear()
+        for listener in self._each():
+            listener.on_bulk_change()

@@ -266,6 +266,18 @@ class WAL:
                 continue
         return None, 0
 
+    def iter_records(self, from_seq: int = 0) -> List[Dict[str, Any]]:
+        """The records (seq included) with seq > ``from_seq``, in log
+        order, read under the lock (so auto-compaction cannot prune a
+        segment midway); no tail repair. ``db.txlog.entries`` reads it."""
+        out: List[Dict[str, Any]] = []
+        with self._lock:
+            for path in self._segment_paths():
+                for rec, _ in _iter_records(path, self._decode):
+                    if rec.get("seq", 0) > from_seq:
+                        out.append(rec)
+        return out
+
     def replay(
         self, apply: Callable[[str, Dict[str, Any]], None], from_seq: int = 0
     ) -> ReplayResult:
@@ -330,8 +342,8 @@ def _iter_records(path: str, decode: Callable[[bytes], Any], skip_to: Optional[i
     corrupt or torn frame. With ``skip_to``, a record whose seq is at most
     it (a snapshot covers it) yields None in place of the record, without
     being decoded. A record the port cannot read by design (an encrypted
-    or temporal one) raises instead of passing for a torn log, which
-    replay would truncate."""
+    one) raises instead of passing for a torn log, which replay would
+    truncate."""
     try:
         with open(path, "rb") as f:
             off = 0
