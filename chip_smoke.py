@@ -144,13 +144,55 @@ Phases, in order; any failure exits non-zero:
    node re-embedded; then ``multidb_manager`` creates two databases,
    writes to each, checks their counts are isolated and drops one. The
    launches of (b) and (c) are the kernels line's ``launches_cypher``.
+8. Quant and tiered (``NORNICDB_VECTOR_QUANT``, ``NORNICDB_VECTOR_TIERED``,
+   each set for the block and restored). (b) runs right after phase 5, on
+   its 1,048,576 x 1024 index: the int8 plane's build by part, its device
+   bytes against the ``memory_allocated`` delta (within 1 MB), bytes per
+   vector against float32's, the transient peak of a B 64 batch
+   (``max_memory_allocated``), p50 of 32 single queries and of 3 batches
+   of 64 (k 10), recall@10 >= 0.95 against B1 (``exact=True``, computed
+   before the counts are set to 0); the int8 path launches neither
+   kernel, so its launches (``launches_quant_index``) must be 0.
+   (a) runs last, over phase 4's corpus (100,000 bf16 embeddings, a
+   131,072 x 160 index, its BM25 index and 64 queries embedded again):
+   for int8 and PQ each, a fresh index's plane (built inline) with the
+   same records, 64 queries one at a time and one batch of 64 through
+   ``search_batch``, every answer's scores within 1e-5 of the exact
+   float32 cosines, recall@10 >= 0.95 against B1, the plane's
+   ``dispatch`` count for every batch and no step-down, and the float32
+   pair never uploaded; then the fused hybrid tier over that plane (walk
+   off: every query served by ``hybrid_brute_<mode>``), the ``cagra``
+   profile's strategy build over a quantized graph base (B1 k-NN, then
+   the base quantized; vector queries through the service's batcher into
+   the quantized walk, recall@10 >= 0.95) and the fused walk tier on that
+   graph (every query ``hybrid_walk_quant``), each with walk-parity
+   >= 0.95 against the host hybrid ranking and a ``torch.profiler`` count
+   of one B 1 walk's kernels. Last the tiered plane, half of its
+   partitions resident, under a ``SearchService`` whose HNSW threshold
+   lies above the corpus: each query through
+   ``vector_search_candidates(qv, 30, lexical_doc_ids=<its BM25 top
+   32>)`` (the ``tiered_route``). Routing, at ``NORNICDB_TIERED_NPROBE=20``
+   (this corpus misses recall 0.95 at the default 8): an answer that
+   probed cold partitions must agree with an exact host scan of them
+   (cold parity 1.0), recall@10 >= 0.95. Paging, at the default 8 (its
+   recall@10 printed): the pager is drained and the same query asked
+   again must be served from the slabs (no cold scan). Then 8 hybrid
+   searches on the host path (``NORNICDB_HYBRID_FUSED=0``), each text
+   embedded by the service, must route through the tiered plane too. It
+   prints partitions, resident device bytes against the
+   ``memory_allocated`` delta, bytes on disk (a temporary directory,
+   removed after), promotions and evictions. Its launches
+   (``launches_quant``) are counted after the queries are embedded and
+   the exact answers computed, and must be exactly the paths' own: B1
+   for the two graph builds' k-NN, B2 for the 8 hybrid searches.
 
 Timing uses CUDA events over back-to-back calls, and ``torch.profiler``
 for the device time of each kernel per call: B1 by stage and its library
 call (matmul + where + topk) at B in ``MAIN_TIMED_B`` on the main path's
 index, at the graph build's shape (B 1,024 of the rows, k 33), and at
 ``INDEX_TIMED`` on the deployment-scale one, B2 and SDPA at the shapes in
-``ATTN_TIMED``. The second-to-last line is a JSON object with
+``ATTN_TIMED``; the quantized walks' kernels per B 1 call in phase 8. The
+second-to-last line is a JSON object with
 one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A copy of every measurement goes to ``chiprun_out/chip_smoke_report.json``.
@@ -219,6 +261,7 @@ RUN_LIMIT_S = 1200.0  # the whole run must end within this
 # H100; a run that could not fit it before the limit measures (a)'s
 # shapes for 0.5 s each instead (its graph keeps its size)
 CYPHER_PHASE_S = 240.0
+QUANT_PHASE_S = 260.0  # phase 8 (a)'s length (206-237 s on an H100 80GB, 700 W), with room
 
 REPORT: dict = {}
 
@@ -1098,6 +1141,7 @@ def phase_main_path(dev, seed, n_docs):
     nodes = db.storage.batch_get_nodes([f"d{i}" for i in range(n_docs)])
     corpus = (docs, queries, np.asarray([n.embedding for n in nodes], np.float32))
     del nodes
+    bm25 = svc.bm25  # host state; phase 8 reads it after the close
     db.close()
     # each path's launches, its counts set to 0 just before it
     path_launches = {"one_at_a_time": launches, "concurrent": conc["launches"],
@@ -1107,7 +1151,7 @@ def phase_main_path(dev, seed, n_docs):
             "cosine_topk": brute["cosine_topk_launches"],
             "flash_attention": brute["flash_attention_launches"]}
         path_launches["concurrent_exact_tier"] = conc_exact["launches"]
-    return path_launches, vecs, graph, corpus
+    return path_launches, vecs, graph, corpus, bm25
 
 
 def check_walk_answers(fused, trios, queries, qvs, host_lex, exact30):
@@ -1927,9 +1971,8 @@ def phase_index(dev, seed, n_rows, card):
         row["launches_per_search"] = 1
         rows.append(row)
     REPORT["index"] = {"rows": len(idx), "dims": d, "fill_s": fill_s, "timings": rows}
-    del idx, m, valid
-    torch.cuda.empty_cache()
-    return rows
+    del m, valid
+    return idx  # phase 8 (b) quantizes it next
 
 
 # -- phase 6: durable ------------------------------------------------------
@@ -2879,6 +2922,511 @@ def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S):
 # -- driver ----------------------------------------------------------------
 
 
+# -- phase 8: quant and tiered ---------------------------------------------
+
+QUANT_MODES = ("int8", "pq")
+QUANT_MEM_SLACK = 1 << 20  # a plane's device bytes against the memory_allocated delta
+QUANT_SCORE_ATOL = 1e-5  # answered scores are exact float32 cosines (host products)
+QUANT_TIMED_B1 = 32  # single-query searches timed on the deployment-scale index
+QUANT_B64_REPEATS = 3
+TIERED_PART_ROWS = 4096  # NORNICDB_TIERED_PART_ROWS, the reference's default
+# NORNICDB_TIERED_NPROBE for the routing pass. The corpus's embeddings
+# have no cluster structure for its 24 partitions to follow: at the
+# default, 8 (the paging pass reads its recall), recall@10 falls well
+# below 0.95; 20 holds it (ROADMAP C24). The paging pass runs at the
+# default, whose probes fit the resident half of the slabs.
+TIERED_ROUTING_NPROBE = 20
+
+
+class env_scope:
+    """Set ``NORNICDB_*`` switches for a block and restore them after."""
+
+    def __init__(self, **knobs):
+        self.knobs = {"NORNICDB_" + k: str(v) for k, v in knobs.items()}
+        self.old = {}
+
+    def __enter__(self):
+        for k, v in self.knobs.items():
+            self.old[k] = os.environ.get(k)
+            os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pctl(xs, p):
+    return float(np.percentile(np.asarray(xs), p))
+
+
+def timed_calls(fn, args):
+    """Host milliseconds of ``fn(a)`` per ``a`` (card synchronized), and
+    the answers."""
+    import torch
+
+    lat, out = [], []
+    for a in args:
+        t = time.perf_counter()
+        out.append(fn(a))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    return lat, out
+
+
+def exact_scores_hold(hits_rows, qvs, brute):
+    """Largest gap between an answered score and the exact float32 cosine
+    of its row (host product)."""
+    qn = qvs / np.linalg.norm(qvs, axis=1, keepdims=True)
+    worst = 0.0
+    for r, hits in enumerate(hits_rows):
+        for eid, s in hits:
+            worst = max(worst, abs(s - float(qn[r] @ brute.get(eid))))
+    return worst
+
+
+def quant_plane_block(dev, mode, items, qvs, exact10):
+    """One quantized plane over a fresh copy of the main path's rows: the
+    build by part, its device bytes against memory_allocated, 64 queries
+    one at a time and one batch of 64, recall and exact scores; the
+    float32 pair must not go up for a quant-served batch."""
+    import torch
+
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    brute = BruteForceIndex(device=dev)
+    brute.add_batch(items)
+    mem0 = device_memory()
+    plane = brute.quant_plane()
+    if plane is None:
+        raise AssertionError(f"{mode}: no quantized plane over {len(brute)} rows")
+    t0 = time.perf_counter()
+    plane.build()
+    build_s = time.perf_counter() - t0
+    alloc = device_memory() - mem0
+    dev_bytes = plane.device_bytes()
+    snap = plane._snap
+    lat, hits = timed_calls(lambda q: brute.search_batch(q[None, :], 10)[0], qvs)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    batch = brute.search_batch(qvs, 10)
+    torch.cuda.synchronize()
+    b64_ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    uploaded = brute._dev_matrix is not None
+    counts = dict(plane.counts)
+    kernels = {}
+    split = device_split(lambda: brute.search_batch(qvs[:1], 10), iters=3, launches=kernels)
+    out = {
+        "mode": mode, "rows": len(brute), "capacity": snap["capacity"], "dims": snap["dims"],
+        "build_s": build_s, "build_split_s": plane.build_s, "device_bytes": dev_bytes,
+        "memory_allocated_delta": alloc, "bytes_per_vector": dev_bytes / snap["capacity"],
+        "f32_bytes_per_vector": snap["dims"] * 4 + 1, "pool_k10": plane.pool_for(10, snap),
+        "p50_ms": pctl(lat, 50), "p99_ms": pctl(lat, 99), "b64_ms": b64_ms,
+        "b64_peak_transient_bytes": peak, "counts": counts,
+        "b1_device_ms": sum(split.values()), "b1_kernels": sum(kernels.values()),
+        "recall_at_10": float(np.mean([recall10(g, w) for g, w in zip(hits, exact10)])),
+        "b64_recall_at_10": float(np.mean([recall10(g, w) for g, w in zip(batch, exact10)])),
+        "max_score_gap": exact_scores_hold(hits, qvs, brute),
+        "f32_uploaded_by_quant_batches": uploaded,
+    }
+    if mode == "pq":
+        out["pq_m"] = snap["pq_m"]
+    log(f"quant {mode}: plane over {out['rows']} x {out['dims']} (capacity {out['capacity']}) "
+        f"built in {build_s:.3f} s {json.dumps({k: round(v, 3) for k, v in plane.build_s.items()})}"
+        f"; {dev_bytes} device bytes against a memory_allocated delta of {alloc}; "
+        f"{out['bytes_per_vector']:.2f} B/vector against f32's {out['f32_bytes_per_vector']}; "
+        f"64 queries p50 {out['p50_ms']:.3f} p99 {out['p99_ms']:.3f} ms (pool "
+        f"{out['pool_k10']}; B 1: {out['b1_kernels']:.0f} kernels, {out['b1_device_ms']:.4f} "
+        f"device ms), B 64 {b64_ms:.3f} ms (transient peak {peak} B); recall@10 "
+        f"{out['recall_at_10']:.4f} (B 64 {out['b64_recall_at_10']:.4f}), scores within "
+        f"{out['max_score_gap']:.2e} of exact; counts {counts}")
+    if abs(alloc - dev_bytes) > QUANT_MEM_SLACK:
+        raise AssertionError(f"{mode}: device bytes {dev_bytes} vs memory_allocated {alloc}")
+    if uploaded:
+        raise AssertionError(f"{mode}: a quant-served batch uploaded the float32 matrix")
+    if counts.get("dispatch") != len(qvs) + 1 or any(k.startswith("degrade") for k in counts):
+        raise AssertionError(f"{mode}: the plane did not serve every batch: {counts}")
+    if min(out["recall_at_10"], out["b64_recall_at_10"]) < RECALL_MIN:
+        raise AssertionError(f"{mode}: recall@10 {out['recall_at_10']:.4f} < {RECALL_MIN}")
+    if out["max_score_gap"] > QUANT_SCORE_ATOL:
+        raise AssertionError(f"{mode}: an answered score is {out['max_score_gap']} off exact")
+    return brute, out
+
+
+def fused_rows_timed(fused, qvs, extras):
+    """Each query alone through the fused tier: host ms and its row."""
+    from nornicdb_tpu_torch.search.microbatch import pow2_bucket
+
+    return timed_calls(lambda i: fused.search_batch(qvs[i:i + 1], pow2_bucket(30),
+                                                    extras[i:i + 1])[0], range(len(qvs)))
+
+
+def hybrid_parity(rows, host):
+    """Walk-parity: each fused top 10 against the host hybrid ranking."""
+    return float(np.mean([recall10(r["fused"], h) for r, h in zip(rows, host)]))
+
+
+def quant_fused_block(dev, mode, brute, bm25, qvs, extras, host_hybrid, exact10, walk_min_n):
+    """The fused hybrid tier over the plane (walk off), then the cagra
+    profile over a quantized graph base, then the fused walk on that
+    graph: p50/p99, tiers, walk-parity and recall."""
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_WALK_QUANT, FusedHybrid, quant_tier
+    from nornicdb_tpu_torch.search.service import SearchService
+
+    fused = FusedHybrid(bm25, brute, min_n=1, build_inline=True)
+    t0 = time.perf_counter()
+    fused.build()
+    snap_s = time.perf_counter() - t0
+    lat, rows = fused_rows_timed(fused, qvs, extras)
+    served = {r["served_by"] for r in rows}
+    out = {"snapshot_build_s": snap_s, "brute_p50_ms": pctl(lat, 50),
+           "brute_p99_ms": pctl(lat, 99), "brute_parity": hybrid_parity(rows, host_hybrid),
+           "brute_served": sorted(served)}
+    if served != {quant_tier(mode)} or fused.counts["quant_dispatch"] != len(qvs):
+        raise AssertionError(f"{mode}: fused queries not all on the quant tier: "
+                             f"{dict(fused.counts)}")
+    # the cagra profile over a quantized base: the strategy machine's build
+    with env_scope(VECTOR_ANN_QUALITY="cagra"):
+        prof = SearchService(device=dev, hnsw_threshold=min(10_000, len(brute)))
+        prof.vectors = brute
+        t0 = time.perf_counter()
+        with prof._lock:
+            prof._maybe_switch_strategy()
+        graph_s = time.perf_counter() - t0
+    cg = prof.cagra
+    if cg is None or cg._graph["quant"] is None or cg._graph["quant"]["mode"] != mode:
+        raise AssertionError(f"{mode}: the cagra profile did not build a quantized base")
+    lat_v, vec = timed_calls(lambda q: prof.vector_search_candidates(q, 10), qvs)
+    fallbacks = {k: v for k, v in cg.counts.items() if k.startswith("fallback_")}
+    walk_kernels = {}
+    split = device_split(lambda: cg.search_batch(qvs[:1], 10), iters=3, launches=walk_kernels)
+    out.update(graph_build_s=graph_s, graph_build_split_s=cg.build_s,
+               graph_device_bytes=cg.device_bytes(), graph_iters=cg._graph["iters"],
+               profile_p50_ms=pctl(lat_v, 50), profile_p99_ms=pctl(lat_v, 99),
+               profile_recall=float(np.mean([recall10(g, w) for g, w in zip(vec, exact10)])),
+               profile_walks=cg.counts["walk"], profile_fallbacks=fallbacks,
+               walk_b1_device_ms=sum(split.values()),
+               walk_b1_kernels=sum(walk_kernels.values()))
+    if cg.counts["walk"] < len(qvs) or fallbacks or out["profile_recall"] < RECALL_MIN:
+        raise AssertionError(f"{mode}: cagra profile walks {dict(cg.counts)}, recall "
+                             f"{out['profile_recall']:.4f}")
+    # the fused walk over the same graph
+    fused.walk_min_n = walk_min_n
+    fused.rebind_cagra(cg)
+    lat_w, rows_w = fused_rows_timed(fused, qvs, extras)
+    served = {r["served_by"] for r in rows_w}
+    w_kernels = {}
+    from nornicdb_tpu_torch.search.microbatch import pow2_bucket
+
+    w_split = device_split(lambda: fused.search_batch(qvs[:1], pow2_bucket(30), extras[:1]),
+                           iters=3, launches=w_kernels)
+    out.update(walk_p50_ms=pctl(lat_w, 50), walk_p99_ms=pctl(lat_w, 99),
+               walk_parity=hybrid_parity(rows_w, host_hybrid), walk_served=sorted(served),
+               fused_walk_b1_device_ms=sum(w_split.values()),
+               fused_walk_b1_kernels=sum(w_kernels.values()),
+               counts=dict(fused.counts))
+    log(f"quant {mode} fused: snapshot {snap_s:.3f} s; brute tier p50 {out['brute_p50_ms']:.3f} "
+        f"p99 {out['brute_p99_ms']:.3f} ms, walk-parity {out['brute_parity']:.4f}; cagra "
+        f"profile graph {graph_s:.3f} s {json.dumps({k: round(v, 3) for k, v in cg.build_s.items()})}"
+        f", {out['graph_device_bytes']} device bytes, vector p50 {out['profile_p50_ms']:.3f} "
+        f"p99 {out['profile_p99_ms']:.3f} ms, recall@10 {out['profile_recall']:.4f}, one walk "
+        f"B 1: {out['walk_b1_kernels']:.0f} kernels, {out['walk_b1_device_ms']:.4f} device ms; "
+        f"fused walk p50 {out['walk_p50_ms']:.3f} p99 {out['walk_p99_ms']:.3f} ms, walk-parity "
+        f"{out['walk_parity']:.4f}, B 1: {out['fused_walk_b1_kernels']:.0f} kernels, "
+        f"{out['fused_walk_b1_device_ms']:.4f} device ms")
+    if served != {TIER_WALK_QUANT} or min(out["brute_parity"], out["walk_parity"]) < RECALL_MIN:
+        raise AssertionError(f"{mode}: fused walk {sorted(served)}, parity "
+                             f"{out['brute_parity']:.4f} / {out['walk_parity']:.4f}")
+    return out
+
+
+COLD_ATOL = 1e-6  # the host products of the plane and of the check
+TIERED_HYBRID_SEARCHES = 8  # host-path hybrid searches through the tiered route
+
+
+def cold_parity(hits, qn, cold, tiered, brute):
+    """1.0 when the answer agrees with an exact host scan of the query's
+    cold probed partitions: every row there scoring above the k-th answer
+    is in the answer, and every answered row from there carries its exact
+    score."""
+    snap = tiered._snap
+    slots = np.concatenate([snap["part_slots"][p] for p in cold])
+    rows, alive, ids = brute.rows_for_slots(slots)
+    scores = rows @ qn
+    exact = {ids[j]: float(scores[j]) for j in range(len(slots)) if alive[j] and ids[j]}
+    kth = hits[-1][1]
+    got = dict(hits)
+    ok = all(e in got for e, s in exact.items() if s > kth + COLD_ATOL)
+    ok = ok and all(abs(s - exact[e]) <= COLD_ATOL for e, s in got.items() if e in exact)
+    return 1.0 if ok else 0.0
+
+
+def drain_pager(plane):
+    while plane.paging:
+        time.sleep(0.002)
+
+
+def tiered_block(dev, items, bm25, queries, qvs, exact10, embedder):
+    """The tiered plane (half the partitions resident) under a service
+    whose HNSW threshold lies above the corpus, every request through
+    ``vector_search_candidates`` with the query's BM25 top 32. Routing:
+    each query once at ``TIERED_ROUTING_NPROBE`` (set by the reference's
+    knob), its cold probes scanned exactly on the host (cold parity),
+    recall@10. Paging: at the default nprobe, which the resident slabs
+    can hold, each query (its recall@10 recorded), the pager drained,
+    then the same query again, which the slabs must serve. The pager is
+    drained between queries, so no promotion lands while one is in
+    flight. Last, hybrid searches on the host path, each query's text
+    embedded by the service (B2)."""
+    import torch
+
+    from nornicdb_tpu_torch.ops.similarity import l2_normalize
+    from nornicdb_tpu_torch.search.service import SearchService
+    from nornicdb_tpu_torch.search.tiered_store import TIERED_NPROBE
+
+    n = len(items)
+    parts = max(2, min(128, n // TIERED_PART_ROWS))  # the plane's own rule
+    with env_scope(VECTOR_TIERED=1, TIERED_INLINE_BUILD=1, TIERED_PART_ROWS=TIERED_PART_ROWS,
+                   TIERED_RESIDENT=parts // 2, TIERED_NPROBE=TIERED_ROUTING_NPROBE,
+                   HYBRID_FUSED=0):
+        svc = SearchService(embedder=embedder, device=dev, hnsw_threshold=n + 1)
+        svc.bm25 = bm25
+        svc.vectors.add_batch(items)
+        mem0 = device_memory()
+        plane = svc.vectors.tiered_plane()
+        t0 = time.perf_counter()
+        plane.build()
+        build_s = time.perf_counter() - t0
+        alloc = device_memory() - mem0
+        snap = plane._snap
+        hints = [[d for d, _ in bm25.search(q, 32)] for q in queries]
+        # normalized as the plane does it, one query at a time on the card
+        qn = np.concatenate([l2_normalize(torch.from_numpy(qvs[i:i + 1]).to(dev)).cpu().numpy()
+                             for i in range(len(qvs))])
+
+        def ask(i):
+            scans = plane.cold_scans
+            t = time.perf_counter()
+            hits = svc.vector_search_candidates(qvs[i], 30, lexical_doc_ids=hints[i])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            cold = plane.cold_scans - scans
+            drain_pager(plane)
+            return hits, ms, cold
+
+        routing_ms, parities, recall, unscanned = [], [], [], 0
+        for i in range(len(qvs)):
+            probes = plane.route(qn[i:i + 1], snap, [hints[i]])[0]
+            cold = [int(p) for p in probes if int(p) not in snap["resident"]]
+            hits, ms, scanned = ask(i)
+            routing_ms.append(ms)
+            recall.append(recall10(hits, exact10[i]))
+            if cold:
+                unscanned += scanned != 1
+                parities.append(cold_parity(hits, qn[i], cold, plane, svc.vectors))
+        # the paging pass at the default, set on the plane: a second plane
+        # would train its PQ codebooks again on the host
+        plane.nprobe = TIERED_NPROBE
+        first_ms, again_ms, paging_recall, cold_first, slab_served = [], [], [], 0, 0
+        for i in range(len(qvs)):
+            hits, ms, scanned = ask(i)
+            first_ms.append(ms)
+            paging_recall.append(recall10(hits, exact10[i]))
+            cold_first += scanned
+            _, ms, scanned = ask(i)
+            again_ms.append(ms)
+            slab_served += scanned == 0
+        routes0 = svc.vector_routes["tiered_route"]
+        for q in queries[:TIERED_HYBRID_SEARCHES]:
+            svc.search(q, limit=10, mode="hybrid", enrich=False)
+            drain_pager(plane)
+        hybrid_routes = svc.vector_routes["tiered_route"] - routes0
+        stats = plane.resource_stats_extra()
+        out = {"rows": n, "partitions": snap["parts"], "resident": snap["r_slabs"],
+               "slab_rows": snap["slab_rows"], "pq_m": snap["pq_m"],
+               "nprobe": TIERED_ROUTING_NPROBE,
+               "build_s": build_s, "build_split_s": plane.build_s,
+               "device_bytes": snap["device_bytes"], "memory_allocated_delta": alloc,
+               "disk_bytes": stats["disk_bytes"], "capacity_ratio": stats["tiered_capacity_ratio"],
+               "promotions": plane.promotions, "evictions": plane.evictions,
+               "cold_scans": plane.cold_scans, "cold_queries": len(parities),
+               "cold_parity": float(np.mean(parities)) if parities else None,
+               "cold_probes_unscanned": unscanned, "recall_at_10": float(np.mean(recall)),
+               "routing_p50_ms": pctl(routing_ms, 50), "routing_p99_ms": pctl(routing_ms, 99),
+               "paging_nprobe": TIERED_NPROBE, "paging_cold_queries": cold_first,
+               "paging_recall_at_10": float(np.mean(paging_recall)),
+               "slab_served_after_promotion": slab_served,
+               "paging_first_p50_ms": pctl(first_ms, 50), "paging_first_p99_ms": pctl(first_ms, 99),
+               "paging_again_p50_ms": pctl(again_ms, 50), "paging_again_p99_ms": pctl(again_ms, 99),
+               "routes": dict(svc.vector_routes), "hybrid_tiered_routes": hybrid_routes,
+               "counts": dict(plane.counts), "pool_k30": plane.pool_for(30, snap),
+               "f32_uploaded": svc.vectors._dev_matrix is not None}
+        plane.close()
+    log(f"tiered: {out['partitions']} partitions ({out['resident']} resident slabs of "
+        f"{out['slab_rows']}) over {n} rows built in {build_s:.3f} s "
+        f"{json.dumps({k: round(v, 3) for k, v in out['build_split_s'].items()})}; "
+        f"{out['device_bytes']} device bytes against a memory_allocated delta of {alloc}; "
+        f"{out['disk_bytes']} bytes on disk. Routing at nprobe {out['nprobe']}: {len(parities)} "
+        f"of {len(qvs)} queries probed cold partitions, cold parity {out['cold_parity']}, "
+        f"recall@10 {out['recall_at_10']:.4f}, p50 {out['routing_p50_ms']:.3f} p99 "
+        f"{out['routing_p99_ms']:.3f} ms. Paging at nprobe {TIERED_NPROBE}: recall@10 "
+        f"{out['paging_recall_at_10']:.4f}, "
+        f"{cold_first} queries scanned cold partitions, then {slab_served} served from the "
+        f"slabs when asked again; p50 {out['paging_first_p50_ms']:.3f} p99 "
+        f"{out['paging_first_p99_ms']:.3f} ms, again {out['paging_again_p50_ms']:.3f} / "
+        f"{out['paging_again_p99_ms']:.3f} ms; {out['promotions']} promotions, "
+        f"{out['evictions']} evictions; routes {out['routes']} ({hybrid_routes} from hybrid "
+        f"host-path searches); counts {out['counts']}")
+    if abs(alloc - out["device_bytes"]) > QUANT_MEM_SLACK:
+        raise AssertionError(f"tiered: device bytes {out['device_bytes']} vs {alloc}")
+    if out["routes"].get("tiered_route") != 3 * len(qvs) + TIERED_HYBRID_SEARCHES \
+            or hybrid_routes != TIERED_HYBRID_SEARCHES:
+        raise AssertionError(f"tiered: not every request took the tiered route: {out['routes']}")
+    if not parities or out["cold_parity"] != 1.0 or unscanned:
+        raise AssertionError(f"tiered: cold parity {out['cold_parity']} over {len(parities)} "
+                             f"queries, {unscanned} cold probes unscanned")
+    if not cold_first or slab_served != len(qvs):
+        raise AssertionError(f"tiered: {slab_served} of {len(qvs)} re-asked queries served "
+                             f"from the slabs after the pager ({cold_first} scanned cold)")
+    if out["recall_at_10"] < RECALL_MIN or out["f32_uploaded"]:
+        raise AssertionError(f"tiered: recall@10 {out['recall_at_10']:.4f}, f32 uploaded "
+                             f"{out['f32_uploaded']}")
+    return out
+
+
+def phase_quant_tiered(dev, corpus, bm25):
+    """Phase 8 (a): the quantized planes, the quantized fused tiers and
+    graph base, and the tiered plane over the main path's corpus (module
+    docstring). Returns its kernel launches: the counts are set to 0
+    after the queries are embedded and the exact answers computed, so
+    they hold only what the paths launch, and each must be what those
+    paths do: B1 only in the two graph builds' k-NN (one launch per
+    1,024 rows), B2 only in the tiered block's host-path hybrid searches
+    (one launch per encoder layer)."""
+    import torch
+
+    from nornicdb_tpu_torch.models.checkpoint import load_default_embedder
+    from nornicdb_tpu_torch.search.bm25 import tokenize
+    from nornicdb_tpu_torch.search.rrf import rrf_fuse
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    t_phase = time.perf_counter()
+    docs, queries, emb = corpus
+    n = len(emb)
+    items = [(f"d{i}", emb[i]) for i in range(n)]
+    embedder = load_default_embedder(dev)
+    qvs = np.asarray(embedder.embed_batch(queries), np.float32)
+    ref = BruteForceIndex(device=dev)
+    ref.add_batch(items)
+    exact10 = ref.search_batch(qvs, 10, exact=True)
+    exact30 = ref.search_batch(qvs, 30, exact=True)
+    del ref
+    lex30 = [bm25.search(q, 30) for q in queries]
+    host_hybrid = [rrf_fuse([lx, vx], limit=30) if lx else vx
+                   for lx, vx in zip(lex30, exact30)]
+    extras = [{"tokens": tuple(tokenize(q)), "n_cand": 30, "w": (1.0, 1.0)} for q in queries]
+    walk_min_n = min(100_000, max(n // 2, 1))
+    out = {"queries": len(qvs), "rows": n}
+    reset_counts()
+    for mode in QUANT_MODES:
+        with env_scope(VECTOR_QUANT=mode, QUANT_INLINE_BUILD=1):
+            brute, plane_out = quant_plane_block(dev, mode, items, qvs, exact10)
+            plane_out["fused"] = quant_fused_block(dev, mode, brute, bm25, qvs, extras,
+                                                   host_hybrid, exact10, walk_min_n)
+        out[mode] = plane_out
+        del brute
+        torch.cuda.empty_cache()
+    out["tiered"] = tiered_block(dev, items, bm25, queries, qvs, exact10, embedder)
+    launches = read_counts()
+    expected = {"flash_attention": TIERED_HYBRID_SEARCHES * embedder.cfg.num_layers,
+                "cosine_topk": len(QUANT_MODES) * -(-n // 1024)}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    REPORT["quant_tiered"] = out
+    log(f"quant and tiered: the phase took {out['phase_s']:.2f} s; launches {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"phase 8 (a) launched {launches}, its paths launch {expected}")
+    return launches
+
+
+def phase_quant_index(dev, idx, seed):
+    """Phase 8 (b): the int8 plane over phase 5's deployment-scale index:
+    build, bytes per vector, the transient peak of a B 64 batch, p50 at
+    B 1 and B 64, recall@10 against B1 (module docstring). The int8
+    path launches neither kernel (its coarse scan is a matmul): the
+    counts, set to 0 after the exact answers, must stay 0."""
+    import torch
+
+    rng = np.random.default_rng(seed + 8)
+    d = idx.dims
+    qs = (rng.random((64, d), dtype=np.float32) - 0.5).astype(np.float32)
+    exact = idx.search_batch(qs, 10, exact=True)
+    reset_counts()
+    with env_scope(VECTOR_QUANT="int8", QUANT_INLINE_BUILD=1):
+        mem0 = device_memory()
+        plane = idx.quant_plane()
+        t0 = time.perf_counter()
+        plane.build()
+        build_s = time.perf_counter() - t0
+        alloc = device_memory() - mem0
+        lat1, hits1 = timed_calls(lambda q: idx.search_batch(q[None, :], 10)[0],
+                                  qs[:QUANT_TIMED_B1])
+        base = torch.cuda.memory_allocated(dev)
+        lat64 = []
+        for _ in range(QUANT_B64_REPEATS):
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            batch = idx.search_batch(qs, 10)
+            torch.cuda.synchronize()
+            lat64.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        counts = dict(plane.counts)
+        kernels = {}
+        split = device_split(lambda: idx.search_batch(qs[:1], 10), iters=3, launches=kernels)
+        launches = read_counts()
+    snap = plane._snap
+    out = {"rows": len(idx), "dims": d, "capacity": snap["capacity"], "build_s": build_s,
+           "build_split_s": plane.build_s, "device_bytes": plane.device_bytes(),
+           "memory_allocated_delta": alloc,
+           "bytes_per_vector": plane.device_bytes() / snap["capacity"],
+           "f32_bytes_per_vector": d * 4 + 1, "b1_p50_ms": pctl(lat1, 50),
+           "b1_p99_ms": pctl(lat1, 99), "b64_ms": lat64, "b64_p50_ms": pctl(lat64, 50),
+           "b64_peak_transient_bytes": peak, "counts": counts,
+           "b1_device_ms": sum(split.values()), "b1_kernels": sum(kernels.values()),
+           "b1_device_split_ms": split,
+           "recall_at_10": float(np.mean([recall10(g, w) for g, w in zip(batch, exact)])),
+           "b1_recall_at_10": float(np.mean([recall10(g, w)
+                                             for g, w in zip(hits1, exact[:QUANT_TIMED_B1])])),
+           "launches": launches}
+    idx._quant = None
+    del plane, snap
+    torch.cuda.empty_cache()
+    REPORT["quant_index"] = out
+    log(f"quant index: int8 plane over {out['rows']} x {d} built in {build_s:.3f} s "
+        f"{json.dumps({k: round(v, 3) for k, v in out['build_split_s'].items()})}; "
+        f"{out['device_bytes']} device bytes against a memory_allocated delta of {alloc}; "
+        f"{out['bytes_per_vector']:.2f} B/vector against f32's {out['f32_bytes_per_vector']}; "
+        f"B 1 p50 {out['b1_p50_ms']:.3f} p99 {out['b1_p99_ms']:.3f} ms ({out['b1_kernels']:.0f} "
+        f"kernels, {out['b1_device_ms']:.4f} device ms: "
+        f"{json.dumps({k: round(v, 4) for k, v in split.items()})}), B 64 "
+        f"{out['b64_p50_ms']:.3f} ms (transient peak {peak} B); recall@10 "
+        f"{out['recall_at_10']:.4f} (B 1 {out['b1_recall_at_10']:.4f}); counts {counts}")
+    if abs(alloc - out["device_bytes"]) > QUANT_MEM_SLACK:
+        raise AssertionError(f"quant index: device bytes {out['device_bytes']} vs {alloc}")
+    if counts.get("dispatch") != QUANT_TIMED_B1 + QUANT_B64_REPEATS \
+            or min(out["recall_at_10"], out["b1_recall_at_10"]) < RECALL_MIN:
+        raise AssertionError(f"quant index: {counts}, recall {out['recall_at_10']:.4f}")
+    if any(launches.values()):
+        raise AssertionError(f"quant index: the int8 path launched {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2904,7 +3452,7 @@ def main() -> int:
     lap("build")
     phase_kernels(dev, args.seed)
     lap("kernels")
-    path_launches, vecs, graph, corpus = phase_main_path(dev, args.seed, args.docs)
+    path_launches, vecs, graph, corpus, bm25 = phase_main_path(dev, args.seed, args.docs)
 
     # each kernel timed at the shape the main path gives it
     mp = REPORT["main_path"]
@@ -2932,16 +3480,23 @@ def main() -> int:
         f"{mp['launches_per_query']['flash_attention']:.4f} (per text through the encoder)")
 
     lap("main_path")
-    phase_index(dev, args.seed, args.index_rows, card)
+    idx = phase_index(dev, args.seed, args.index_rows, card)
     lap("index")
+    # phase 8 (b) on phase 5's index, while it is on the card
+    path_launches["quant_index"] = phase_quant_index(dev, idx, args.seed)
+    del idx
+    torch.cuda.empty_cache()
+    lap("quant_index")
     path_launches["durable"] = phase_durable(dev, corpus)
-    del corpus
     lap("durable")
     # a run near the chip call's limit shortens (a)'s windows, not its graph
-    late = time.perf_counter() - t_start + CYPHER_PHASE_S > RUN_LIMIT_S
+    late = time.perf_counter() - t_start + CYPHER_PHASE_S + QUANT_PHASE_S > RUN_LIMIT_S
     window_s = 0.5 if late else LDBC_WINDOW_S
     path_launches["cypher"] = phase_cypher(dev, args.seed, card, window_s=window_s)
     lap("cypher")
+    path_launches["quant"] = phase_quant_tiered(dev, corpus, bm25)
+    del corpus, bm25
+    lap("quant_tiered")
     REPORT["total_s"] = time.perf_counter() - t_start
 
     def path_sum(name):

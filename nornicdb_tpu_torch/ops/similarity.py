@@ -8,7 +8,8 @@ stable as the index grows; the chunked variant bounds memory for large C
 by never holding the full [B, C] score matrix.
 
 Ties resolve to the lower index, as ``lax.top_k`` does: every top-k here
-is a stable descending sort.
+is a stable descending sort, or a top-k of ``order_keys`` (the quantized
+planes' wide scans, where a sort of every score would cost more).
 """
 
 from __future__ import annotations
@@ -43,6 +44,36 @@ def topk_stable(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     """Top-k along the last axis; equal scores keep the lower index first."""
     s, i = torch.sort(scores, dim=-1, descending=True, stable=True)
     return s[..., :k], i[..., :k]
+
+
+_LOW32 = 0xFFFFFFFF
+
+
+def order_keys(scores: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """int64 keys of float32 ``scores`` [..., C] whose descending order is
+    (score descending, column + ``offset`` ascending): the score's bits
+    mapped to an order-preserving int32 in the high half, the complement
+    of the index in the low half. Distinct keys make ``torch.topk``'s
+    answer unique, so top-k by keys gives ``lax.top_k``'s ties without a
+    full sort; scans of column chunks merge by taking the top-k of their
+    keys together."""
+    bits = scores.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    idx = torch.arange(offset, offset + scores.shape[-1], device=scores.device)
+    return ordered * (1 << 32) + (_LOW32 - idx)
+
+
+def keys_topk(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` largest keys along the last axis, largest first."""
+    return torch.topk(keys, min(k, keys.shape[-1]), dim=-1).values
+
+
+def unpack_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(float32 scores, int64 indices) of ``order_keys`` keys, bitwise."""
+    ordered = torch.div(keys, 1 << 32, rounding_mode="floor")
+    bits = torch.where(ordered >= 0, ordered, ordered ^ 0x7FFFFFFF)
+    scores = bits.to(torch.int32).contiguous().view(torch.float32)
+    return scores, _LOW32 - (keys & _LOW32)
 
 
 def _cosine_topk_impl(queries, matrix, valid, k):

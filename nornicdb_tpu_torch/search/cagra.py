@@ -24,9 +24,19 @@ of ``nornicdb_tpu/search/cagra.py``, one device, float32).
   changelog that no longer reaches the build, a row left short by the
   live filter), the brute index answers, counted by reason in ``counts``.
 
+Under ``NORNICDB_VECTOR_QUANT`` (int8 or pq) the build quantizes the
+graph's base (``device_quant.quantize_graph_base``): the card holds int8
+PCA-projected codes with their head column and scales, or PQ codes and
+codebooks, and the float32 rows stay on the host. The walk is then
+``_walk_body_quant`` (head prefilter, then the full int8 dot, keeping
+``NORNICDB_QUANT_WALK_KEEP``, by default 3/4 of each expansion) or
+``_walk_body_pq`` (ADC over a pool 4x as wide, at most 1,024), and the
+whole pool is re-scored exactly on the host rows, so every answered score
+is an exact cosine.
+
 ``save``/``load`` keep the vectors only, as the reference's do; the
-graph is rebuilt on demand. The sharded and quantized walks, the audit,
-admission and cost calls and ``resource_stats`` wait for later slices.
+graph is rebuilt on demand. The sharded walks, the audit, admission and
+cost calls and ``resource_stats`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -41,9 +51,16 @@ import numpy as np
 import torch
 
 from nornicdb_tpu_torch._device import DeviceLike
+from nornicdb_tpu_torch.config import env_int
 from nornicdb_tpu_torch.ops.similarity import NEG_INF, l2_normalize, pad_dim, topk_stable
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
 from nornicdb_tpu_torch.search.ann_quality import CAGRA_ITOPK, CAGRA_WIDTH
+from nornicdb_tpu_torch.search.device_quant import (
+    _walk_body_pq,
+    _walk_body_quant,
+    quant_mode,
+    quantize_graph_base,
+)
 from nornicdb_tpu_torch.search.microbatch import pow2_bucket
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
 
@@ -144,6 +161,17 @@ def merge_delta_hits(
     return sorted(merged.items(), key=lambda kv: -kv[1])[:k]
 
 
+def rerank_pool(matrix: np.ndarray, qn: np.ndarray, s: np.ndarray, i: np.ndarray,
+                k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A quantized walk's pool (approximate scores ``s``, rows ``i``
+    [B, P]) re-scored exactly against the host float32 ``matrix``, sorted
+    (stable) and cut to ``k``; never-filled slots stay at NEG_INF."""
+    exact = np.einsum("bpd,bd->bp", matrix[i], qn)
+    exact = np.where(s > 0.5 * NEG_INF, exact, np.float32(NEG_INF)).astype(np.float32)
+    order = np.argsort(-exact, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(exact, order, axis=1), np.take_along_axis(i, order, axis=1)
+
+
 # ---------------------------------------------------------------------------
 # graph construction
 # ---------------------------------------------------------------------------
@@ -232,8 +260,8 @@ class CagraIndex:
     brute index answered at a named step (``itopk_exceeded``,
     ``changelog_overrun``, ``underfill``), ``background_rebuild`` per
     rebuild started off the search path. ``build_s`` splits the latest
-    build into ``device_copy``, ``knn_forward``, ``reorder`` and
-    ``total`` host seconds."""
+    build into ``device_copy``, ``knn_forward``, ``reorder``, ``quantize``
+    and ``total`` host seconds."""
 
     def __init__(
         self,
@@ -339,10 +367,20 @@ class CagraIndex:
         validf = np.zeros((r,), dtype=np.float32)
         validf[:n] = 1.0
         t4 = time.perf_counter()
+        quant = None
+        if quant_mode() != "off":
+            # None: a PQ gap (indivisible dims, too few rows), the f32 base serves
+            quant = quantize_graph_base(mat, self.device)
+            if quant is not None and quant["mode"] == "int8":
+                quant["keep"] = max(8, env_int(
+                    "QUANT_WALK_KEEP", (3 * self.search_width * self.degree) // 4))
+        t_q = time.perf_counter()
         graph = {
             "n": n,
             "rows": r,
-            "matrix": mat_dev,
+            # under quant the float32 rows stay on the host (the rerank's)
+            "matrix": mat if quant is not None else mat_dev,
+            "quant": quant,
             "adj": torch.from_numpy(adj).to(self.device),
             "validf": torch.from_numpy(validf).to(self.device),
             "row_ids": [ext_ids[i] for i in live] + [None] * (r - n),
@@ -353,8 +391,8 @@ class CagraIndex:
         t5 = time.perf_counter()
         self._graph = graph
         self.builds += 1
-        self.build_s = {"device_copy": (t2 - t1) + (t5 - t4), "knn_forward": t3 - t2,
-                        "reorder": t4 - t3, "total": t5 - t0}
+        self.build_s = {"device_copy": (t2 - t1) + (t5 - t_q), "knn_forward": t3 - t2,
+                        "reorder": t4 - t3, "quantize": t_q - t4, "total": t5 - t0}
         return True
 
     def ensure_graph(self) -> Optional[Dict[str, Any]]:
@@ -404,12 +442,20 @@ class CagraIndex:
         return self._graph is not None
 
     def device_bytes(self) -> int:
-        """Bytes of the graph's device arrays (matrix, adjacency, validity)."""
+        """Bytes of the graph's device arrays: adjacency, validity, and the
+        float32 matrix or, under quant, the compressed base (int8: codes,
+        head, scales, rotation; PQ: codes, codebooks)."""
         g = self._graph
         if g is None:
             return 0
-        return sum(g[key].numel() * g[key].element_size()
-                   for key in ("matrix", "adj", "validf"))
+        quant = g["quant"]
+        if quant is None:
+            arrays = [g["matrix"]]
+        elif quant["mode"] == "pq":
+            arrays = [quant["codes"], quant["codebooks"]]
+        else:
+            arrays = [quant[key] for key in ("codes", "codes_head", "scale", "rot_dev")]
+        return sum(a.numel() * a.element_size() for a in arrays + [g["adj"], g["validf"]])
 
     def stats(self) -> Dict[str, Any]:
         g = self._graph
@@ -449,6 +495,10 @@ class CagraIndex:
         if g is None:
             return self._brute.search_batch(queries, k)
         p = itopk or self.itopk
+        quant = g["quant"]
+        if quant is not None and quant["mode"] == "pq" and itopk is None:
+            # ADC noise steers the walk: a pool 4x as wide for the rerank
+            p = min(4 * p, 1024)
         if min(k, g["n"]) > p:
             # the pool only ever holds itopk candidates
             return self._fallback("itopk_exceeded", queries, k)
@@ -464,11 +514,16 @@ class CagraIndex:
         padded = np.concatenate(
             [queries, np.broadcast_to(queries[:1], (bb - b,) + queries.shape[1:])])
         qn = l2_normalize(torch.from_numpy(padded).to(self.device))
-        s, i = walk_body(qn, g["matrix"], g["adj"], g["validf"], kb,
-                         iters if iters is not None else g["iters"],
-                         width or self.search_width, p, self.hash_bits, self.n_seeds)
+        n_iters = iters if iters is not None else g["iters"]
+        w = width or self.search_width
+        if quant is None:
+            s, i = walk_body(qn, g["matrix"], g["adj"], g["validf"], kb, n_iters, w, p,
+                             self.hash_bits, self.n_seeds)
+            s, i = s.cpu().numpy(), i.cpu().numpy()
+        else:
+            s, i = self._walk_quant(g, qn, kb, n_iters, w, p)
         self.counts["walk"] += 1
-        out = self._resolve(g, s[:b].cpu().numpy(), i[:b].cpu().numpy(), k_eff)
+        out = self._resolve(g, s[:b], i[:b], k_eff)
         if delta_ids:
             self.counts["delta_merge"] += 1
             ds = qn[:b].cpu().numpy() @ delta_vecs.T  # stored rows are normalized
@@ -480,6 +535,20 @@ class CagraIndex:
         if any(len(hits) < want for hits in out):
             return self._fallback("underfill", queries, k)
         return out
+
+    def _walk_quant(self, g, qn, kb, n_iters, w, p):
+        """The walk over the quantized base, then the whole pool re-scored
+        exactly on the host's float32 rows: (scores, rows) host arrays
+        [B, kb], best first (ties to the pool's order)."""
+        q = g["quant"]
+        if q["mode"] == "pq":
+            s, i = _walk_body_pq(qn, q["codes"], q["codebooks"], g["adj"], g["validf"],
+                                 p, n_iters, w, p, self.hash_bits, self.n_seeds)
+        else:
+            s, i = _walk_body_quant(qn @ q["rot_dev"], q["codes"], q["codes_head"], q["scale"],
+                                    g["adj"], g["validf"], p, n_iters, w, p, self.hash_bits,
+                                    self.n_seeds, q["keep"])
+        return rerank_pool(g["matrix"], qn.cpu().numpy(), s.cpu().numpy(), i.cpu().numpy(), kb)
 
     def _fallback(self, reason: str, queries: np.ndarray, k: int):
         self.counts["fallback_" + reason] += 1

@@ -1,7 +1,8 @@
 """Fused hybrid search: BM25 + vector + RRF in one device dispatch
 (counterpart of ``nornicdb_tpu/search/hybrid_fused.py:FusedHybrid``, one
-device, float32: its exact tier ``hybrid_brute_f32`` and its walk tier
-``hybrid_walk_f32``).
+device: its exact tier ``hybrid_brute_f32``, its walk tier
+``hybrid_walk_f32``, and their quantized forms ``hybrid_brute_int8`` /
+``hybrid_brute_pq`` and ``hybrid_walk_quant``).
 
 One dispatch takes a coalesced batch's query embeddings and its planned
 lexical entries and returns the RRF-fused ranking with both candidate
@@ -46,8 +47,22 @@ filter left a row short (``underfill``); never to the host. Each named
 rung of the snapshot (changelog overrun, compaction, plan overflow, a
 vector write racing the join map, an empty vector index) hands the batch
 to the host path, counted as ``handoff_<reason>``. Nothing else does: an
-error in planning, dispatch or decode propagates. The quantized and
-sharded tiers wait for later slices.
+error in planning, dispatch or decode propagates.
+
+**Quantized tiers.** Under ``NORNICDB_VECTOR_QUANT`` the vector half reads
+the brute index's quantized plane (``device_quant.py``) instead of the
+float32 pair: the device scores the lexical top-k and a coarse int8 or PQ
+top-``pool`` (the plane's pool), the decode re-scores the pool exactly on
+the host rows, merges writes since the plane's build, and re-fuses every
+row on the host (``rrf_fuse``, bitwise the device fuse's arithmetic): the
+coarse scores rank the pool, never an answer. The walk over a quantized
+graph base (``cagra.py``) does the same with its pool. A quantized tier
+steps down to the float32 tier (never to the host), counted as
+``quant_<reason>``: the plane not built yet (``pending_build``), a
+compaction, a changelog overrun, a write racing the join map
+(``vec_race``), a compaction during the rerank (``rerank_race``), an
+under-filled row (``underfill``). The sharded tiers wait for a later
+slice.
 """
 
 from __future__ import annotations
@@ -62,18 +77,30 @@ from nornicdb_tpu_torch.ops.similarity import NEG_INF, l2_normalize, topk_stable
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
 from nornicdb_tpu_torch.search.ann_quality import current_profile
 from nornicdb_tpu_torch.search.bm25 import BM25Index
-from nornicdb_tpu_torch.search.cagra import CagraIndex, merge_delta_hits, walk_body
+from nornicdb_tpu_torch.search.cagra import CagraIndex, merge_delta_hits, rerank_pool, walk_body
 from nornicdb_tpu_torch.search.device_bm25 import (
     DeviceBM25,
     PlanOverflow,
     SnapshotStale,
     bm25_dense_scores,
 )
+from nornicdb_tpu_torch.search.device_quant import (
+    _int8_topk_impl,
+    _pq_topk_impl,
+    _walk_body_pq,
+    _walk_body_quant,
+    quant_mode,
+)
 from nornicdb_tpu_torch.search.rrf import DEFAULT_RRF_K, rrf_fuse
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
 
 TIER_BRUTE_F32 = "hybrid_brute_f32"
 TIER_WALK_F32 = "hybrid_walk_f32"
+TIER_WALK_QUANT = "hybrid_walk_quant"
+
+
+def quant_tier(mode: str) -> str:
+    return f"hybrid_brute_{mode}"
 
 
 def _pad_cols(x: torch.Tensor, k: int, fill) -> torch.Tensor:
@@ -172,6 +199,45 @@ def walk_fused_single(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
                  gmatrix.shape[0])
 
 
+def fused_single_quant(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
+                       l2v, qn, codes_t, aux, vvalid, kq, pool, mode):
+    """The quantized brute tier's device half (the reference's
+    ``_fused_single_quant``): the lexical top-k and the coarse vector
+    top-``pool`` (``aux``: the int8 scales or the PQ codebooks); no device
+    fuse, since the decode re-fuses over the exact rerank."""
+    ls, _, lgrow = lex_parts(ptr, urow, sel, post_doc, post_tf, doc_len,
+                             alive, avgdl, l2v, kq)
+    topk = _int8_topk_impl if mode == "int8" else _pq_topk_impl
+    vs, vi = topk(qn, codes_t, aux, vvalid, pool)
+    return (_pad_cols(ls, kq, NEG_INF), _pad_cols(lgrow, kq, 0),
+            _pad_cols(vs, pool, NEG_INF), _pad_cols(vi, pool, 0))
+
+
+def walk_fused_single_q(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
+                        l2g, qp, codes, codes_head, scale, gadj, gvalidf, kq,
+                        iters, width, itopk, hash_bits, n_seeds, keep):
+    """The walk tier over an int8 graph base (the reference's
+    ``_walk_fused_single_q``): the lexical top-k and the whole pool of the
+    two-stage walk (``qp``: the PCA-projected queries)."""
+    ls, _, lgrow = lex_parts(ptr, urow, sel, post_doc, post_tf, doc_len,
+                             alive, avgdl, l2g, kq)
+    vs, vi = _walk_body_quant(qp, codes, codes_head, scale, gadj, gvalidf, itopk,
+                              iters, width, itopk, hash_bits, n_seeds, keep)
+    return _pad_cols(ls, kq, NEG_INF), _pad_cols(lgrow, kq, 0), vs, vi
+
+
+def walk_fused_single_pq(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
+                         l2g, qn, codes, codebooks, gadj, gvalidf, kq,
+                         iters, width, itopk, hash_bits, n_seeds):
+    """The walk tier over a PQ graph base (the reference's
+    ``_walk_fused_single_pq``): the lexical top-k and the ADC walk's pool."""
+    ls, _, lgrow = lex_parts(ptr, urow, sel, post_doc, post_tf, doc_len,
+                             alive, avgdl, l2g, kq)
+    vs, vi = _walk_body_pq(qn, codes, codebooks, gadj, gvalidf, itopk, iters, width,
+                           itopk, hash_bits, n_seeds)
+    return _pad_cols(ls, kq, NEG_INF), _pad_cols(lgrow, kq, 0), vs, vi
+
+
 class FusedHybrid:
     """Device-fused hybrid search over a (BM25Index, BruteForceIndex)
     pair, on the brute index's device. State beyond the lexical snapshot
@@ -180,13 +246,15 @@ class FusedHybrid:
     shared with the service's ``cagra`` strategy when it has one); all of
     it re-derives from the live host indexes.
 
-    ``counts``: ``dispatch`` per exact-tier dispatch and ``walk_dispatch``
-    per walk dispatch; per row the tier that served it
-    (``hybrid_brute_f32``, ``hybrid_walk_f32``, or ``host`` for a row
-    re-fused on the host after a post-build write); ``walk_<reason>`` per
-    batch the walk handed to the exact tier; ``handoff_<reason>`` per
-    batch handed to the host path; ``join_full`` and ``join_patch`` per
-    derivation of the row -> slot map."""
+    ``counts``: ``dispatch`` per exact-tier dispatch, ``quant_dispatch``
+    per quantized brute-tier dispatch and ``walk_dispatch`` per walk
+    dispatch; per row the tier that served it (``hybrid_brute_f32``,
+    ``hybrid_brute_int8``, ``hybrid_brute_pq``, ``hybrid_walk_f32``,
+    ``hybrid_walk_quant``, or ``host`` for a row re-fused on the host
+    after a post-build write on a float32 tier); ``walk_<reason>`` and
+    ``quant_<reason>`` per batch handed to a lower tier;
+    ``handoff_<reason>`` per batch handed to the host path; ``join_full``
+    and ``join_patch`` per derivation of the row -> slot map."""
 
     def __init__(
         self,
@@ -342,6 +410,15 @@ class FusedHybrid:
                                        token_rows, extras)
             if rows is not None:
                 return rows
+        # the quantized brute tier; a vetoed batch falls through to float32
+        qctx = self._quant_context()
+        if qctx is not None:
+            rows = self._dispatch_quant(snap, qctx, lex_args, qn, kq, delta, token_rows,
+                                        extras)
+            if rows is not None:
+                return rows
+        # the float32 pair is read only here: a batch a quantized or walk
+        # tier served never uploads it
         view = self.brute.device_view()
         if view is None:
             return self._handoff("vec_empty", b)
@@ -354,6 +431,84 @@ class FusedHybrid:
         self.counts["dispatch"] += 1
         rows = self._decode(snap, vec_ids, delta, token_rows, extras,
                             ls, lgrow, vs, vi, fs, fpos, kq)
+        for row in rows:
+            self.counts[row["served_by"]] += 1
+            row["tier"] = "brute"
+        return rows
+
+    # -- quantized brute tier ---------------------------------------------
+
+    def _quant_context(self) -> Optional[Dict[str, Any]]:
+        """The brute index's quantized plane and its freshness for one
+        batch, or None when the float32 tier serves (each named step
+        counted)."""
+        if quant_mode() == "off":
+            return None
+        brute = self.brute
+        plane = brute.quant_plane()
+        if plane is None:
+            return None
+        qsnap = plane.ensure()
+        if qsnap is None:
+            self.counts["quant_pending_build"] += 1
+            return None
+        if qsnap["built_compactions"] != brute.compactions:
+            self.counts["quant_compaction"] += 1
+            plane._kick_background_rebuild()
+            return None
+        vdelta = brute.changed_since(qsnap["built_mutations"])
+        if vdelta is None:
+            self.counts["quant_changelog_overrun"] += 1
+            plane._kick_background_rebuild()
+            return None
+        ids_view = brute.ids_meta()
+        if ids_view is None or ids_view[2] != qsnap["built_compactions"]:
+            return None
+        ids, mutations, _ = ids_view
+        return {"plane": plane, "qsnap": qsnap, "vdelta": vdelta, "ids": ids,
+                "mutations": mutations}
+
+    def _dispatch_quant(self, snap, qctx, lex_args, qn, kq, delta, token_rows, extras):
+        """One quantized brute-tier dispatch: the decoded rows, or None when
+        the float32 tier must serve the batch."""
+        qsnap = qctx["qsnap"]
+        tier = quant_tier(qsnap["mode"])
+        brute = self.brute
+        l2v = self._ensure_map(snap, qctx["mutations"])
+        if l2v is None:
+            self.counts["quant_vec_race"] += 1
+            return None
+        # the vector half overfetches past kq: the plane's rerank pool
+        pool = qctx["plane"].pool_for(kq, qsnap)
+        aux = qsnap["scale"] if qsnap["mode"] == "int8" else qsnap["codebooks"]
+        out = fused_single_quant(*lex_args, l2v, qn, qsnap["codes_t"], aux, qsnap["valid"],
+                                 kq=kq, pool=pool, mode=qsnap["mode"])
+        ls, lgrow, vs, vi = (x.cpu().numpy() for x in out)
+        # exact rerank on the host's current rows, one lock hold
+        qh = qn.cpu().numpy()
+        uniq = np.unique(vi)
+        got = brute.rows_for_slots(uniq, expect_compactions=qsnap["built_compactions"])
+        if got is None:
+            self.counts["quant_rerank_race"] += 1
+            return None
+        rows_u, alive_u, _ = got
+        inv = np.searchsorted(uniq, vi)
+        vs_e = np.take_along_axis(qh @ rows_u.T, inv, axis=1)
+        ok = (vs > 0.5 * NEG_INF) & alive_u[inv]
+        vs_e = np.where(ok, vs_e, np.float32(NEG_INF)).astype(np.float32)
+        order = np.argsort(-vs_e, axis=1, kind="stable")
+        vs_e = np.take_along_axis(vs_e, order, axis=1)
+        vi = np.take_along_axis(vi, order, axis=1)
+        # writes since the plane's build: scored exactly, merged
+        rows = self._decode(snap, qctx["ids"], delta, token_rows, extras, ls, lgrow, vs_e, vi,
+                            None, None, kq, vec_delta=brute.delta_vectors(qctx["vdelta"]),
+                            qn=qh, force_refuse=True, tier=tier)
+        alive_n = len(brute)
+        if any(len(row["vec"]) < min(int(e["n_cand"]), kq, alive_n)
+               for row, e in zip(rows, extras)):
+            self.counts["quant_underfill"] += 1
+            return None
+        self.counts["quant_dispatch"] += 1
         for row in rows:
             self.counts[row["served_by"]] += 1
             row["tier"] = "brute"
@@ -389,28 +544,48 @@ class FusedHybrid:
                 "stale": self.brute.mutations != g["built_mutations"],
                 "iters": g["iters"], "width": cagra.search_width,
                 "itopk": cagra.itopk, "hash_bits": cagra.hash_bits,
-                "n_seeds": cagra.n_seeds}
+                "n_seeds": cagra.n_seeds,
+                "tier": TIER_WALK_F32 if g["quant"] is None else TIER_WALK_QUANT}
 
     def _dispatch_walk(self, snap, wctx, lex_args, qn, tail, delta, token_rows, extras):
         """One walk-tier dispatch: the decoded rows, or None when the live
         filter (or a walk miss) left a row short of the candidates the
         corpus has, and the exact tier must serve the batch."""
         g = wctx["g"]
+        quant = g["quant"]
         # both sources at the pool's width, not kq: the fuse masks depth by
         # n_cand, and the spare columns give the live filter slack
         kp = wctx["itopk"]
-        out = walk_fused_single(*lex_args, wctx["l2g"], qn, g["matrix"], g["adj"],
-                                g["validf"], *tail, kq=kp, iters=wctx["iters"],
-                                width=wctx["width"], itopk=kp,
-                                hash_bits=wctx["hash_bits"], n_seeds=wctx["n_seeds"])
-        ls, lgrow, vs, vi, fs, fpos = (x.cpu().numpy() for x in out)
+        statics = dict(iters=wctx["iters"], width=wctx["width"], itopk=kp,
+                       hash_bits=wctx["hash_bits"], n_seeds=wctx["n_seeds"])
+        if quant is None:
+            out = walk_fused_single(*lex_args, wctx["l2g"], qn, g["matrix"], g["adj"],
+                                    g["validf"], *tail, kq=kp, **statics)
+            ls, lgrow, vs, vi, fs, fpos = (x.cpu().numpy() for x in out)
+        else:
+            if quant["mode"] == "pq":
+                # a pool 4x as wide: ADC noise steers the walk
+                statics["itopk"] = min(4 * kp, 1024)
+                out = walk_fused_single_pq(*lex_args, wctx["l2g"], qn, quant["codes"],
+                                           quant["codebooks"], g["adj"], g["validf"],
+                                           kq=kp, **statics)
+                kp = statics["itopk"]
+            else:
+                out = walk_fused_single_q(*lex_args, wctx["l2g"], qn @ quant["rot_dev"],
+                                          quant["codes"], quant["codes_head"], quant["scale"],
+                                          g["adj"], g["validf"], kq=kp, **statics,
+                                          keep=quant["keep"])
+            ls, lgrow, vs, vi = (x.cpu().numpy() for x in out)
+            # the whole pool re-scored on the host rows; the decode re-fuses
+            vs, vi = rerank_pool(g["matrix"], qn.cpu().numpy(), vs, vi, vs.shape[1])
+            fs = fpos = None
         self.counts["walk_dispatch"] += 1
         rows = self._decode(snap, g["row_ids"], delta, token_rows, extras,
                             ls, lgrow, vs, vi, fs, fpos, kp,
                             vec_delta=(wctx["delta_ids"], wctx["delta_vecs"]),
                             vec_stale=wctx["stale"],
                             qn=qn.cpu().numpy() if wctx["delta_ids"] else None,
-                            tier=TIER_WALK_F32)
+                            force_refuse=quant is not None, tier=wctx["tier"])
         alive_n = len(self.brute)
         if any(len(row["vec"]) < min(int(e["n_cand"]), kp, alive_n)
                for row, e in zip(rows, extras)):
@@ -423,7 +598,8 @@ class FusedHybrid:
 
     def _decode(self, snap, vec_ids, delta, token_rows, extras,
                 ls, lgrow, vs, vi, fs, fpos, kq,
-                vec_delta=None, vec_stale=False, qn=None, tier=TIER_BRUTE_F32):
+                vec_delta=None, vec_stale=False, qn=None, force_refuse=False,
+                tier=TIER_BRUTE_F32):
         """Per-request ranked lists from one dispatch's candidates.
         ``vec_ids`` maps vector candidates to ext ids (brute slots, or the
         graph's rows). With docs written since the snapshot build, their
@@ -432,7 +608,9 @@ class FusedHybrid:
         (``vec_stale``) and rows written since are scored exactly
         (``vec_delta``, against ``qn``) and merged. A row either change
         touched is re-fused by the (bitwise-compatible) host ``rrf_fuse``
-        and served by ``host``; the others by ``tier``."""
+        and served by ``host``; the others by ``tier``. The quantized tiers
+        re-fuse every row on the host (``force_refuse``: no device fuse)
+        and keep their tier's name."""
         row_ids = snap["row_ids"]
         d_ids, d_vecs = vec_delta if vec_delta is not None else ([], None)
         d_set = set(d_ids)
@@ -458,7 +636,7 @@ class FusedHybrid:
                 lex_hits.append((eid, float(ls[r, c])))
             vec_hits: List[Tuple[str, float]] = []
             vec_by_pos: Dict[int, str] = {}
-            vec_fixed = False  # this row's vector list left the device's
+            vec_fixed = force_refuse  # this row's vector list left the device's
             for c in range(vs.shape[1]):
                 if vs[r, c] < 0.5 * NEG_INF or len(vec_hits) >= n_cand:
                     break
@@ -480,7 +658,8 @@ class FusedHybrid:
                                                      [token_rows[r]], n_cand)[0]
                 fused = rrf_fuse([lex_hits, vec_hits],
                                  weights=list(extras[r]["w"]), limit=n_cand)
-                served_by = "host"
+                if not force_refuse:
+                    served_by = "host"
             else:
                 fused = []
                 for c in range(fs.shape[1]):

@@ -15,10 +15,15 @@ HNSW (BM25-seeded, ``search/hnsw.py``) and vector search is served from
 it, as in the reference, or, under the ``cagra`` ANN profile
 (``NORNICDB_VECTOR_ANN_QUALITY=cagra``), the device graph
 (``search/cagra.py``), whose walks the same micro-batcher coalesces
-(``_ann_search_batch``). ``exact=True`` always takes brute force, never
-through the batcher. A live write switches at the write that crosses the
-threshold; ``build_indexes`` holds the switch back until its backfill
-ends, so one build covers the whole corpus.
+(``_ann_search_batch``). ``exact=True`` always takes exact brute force
+(no plane), never through the batcher. A live write switches at the write
+that crosses the threshold; ``build_indexes`` holds the switch back until
+its backfill ends, so one build covers the whole corpus. Brute force runs
+the index's own ladder (tiered -> quant -> float32, ``vector_index.py``);
+with the tiered plane on, a request that carries its BM25 top docs
+(``lexical_doc_ids``: the hybrid host path passes its top 32) is routed
+by them first, ahead of the graph tiers, as the reference routes it.
+``vector_routes`` counts each vector request's route.
 
 Above ``NORNICDB_HYBRID_MIN_N`` (4,096) BM25 documents, hybrid queries
 coalesce through a second batcher into one device dispatch of the fused
@@ -30,7 +35,7 @@ live vectors and the CAGRA walk at and above it, once its graph is built
 (``NORNICDB_HYBRID_WALK=0`` keeps it exact); the walk shares the
 ``cagra`` strategy's graph when there is one. Unlike the reference, an
 error on the fused path raises instead of falling back to the host.
-Persistence, reranking, the quant/sharded hybrid tiers and audit/cost
+Reranking, the sharded hybrid tiers, the IVF backends and audit/cost
 accounting wait for later slices.
 """
 
@@ -42,6 +47,7 @@ import os
 import threading
 import time
 import zipfile
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -169,6 +175,8 @@ class SearchService:
         # concurrent single vector queries ride one batched call of the
         # vector tier the strategy machine owns (the graph walk or B1)
         self._microbatch = MicroBatcher(self._ann_search_batch)
+        # vector requests by route: tiered_route, cagra, hnsw, exact, brute
+        self.vector_routes: Counter = Counter()
         # concurrent hybrid queries ride one fused dispatch; tokens and
         # fusion options ride as extras, and rows come back shaped
         self._fused: Optional[FusedHybrid] = None
@@ -608,19 +616,30 @@ class SearchService:
 
     def vector_search_candidates(
         self, query_vec: Sequence[float], k: int = 10, exact: bool = False,
+        lexical_doc_ids: Optional[Sequence[str]] = None,
     ) -> List[Tuple[str, float]]:
-        """Raw vector candidates: from the strategy's ANN index once built
-        (unless ``exact``): the CAGRA walk, micro-batched with concurrent
-        callers, or HNSW; else from the brute-force index, micro-batched.
-        ``exact=True`` calls brute force directly: it never rides the
-        batcher, whose dispatch may walk the graph."""
+        """Raw vector candidates. Unless ``exact``: the tiered plane routed
+        by ``lexical_doc_ids`` (the BM25 top docs) when it serves, called
+        directly since the hints are per query; then the strategy's ANN
+        index once built: the CAGRA walk, micro-batched with concurrent
+        callers, or HNSW; else brute force, micro-batched. ``exact=True``
+        calls exact brute force directly: it never rides the batcher,
+        whose dispatch may walk the graph, and skips the planes."""
         with self._lock:
             hnsw, cagra = self.hnsw, self.cagra
+        q = np.asarray([query_vec], dtype=np.float32)
         if exact:
-            return self.vectors.search_batch(
-                np.asarray([query_vec], dtype=np.float32), k)[0]
+            self.vector_routes["exact"] += 1
+            return self.vectors.search_batch(q, k, exact=True)[0]
+        if lexical_doc_ids:
+            out = self.vectors._tiered_search_batch(q, k, lex_hints=[list(lexical_doc_ids)])
+            if out is not None:
+                self.vector_routes["tiered_route"] += 1
+                return out[0]
         if cagra is None and hnsw is not None:
+            self.vector_routes["hnsw"] += 1
             return hnsw.search(query_vec, k)
+        self.vector_routes["cagra" if cagra is not None else "brute"] += 1
         return self._microbatch.search(query_vec, k)
 
     def search(
@@ -688,7 +707,8 @@ class SearchService:
                 timings["bm25_ms"] = (time.perf_counter() - t0) * 1e3
                 t0 = time.perf_counter()
             if qv is not None and len(self.vectors) > 0:
-                vec_hits = self.vector_search_candidates(qv, overfetch)
+                vec_hits = self.vector_search_candidates(
+                    qv, overfetch, lexical_doc_ids=[d for d, _ in bm25_hits[:32]])
             if diag:
                 timings["vector_ms"] = (time.perf_counter() - t0) * 1e3
                 t0 = time.perf_counter()

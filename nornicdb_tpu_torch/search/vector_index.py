@@ -20,8 +20,22 @@ index compacts, as the reference's does: live rows move to the front in
 slot order, capacity shrinks to ``pad_dim(n_alive)`` and the device pair
 is dropped, so every slot-keyed join derives afresh. ``save`` writes the
 live rows, compacted, to an ``.npz`` the reference reads, and ``load``
-restores them verbatim. The quantized and tiered planes wait for later
-slices.
+restores them verbatim.
+
+``search_batch`` runs the reference's ladder, tiered -> quant -> float32
+-> host: with ``NORNICDB_VECTOR_TIERED`` on and at least
+``NORNICDB_TIERED_MIN_N`` (4,096) live rows the tiered plane
+(``search/tiered_store.py``) answers, else with ``NORNICDB_VECTOR_QUANT``
+int8 or pq and at least ``NORNICDB_QUANT_MIN_N`` (8,192) the quantized
+plane (``search/device_quant.py``), else B1 over the float32 device pair
+(or the host below ``_SMALL_HOST``). A plane's named freshness gaps step
+down a rung; ``exact=True`` skips both planes. One plane of each kind per
+index, created at first use with every ``NORNICDB_QUANT_*`` and
+``NORNICDB_TIERED_*`` knob read then. The float32 device pair stays lazy:
+a batch a plane answers never uploads it. The planes' exact rerank reads
+``rows_for_slots`` and ``delta_vectors``; the quantized fused tier reads
+``ids_meta``. Unlike the reference, an error in a plane propagates
+(ROADMAP C23).
 """
 
 from __future__ import annotations
@@ -34,8 +48,20 @@ import numpy as np
 import torch
 
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device
+from nornicdb_tpu_torch.config import env_bool, env_float, env_int, env_str
 from nornicdb_tpu_torch.ops.similarity import l2_normalize, pad_dim
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+from nornicdb_tpu_torch.search.device_quant import (
+    QuantizedBrutePlane,
+    quant_min_n,
+    quant_mode,
+)
+from nornicdb_tpu_torch.search.tiered_store import (
+    TIERED_NPROBE,
+    TieredStore,
+    tiered_enabled,
+    tiered_min_n,
+)
 
 
 class DimsMismatch(ValueError):
@@ -83,6 +109,9 @@ class BruteForceIndex:
         # were trimmed
         self._changelog: List[Tuple[int, str]] = []
         self._changelog_floor = 0
+        # the serving planes, created at first use (quant_plane, tiered_plane)
+        self._quant: Optional[QuantizedBrutePlane] = None
+        self._tiered: Optional[TieredStore] = None
 
     def __len__(self) -> int:
         return self._n_alive
@@ -284,6 +313,37 @@ class BruteForceIndex:
                 return None
             return self._matrix[slot].copy()
 
+    def delta_vectors(self, ext_ids) -> Tuple[List[str], Optional[np.ndarray]]:
+        """(ids, current rows [n, D] or None) of changelog ids under one
+        lock hold, skipping ids removed since they were logged: the planes'
+        exact side-scan of writes since their build."""
+        with self._lock:
+            ids: List[str] = []
+            rows = []
+            for eid in ext_ids:
+                slot = self._slot_of.get(eid)
+                if slot is None:
+                    continue
+                ids.append(eid)
+                rows.append(self._matrix[slot].copy())
+        return ids, (np.stack(rows) if ids else None)
+
+    def rows_for_slots(self, slots, expect_compactions: Optional[int] = None):
+        """(rows [n, D] copy, alive [n], ext ids [n]) of the given slots under
+        one lock hold: the planes' exact rerank gather, current values. None
+        when ``expect_compactions`` no longer matches (the slots address
+        another layout) or a slot is out of range."""
+        with self._lock:
+            if expect_compactions is not None and self.compactions != expect_compactions:
+                return None
+            if self._matrix is None:
+                return None
+            sl = np.asarray(slots, dtype=np.int64)
+            if sl.size and (sl.min() < 0 or sl.max() >= self._capacity):
+                return None
+            return (self._matrix[sl].copy(), self._valid[sl].copy(),
+                    [self._ext_ids[int(i)] for i in sl])
+
     def snapshot(self) -> Tuple[np.ndarray, np.ndarray, List[Optional[str]]]:
         """(matrix[cap, D], valid[cap], ext_ids), normalized, host side."""
         with self._lock:
@@ -400,6 +460,15 @@ class BruteForceIndex:
                 return None
             return self.mutations
 
+    def ids_meta(self) -> Optional[Tuple[List[Optional[str]], int, int]]:
+        """(slot -> id list, mutations, compactions), or None while empty,
+        without bringing the device arrays up to date (the quantized fused
+        tier joins on slots and never reads the float32 pair)."""
+        with self._lock:
+            if self._n_alive == 0 or self._matrix is None:
+                return None
+            return self._ids_locked(), self.mutations, self.compactions
+
     def device_view(
         self,
     ) -> Optional[Tuple[torch.Tensor, torch.Tensor, List[Optional[str]], int]]:
@@ -440,12 +509,72 @@ class BruteForceIndex:
             out.append(hits)
         return out
 
+    def quant_plane(self) -> Optional[QuantizedBrutePlane]:
+        """The quantized plane when NORNICDB_VECTOR_QUANT is int8 or pq and
+        the index holds at least ``quant_min_n()`` live rows, else None;
+        one per index, shared by direct search and the fused tier."""
+        if quant_mode() == "off" or self._n_alive < quant_min_n():
+            return None
+        with self._lock:
+            if self._quant is None:
+                self._quant = QuantizedBrutePlane(
+                    self, build_inline=env_bool("QUANT_INLINE_BUILD", False),
+                    overfetch=max(1, env_int("QUANT_OVERFETCH", 8)),
+                    min_pool=max(1, env_int("QUANT_MIN_POOL", 128)))
+            return self._quant
+
+    def tiered_plane(self) -> Optional[TieredStore]:
+        """The tiered plane when NORNICDB_VECTOR_TIERED is on and the index
+        holds at least ``tiered_min_n()`` live rows, else None; one per
+        index, every NORNICDB_TIERED_* knob read here, once."""
+        if not tiered_enabled() or self._n_alive < tiered_min_n():
+            return None
+        with self._lock:
+            if self._tiered is None:
+                self._tiered = TieredStore(
+                    self,
+                    nprobe=max(1, env_int("TIERED_NPROBE", TIERED_NPROBE)),
+                    parts=max(0, env_int("TIERED_PARTS", 0)),
+                    resident_max=max(0, env_int("TIERED_RESIDENT", 0)),
+                    part_rows=max(256, env_int("TIERED_PART_ROWS", 4096)),
+                    lex_bonus=env_float("TIERED_LEX_BONUS", 0.15),
+                    build_inline=env_bool("TIERED_INLINE_BUILD", False),
+                    overfetch=max(1, env_int("TIERED_OVERFETCH", 8)),
+                    min_pool=max(1, env_int("TIERED_MIN_POOL", 128)),
+                    root_dir=env_str("TIERED_DIR", "") or None)
+            return self._tiered
+
+    def _tiered_search_batch(self, queries, k, lex_hints=None):
+        """The tiered rung: its answers, or None when the lower rungs serve
+        (plane off, below its floor, or at a named gap)."""
+        plane = self.tiered_plane()
+        if plane is None:
+            return None
+        return plane.search_batch(np.asarray(queries, dtype=np.float32), k,
+                                  lex_hints=lex_hints)
+
+    def _quant_search_batch(self, queries, k):
+        """The quantized rung: its answers, or None when float32 serves."""
+        plane = self.quant_plane()
+        if plane is None:
+            return None
+        return plane.search_batch(np.asarray(queries, dtype=np.float32), k)
+
     def search_batch(
-        self, queries: np.ndarray, k: int = 10
+        self, queries: np.ndarray, k: int = 10, exact: bool = False,
     ) -> List[List[Tuple[str, float]]]:
-        """Batched exact search; per-query [(ext_id, cosine)]. Above the
-        small-host rung, the device answers through the fused top-k
-        kernel (its plain version when the index lives on the CPU)."""
+        """Batched search; per-query [(ext_id, cosine)]: the tiered and
+        quantized rungs when they serve (their scores are exact cosines of
+        live rows), else exact float32. ``exact=True`` skips the planes.
+        Above the small-host rung the float32 tier answers through the
+        fused top-k kernel (its plain version when the index lives on the
+        CPU)."""
+        if not exact:
+            out = self._tiered_search_batch(queries, k)
+            if out is None:
+                out = self._quant_search_batch(queries, k)
+            if out is not None:
+                return out
         with self._lock:
             if self._n_alive == 0:
                 return [[] for _ in range(len(queries))]

@@ -9,7 +9,8 @@ without a data dir, else one of two durable engines:
 - ``DurableEngine`` (``wal_engine.py``), ``MemoryEngine`` + WAL +
   snapshots.
 
-Both write the reference's files byte for byte.
+Both write the reference's files byte for byte. ``PartitionStore``
+(``partition_store.py``) is the tiered vector plane's disk tier.
 """
 
 import glob
@@ -19,6 +20,7 @@ from nornicdb_tpu_torch.storage.async_engine import AsyncEngine, FlushResult  # 
 from nornicdb_tpu_torch.storage.composite import CompositeEngine  # noqa: F401
 from nornicdb_tpu_torch.storage.memory import MemoryEngine  # noqa: F401
 from nornicdb_tpu_torch.storage.namespaced import DEFAULT_DB, NamespacedEngine  # noqa: F401
+from nornicdb_tpu_torch.storage.partition_store import PartitionStore  # noqa: F401
 from nornicdb_tpu_torch.storage.types import (  # noqa: F401
     AlreadyExistsError,
     Direction,

@@ -343,3 +343,53 @@ def test_merge_delta_hits_matches_jax():
     for ids, scores in ((["b", "d"], [0.95, 0.6]), ([], []), (["e"], [0.1])):
         assert tc.merge_delta_hits(hits, ids, scores, 3) == jc.merge_delta_hits(
             hits, ids, scores, 3)
+
+
+# ---------------------------------------------------------------------------
+# the quantized graph base (NORNICDB_VECTOR_QUANT)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["int8", "pq"])
+@pytest.mark.parametrize("itopk,width", SETTINGS, ids=SETTING_IDS)
+def test_quantized_index_matches_jax(same_edges, monkeypatch, mode, itopk, width):
+    """The int8 (head prefilter + full dot) and PQ (ADC, 4x pool) walks,
+    their pools re-scored exactly on the host rows, against the JAX
+    package's; the card holds the compressed base only."""
+    monkeypatch.setenv("NORNICDB_VECTOR_QUANT", mode)
+    x = _clustered(1500, seed=21, dup=20)
+    j, t = _pair(x, itopk, width)
+    assert j.build() and t.build()
+    q_t, q_j = t._graph["quant"], j._graph["quant"]
+    assert q_t["mode"] == q_j["mode"] == mode
+    np.testing.assert_array_equal(q_t["codes"].numpy(), np.asarray(q_j["codes"]))
+    if mode == "int8":
+        assert q_t["keep"] == q_j["keep"] == max(8, (3 * width * 32) // 4)
+        np.testing.assert_array_equal(q_t["scale"].numpy(), np.asarray(q_j["scale"]))
+    assert isinstance(t._graph["matrix"], np.ndarray)
+    f32 = t._graph["matrix"].nbytes + t._graph["adj"].numel() * 4 + t._graph["validf"].numel() * 4
+    assert 0 < t.device_bytes() < f32
+    qs = _queries(x, 12)
+    for k in (1, 10, 30):
+        got = _assert_same_answers(j, t, qs, k)
+    xn = _unit(x)
+    for r, hits in enumerate(got):  # answered scores are exact cosines
+        for eid, s in hits:
+            assert s == pytest.approx(float(_unit(qs[r:r + 1])[0] @ xn[int(eid[1:])]),
+                                      abs=SCORE_ATOL)
+    assert t.counts["walk"] == 3
+
+
+@pytest.mark.parametrize("mode", ["int8", "pq"])
+def test_quantized_recall_at_port_defaults(monkeypatch, mode):
+    monkeypatch.setenv("NORNICDB_VECTOR_QUANT", mode)
+    x = _clustered(3000, seed=0)
+    t = tc.CagraIndex(min_n=256, device="cpu")
+    t.add_batch([(f"v{i}", x[i]) for i in range(len(x))])
+    qs = _queries(x, 32)
+    xn, qn = _unit(x), _unit(qs)
+    truth = np.argsort(-(qn @ xn.T), axis=1, kind="stable")[:, :10]
+    got = t.search_batch(qs, 10)
+    assert t._graph["quant"]["mode"] == mode
+    hit = sum(len({f"v{j}" for j in truth[r]} & {e for e, _ in got[r]}) for r in range(len(qs)))
+    assert hit / (10 * len(qs)) >= 0.95

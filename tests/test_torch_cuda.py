@@ -307,3 +307,118 @@ def test_device_index_save_and_load_answers_bitwise(dev, tmp_path):
     assert loaded.load_s["upload"] > 0 and len(loaded) == len(idx)
     assert loaded.search_batch(q, 30) == before
     assert fused_cosine_topk.launches == launches + 2
+
+
+# ---------------------------------------------------------------------------
+# the quantized and tiered planes (PyTorch ops on the card)
+# ---------------------------------------------------------------------------
+
+
+def _quant_corpus(n=6000, d=64, seed=21):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((24, d)).astype(np.float32) * 2.0
+    x = centers[rng.integers(0, 24, n)] + rng.standard_normal((n, d)).astype(np.float32)
+    x[n - 40:] = x[:40]  # exact duplicates: score ties
+    q = x[rng.integers(0, n, 64)] + 0.2 * rng.standard_normal((64, d)).astype(np.float32)
+    return x, q.astype(np.float32)
+
+
+def test_int8_encode_on_the_card_is_bitwise_the_cpu(dev):
+    from nornicdb_tpu_torch.search.device_quant import int8_encode
+
+    x, _ = _quant_corpus()
+    x[3] = 0.0
+    for a, b in zip(int8_encode(x, device=dev), int8_encode(x, device="cpu")):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["int8", "pq"])
+@pytest.mark.parametrize("b,k", [(1, 10), (64, 10), (8, 64)])
+def test_quant_plane_on_the_card_matches_the_cpu(dev, mode, b, k):
+    """The plane on the card against the same plane on the CPU: the coarse
+    top-k on identical codes tie-aware within 1e-5, answers (exact
+    reranks) tie-aware within 1e-5; a quant batch never uploads the
+    float32 pair."""
+    from nornicdb_tpu_torch.search.device_quant import (
+        QuantizedBrutePlane,
+        _int8_topk_impl,
+        _pq_topk_impl,
+    )
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    x, q = _quant_corpus()
+    planes = []
+    for device in (dev, "cpu"):
+        idx = BruteForceIndex(device=device)
+        idx.add_batch([(f"e{i}", v) for i, v in enumerate(x)])
+        plane = QuantizedBrutePlane(idx, mode=mode, build_inline=True)
+        assert plane.build()
+        planes.append(plane)
+    card, cpu = planes
+    snap_g, snap_c = card._snap, cpu._snap
+    if mode == "pq":
+        np.testing.assert_array_equal(snap_g["codebooks"].cpu().numpy(),
+                                      snap_c["codebooks"].numpy())
+        aux_c = snap_c["codebooks"]
+        topk = _pq_topk_impl
+    else:
+        np.testing.assert_array_equal(snap_g["codes_t"].cpu().numpy(), snap_c["codes_t"].numpy())
+        aux_c = snap_c["scale"]
+        topk = _int8_topk_impl
+    qn = torch.from_numpy(q[:b] / np.linalg.norm(q[:b], axis=1, keepdims=True))
+    s_c, i_c = topk(qn, snap_c["codes_t"], aux_c, snap_c["valid"], 128)
+    s_g, i_g = topk(qn.to(dev), snap_c["codes_t"].to(dev), aux_c.to(dev),
+                    snap_c["valid"].to(dev), 128)
+    assert topk_agree(i_g.cpu().numpy(), s_g.cpu().numpy(), i_c.numpy(), s_c.numpy(), SCORE_ATOL)
+    got, want = card.search_batch(q[:b], k), cpu.search_batch(q[:b], k)
+    hit = np.mean([len({e for e, _ in a} & {e for e, _ in w}) / len(w) for a, w in zip(got, want)])
+    assert hit >= (1.0 if mode == "int8" else 0.99)
+    if mode == "int8":
+        assert all(_lists_agree(a, w, SCORE_ATOL) for a, w in zip(got, want))
+    assert card.brute._dev_matrix is None and card.counts["dispatch"] == 1
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_tiered_slab_adc_on_the_card_matches_the_cpu(dev, b):
+    from nornicdb_tpu_torch.search.device_quant import encode_pq, train_pq
+    from nornicdb_tpu_torch.search.tiered_store import _tiered_topk_impl
+
+    x, q = _quant_corpus()
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    cb = train_pq(x, 16, 256, device="cpu")
+    codes_t = torch.from_numpy(np.ascontiguousarray(encode_pq(x[:4096], cb, device="cpu").T))
+    valid = torch.from_numpy(np.random.default_rng(1).random(4096) < 0.9)
+    sel = torch.from_numpy(np.random.default_rng(b).random((b, 8)) < 0.5)
+    qn = torch.from_numpy(q[:b] / np.linalg.norm(q[:b], axis=1, keepdims=True))
+    args = (qn, codes_t, torch.from_numpy(cb), valid, sel)
+    s_c, i_c = _tiered_topk_impl(*args, 256)
+    s_g, i_g = _tiered_topk_impl(*(a.to(dev) for a in args), 256)
+    assert topk_agree(i_g.cpu().numpy(), s_g.cpu().numpy(), i_c.numpy(), s_c.numpy(), SCORE_ATOL)
+    slab = i_g.cpu().numpy() // 512
+    ok = s_g.cpu().numpy() > -1e29
+    assert sel.numpy()[np.arange(b)[:, None].repeat(256, 1)[ok], slab[ok]].all()
+
+
+@pytest.mark.parametrize("mode", ["int8", "pq"])
+@pytest.mark.parametrize("b", [1, 64])
+def test_quant_walks_on_the_card_match_the_cpu(dev, mode, b):
+    from nornicdb_tpu_torch.search.device_quant import (
+        _walk_body_pq,
+        _walk_body_quant,
+        quantize_graph_base,
+    )
+
+    q, mat, adj, validf = _walk_graph()
+    base = quantize_graph_base(mat.numpy(), torch.device("cpu"), mode=mode)
+    if mode == "int8":
+        keys = ("codes", "codes_head", "scale")
+        qs = q[:b] @ base["rot_dev"]
+        walk, extra = _walk_body_quant, (64, 15, 8, 128, 16, 1024, 192)
+    else:
+        keys = ("codes", "codebooks")
+        qs = q[:b]
+        walk, extra = _walk_body_pq, (64, 15, 8, 512, 16, 1024)
+    cpu = [qs] + [base[k] for k in keys] + [adj, validf]
+    s_c, i_c = walk(*cpu, *extra)
+    s_g, i_g = walk(*(t.to(dev) for t in cpu), *extra)
+    assert topk_agree(i_g.cpu().numpy(), s_g.cpu().numpy(), i_c.numpy(), s_c.numpy(), SCORE_ATOL)

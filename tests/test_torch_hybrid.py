@@ -40,7 +40,9 @@ from nornicdb_tpu_torch.search.device_bm25 import (
 from nornicdb_tpu_torch.search.hybrid_fused import (
     TIER_BRUTE_F32,
     TIER_WALK_F32,
+    TIER_WALK_QUANT,
     FusedHybrid as TFused,
+    quant_tier,
 )
 from nornicdb_tpu_torch.search.microbatch import MicroBatcher, pow2_bucket
 from nornicdb_tpu_torch.search.rrf import rrf_fuse
@@ -775,6 +777,109 @@ def test_fused_tier_refuses_a_graph_over_another_index():
     assert not tf.rebind_cagra(other) and tf.cagra is own
     shared = t_cagra.CagraIndex(brute=pair.tv)
     assert tf.rebind_cagra(shared) and tf.cagra is shared
+
+
+# ---------------------------------------------------------------------------
+# the quantized tiers (NORNICDB_VECTOR_QUANT)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def quant_env(monkeypatch):
+    monkeypatch.setenv("NORNICDB_QUANT_MIN_N", "64")
+    monkeypatch.setenv("NORNICDB_QUANT_INLINE_BUILD", "1")
+    return monkeypatch
+
+
+def _assert_quant_rows(rows_t, rows_j, overfetch, tier, weights=(1.0, 1.0)):
+    """Quantized rows against the JAX package's: lists tie-aware, every
+    row re-fused on the host (bitwise ``rrf_fuse`` of its own lists) and
+    served by the quantized tier."""
+    for qi, (rt, rj) in enumerate(zip(rows_t, rows_j)):
+        assert rt is not None and rj is not None, qi
+        assert rt["served_by"] == rj["served_by"] == tier, qi
+        assert _lex_agree(rt["lex"], rj["lex"]) and _vec_agree(rt["vec"], rj["vec"]), qi
+        if rt["lex"] and rt["vec"]:
+            assert rt["fused"] == rrf_fuse([rt["lex"], rt["vec"]], weights=list(weights),
+                                           limit=overfetch), qi
+            if ([x[0] for x in rt["lex"]] == [x[0] for x in rj["lex"]]
+                    and [x[0] for x in rt["vec"]] == [x[0] for x in rj["vec"]]):
+                assert rt["fused"] == rj["fused"], qi
+
+
+@pytest.mark.parametrize("mode", ["int8", "pq"])
+def test_quant_brute_tier_matches_jax(quant_env, mode):
+    """The quantized brute tier (walk off): the coarse pool, the exact
+    rerank and the host re-fuse, against the JAX package's and the exact
+    host path; the float32 pair never goes up."""
+    quant_env.setenv("NORNICDB_VECTOR_QUANT", mode)
+    pair = Pair(1500, seed=71)
+    jf, tf = pair.fused()
+    embs = pair.embs(len(PARITY_QUERIES))
+    for weights in ((1.0, 1.0), (2.0, 0.5)):
+        rows_t = _rows(tf, PARITY_QUERIES, embs, 30, weights)
+        _assert_quant_rows(rows_t, _rows(jf, PARITY_QUERIES, embs, 30, weights), 30,
+                           quant_tier(mode), weights)
+    assert tf.counts["quant_dispatch"] == 2 and tf.counts["dispatch"] == 0
+    assert tf.counts[quant_tier(mode)] == 2 * len(PARITY_QUERIES)
+    assert pair.tv._dev_matrix is None
+    if mode == "int8":  # the pool covers the rerank: the exact lists
+        host = pair.tv.search_batch(embs, 30, exact=True)
+        assert all(_vec_agree(r["vec"], h) for r, h in zip(rows_t, host))
+    # writes since the plane's build: scored exactly and merged
+    pair.add("fresh", embs[3])
+    pair.index("fresh", "term4 term9 fresh")
+    rows_t = _rows(tf, PARITY_QUERIES, embs, 30)
+    _assert_quant_rows(rows_t, _rows(jf, PARITY_QUERIES, embs, 30), 30, quant_tier(mode))
+    assert rows_t[3]["vec"][0][0] == "fresh"
+
+
+def test_quant_brute_tier_steps_down_to_float32_as_jax(quant_env):
+    quant_env.setenv("NORNICDB_VECTOR_QUANT", "int8")
+    pair = Pair(1500, seed=72)
+    jf, tf = pair.fused()
+    embs = pair.embs(4)
+    queries = PARITY_QUERIES[:4]
+    assert all(r["served_by"] == quant_tier("int8") for r in _rows(tf, queries, embs, 30))
+    for plane in (pair.jv.quant_plane(), pair.tv.quant_plane()):
+        plane.rebuild_stale_frac = 1e9  # keep the stale plane
+    # a compaction: the plane's slots address another layout
+    for i in range(1100):
+        pair.remove(f"d{i}", text=False)
+    assert pair.tv.compactions == pair.jv.compactions == 1
+    rows_t = _rows(tf, queries, embs, 30)
+    _assert_parity(pair, jf, tf, queries, embs, 30)
+    assert all(r["served_by"] == TIER_BRUTE_F32 for r in rows_t)
+    assert tf.counts["quant_compaction"] >= 1
+    # a plane whose build is in flight: float32 serves meanwhile
+    plane = pair.tv.quant_plane()
+    plane._snap, plane._rebuilding = None, True
+    quant_env.delenv("NORNICDB_QUANT_INLINE_BUILD")
+    plane.build_inline = False
+    assert all(r["served_by"] == TIER_BRUTE_F32 for r in _rows(tf, queries, embs, 30))
+    assert tf.counts["quant_pending_build"] == 1 and tf.handoffs() == 0
+
+
+@pytest.mark.parametrize("mode", ["int8", "pq"])
+@pytest.mark.parametrize("itopk,width", WALK_SETTINGS, ids=WALK_IDS)
+def test_quant_walk_tier_matches_jax(same_edges, quant_env, mode, itopk, width):
+    """The walk over a quantized graph base (int8: head prefilter + full
+    dot; PQ: ADC over a 4x pool), its pool re-scored exactly and re-fused
+    on the host, against the JAX package's."""
+    quant_env.setenv("NORNICDB_VECTOR_QUANT", mode)
+    pair = Pair(1500, seed=73)
+    jf, tf = _walk_fused(pair, itopk, width)
+    assert tf.cagra._graph["quant"]["mode"] == mode
+    assert isinstance(tf.cagra._graph["matrix"], np.ndarray)  # f32 stays on the host
+    embs = pair.embs(len(PARITY_QUERIES))
+    rows_t = _rows(tf, PARITY_QUERIES, embs, 30)
+    _assert_quant_rows(rows_t, _rows(jf, PARITY_QUERIES, embs, 30), 30, TIER_WALK_QUANT)
+    assert all(r["tier"] == "walk" for r in rows_t)
+    assert tf.counts["walk_dispatch"] == 1 and tf.counts[TIER_WALK_QUANT] == len(PARITY_QUERIES)
+    qn = embs / np.linalg.norm(embs, axis=1, keepdims=True)
+    for r, row in enumerate(rows_t):  # served scores are exact cosines
+        for eid, sc in row["vec"]:
+            assert sc == pytest.approx(float(qn[r] @ pair.tv.get(eid)), abs=COS_ATOL)
 
 
 # ---------------------------------------------------------------------------
