@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero:
    {1, 10, 30, 128, 256}; at B in {1, 4, 7, 64}: D = 33 and a misaligned
    base (the scalar or 4-byte copy variants), C = 5, an all-masked index
    and fewer valid rows than k; phase 7's vector index, C 8,192 with
-   8,000 valid rows, k 10, at B in {1, 4, 5, 8, 15, 16}; two calls
+   8,000 valid rows, k 10, at B in {1, 4, 5, 8, 15, 16}; phase 9's inference
+   index, C 8,192 with 8,000 valid rows and C 16,384 with 8,320, at B 1 and
+   k in {9, 16}; two calls
    bitwise equal at B in {1, 4, 8, 64, 256}), and flash attention (B2) against the materializing softmax,
    in f32 and in bf16: S in {1, 16, 33, 64, 100, 128, 512} x (H, Dh) in
    {(4, 16), (4, 40), (16, 64)} with one row fully masked, two calls
@@ -185,6 +187,39 @@ Phases, in order; any failure exits non-zero:
    (``launches_quant``) are counted after the queries are embedded and
    the exact answers computed, and must be exactly the paths' own: B1
    for the two graph builds' k-NN, B2 for the 8 hybrid searches.
+9. The memory plane, in three parts. (a) The background plane at the
+   reference's size (``bench.py:_bench_background``): two identical
+   engines of 100,000 nodes and 300,000 KNOWS/LIKES edges, one node in
+   three accessed in the last 40 days; a ``BackgroundDevicePlane`` on the
+   card with a ``DecayManager`` (threshold 0.45) on one, the host loops on
+   the other. A cold and a warm decay sweep: (scored, archived) and the
+   archived sets must equal the host loop's. 256 seeds with each of
+   ``common_neighbors``, ``adamic_adar`` and ``resource_allocation`` at
+   limit 10 (the snapshots both sides reuse built and timed first): every
+   list must equal host ``predict_links``; the step-downs are printed by
+   reason. FastRP at dim 64 over the union graph: min
+   cosine against host ``fastrp_embeddings`` above 0.999. Each op again
+   on the card and on CPU copies of its tensors: decay scores within
+   1e-6, link-prediction ids tie-aware with values within 1e-6 and equal
+   distinct counts, FastRP rows at cosine >= 0.9999. It prints each job's
+   wall time on the device against the host loop, each op's device ms by
+   CUDA events, and the snapshot's device bytes against the
+   ``memory_allocated`` delta (within 1 MB). (b) A port DB (in memory,
+   on the card) of 8,000 memories with explicit, clustered 160-wide
+   embeddings, below the HNSW threshold: 256 more stored with
+   ``auto_link=True`` (candidates ride B1 through the vector batcher, at
+   least one launch each); every inferred ``SIMILAR_TO`` edge's confidence
+   at or above the threshold and within 1e-5 of its exact cosine (float64
+   on the host, and ``exact=True``). 64 more stored plain, then
+   ``inference.on_store_batch`` with the plane attached must give the
+   per-node path's suggestions (both first as dry runs from the same
+   state), then write them. 8 rounds of ``remember`` on an unlinked pair
+   must make the evidence-gated ``CO_ACCESSED_WITH`` edge. (c)
+   ``gds.graph.project``, ``gds.fastRP.stream`` and
+   ``gds.linkPrediction.adamicAdar.stream`` (16 sources) through
+   ``DB.cypher`` on (b)'s graph: rows equal to the module calls they
+   wrap. The launches of (b) and (c), without the checks' (the dry runs,
+   ``exact=True``), are the kernels line's ``launches_memory``: B1 only.
 
 Timing uses CUDA events over back-to-back calls, and ``torch.profiler``
 for the device time of each kernel per call: B1 by stage and its library
@@ -557,6 +592,11 @@ def phase_kernels(dev, seed):
     for b in CYPHER_TOPK_B:
         errs.append(check_topk(dev, rng, CYPHER_CAPACITY, 160, b, 10,
                                valid_frac=CYPHER_MEMORIES / CYPHER_CAPACITY))
+    # phase 9's inference path: B 1 at the batcher's k and exact=True's, on
+    # the index's capacity before and after its stores cross 8,192 rows
+    for c, valid_rows in INFER_CAPACITIES:
+        for k in INFER_K:
+            errs.append(check_topk(dev, rng, c, INFER_DIMS, 1, k, valid_frac=valid_rows / c))
     repeat_b = (1, 4, 8, 64, 256)
     for b in repeat_b:
         check_topk_deterministic(dev, rng, 131_072, 160, b, 30)
@@ -3427,6 +3467,446 @@ def phase_quant_index(dev, idx, seed):
     return launches
 
 
+# -- phase 9: the memory plane ----------------------------------------------
+
+# (a): bench.py:_bench_background's graph and jobs, at its size
+MEMORY_NODES = 100_000
+MEMORY_EDGES_PER_NODE = 3  # 300,000 edges, KNOWS and LIKES alternating
+MEMORY_SEEDS = 256
+MEMORY_SCORERS = ("common_neighbors", "adamic_adar", "resource_allocation")
+MEMORY_LIMIT = 10
+MEMORY_ARCHIVE = 0.45
+MEMORY_NOW_MS = 1_700_000_000_000
+DAY_MS = 86_400_000
+FASTRP_DIM = 64
+FASTRP_COS_MIN = 0.999  # tests/test_background_plane.py's bound, card against host
+# each op on the card against the same op on CPU tensors: float32 sums in
+# another order (decay scores are O(1), link-prediction values sums of at
+# most 32 weights <= 1.45), and FastRP rows after three normalizations
+CARD_CPU_ATOL = 1e-6
+CARD_CPU_FASTRP_COS = 0.9999
+MEMORY_MEM_SLACK = 1 << 20  # the snapshot's device bytes against the memory_allocated delta
+# (b): the DB's inference path below the HNSW threshold, so candidates
+# ride B1 through the vector batcher (k 9 -> 16) and exact=True (k 9)
+INFER_MEMORIES = 8_000
+INFER_STORES = 256  # stored with auto_link=True
+INFER_BATCH = 64  # stored plain, then on_store_batch with the plane attached
+INFER_DIMS = 160
+INFER_CLUSTER = 4  # memories per cluster on average: cosines ~0.89 inside, ~0 across
+INFER_K = (9, 16)  # exact=True's k, and the batcher's (max_links_per_store * 3, rounded)
+INFER_CAPACITIES = ((8_192, INFER_MEMORIES), (16_384, INFER_MEMORIES + INFER_STORES + INFER_BATCH))
+INFER_CONF_ATOL = 1e-5
+INFER_REMEMBER_ROUNDS = 8
+GDS_SOURCES = 16
+MEMORY_PHASE_S = 150.0  # phase 9's length, with room
+
+
+class ArgRecorder:
+    """Records the arguments of every call of ``mod.name`` inside the
+    block (the callers look the name up on the module, so they reach the
+    recorder); the calls themselves are unchanged."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.calls = mod, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.mod, self.name)
+
+        def record(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return self.real(*args, **kwargs)
+
+        setattr(self.mod, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def memory_engine(n):
+    """``bench.py:_bench_background``'s graph: ``n`` nodes with uniform
+    importance created up to 80 days back, ``3 n`` edges alternating
+    KNOWS and LIKES between uniform endpoints (``random.Random(19)``)."""
+    import random
+
+    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, Node
+
+    eng = MemoryEngine()
+    r = random.Random(19)
+    for i in range(n):
+        eng.create_node(Node(id=f"n{i}", labels=["T"], properties={"importance": r.random()},
+                             created_at=MEMORY_NOW_MS - r.randrange(0, 80 * DAY_MS)))
+    for j in range(MEMORY_EDGES_PER_NODE * n):
+        eng.create_edge(Edge(id=f"e{j}", type=("KNOWS", "LIKES")[j % 2],
+                             start_node=f"n{r.randrange(n)}", end_node=f"n{r.randrange(n)}"))
+    return eng
+
+
+def memory_decay(eng, n):
+    """One node in three accessed in the last 40 days; threshold 0.45."""
+    import random
+
+    from nornicdb_tpu_torch.decay import DecayManager
+
+    dm = DecayManager(eng, archive_threshold=MEMORY_ARCHIVE)
+    r = random.Random(7)
+    for i in range(0, n, 3):
+        dm.record_access(f"n{i}", at_ms=MEMORY_NOW_MS - r.randrange(0, 40 * DAY_MS))
+    return dm
+
+
+def archived_ids(eng):
+    return sorted(nd.id for nd in eng.all_nodes() if nd.properties.get("_archived"))
+
+
+def lp_card_vs_cpu(dev, calls):
+    """Each recorded link-prediction pass again on the card and on CPU
+    copies of its tensors: (max |value| error, device ms by CUDA events of
+    all passes); raises unless distinct counts are equal and the ids agree
+    tie-aware."""
+    import torch
+
+    from nornicdb_tpu_torch.ops import linkpredict as olp
+    from nornicdb_tpu_torch.ops.topk import topk_agree
+
+    err, ms = 0.0, 0.0
+    for args, _ in calls:
+        seed_rows, ip, nb, w, n, f1, f2, kp = args
+        s = torch.as_tensor(np.asarray(seed_rows, np.int64), device=dev)
+        card = [t.cpu().numpy() for t in olp.linkpredict_topk_t(s, ip, nb, w, n, f1, f2, kp)]
+        cpu = [t.numpy() for t in olp.linkpredict_topk_t(s.cpu(), ip.cpu(), nb.cpu(), w.cpu(),
+                                                         n, f1, f2, kp)]
+        live = np.isfinite(cpu[0])
+        if not np.array_equal(card[2], cpu[2]) or not np.array_equal(np.isfinite(card[0]), live):
+            raise AssertionError(f"link prediction card vs CPU: distinct counts or live slots "
+                                 f"differ at f1 {f1}")
+        if not topk_agree(card[1], np.where(live, card[0], -1e30),
+                          cpu[1], np.where(live, cpu[0], -1e30), atol=CARD_CPU_ATOL):
+            raise AssertionError(f"link prediction card vs CPU: ids disagree at f1 {f1}")
+        if live.any():
+            err = max(err, float(np.max(np.abs(card[0][live] - cpu[0][live]))))
+        ms += time_ms(lambda: olp.linkpredict_topk_t(s, ip, nb, w, n, f1, f2, kp),
+                      iters=5, warmup=1)
+    return err, ms
+
+
+def memory_plane(dev, card, n, n_seeds):
+    """Phase 9 (a): the background plane at the reference's size."""
+    import torch
+
+    from nornicdb_tpu_torch import linkpredict as lp
+    from nornicdb_tpu_torch.background.device_plane import BackgroundDevicePlane
+    from nornicdb_tpu_torch.ops import decay as odecay
+    from nornicdb_tpu_torch.ops import fastrp as ofastrp
+    from nornicdb_tpu_torch.ops import linkpredict as olp
+    from nornicdb_tpu_torch.query.columnar import ColumnarCatalog
+
+    out = {"nodes": n, "edges": MEMORY_EDGES_PER_NODE * n, "seeds": n_seeds}
+    t = time.perf_counter()
+    eng_dev, eng_host = memory_engine(n), memory_engine(n)
+    dm_dev, dm_host = memory_decay(eng_dev, n), memory_decay(eng_host, n)
+    out["build_s"] = time.perf_counter() - t
+    cat_dev, cat_host = ColumnarCatalog(eng_dev), ColumnarCatalog(eng_host)
+    plane = BackgroundDevicePlane(eng_dev, cat_dev, decay=dm_dev, device=dev)
+
+    # -- decay: a cold sweep, then a warm one a day later ------------------
+    sweeps = []
+    for at in (MEMORY_NOW_MS, MEMORY_NOW_MS + DAY_MS):
+        with ArgRecorder(odecay, "decay_scores") as rec:
+            t = time.perf_counter()
+            res_dev = dm_dev.sweep(at)
+            dev_s = time.perf_counter() - t
+        t = time.perf_counter()
+        res_host = dm_host.sweep(at)
+        host_s = time.perf_counter() - t
+        if len(rec.calls) != 1:
+            raise AssertionError(f"the plane did not serve the sweep: {dict(plane.counts)}")
+        if res_dev != res_host or archived_ids(eng_dev) != archived_ids(eng_host):
+            raise AssertionError(f"decay verdicts differ: device {res_dev}, host {res_host}")
+        sweeps.append({"scored_archived": list(res_dev), "device_s": dev_s, "host_s": host_s})
+    # the warm sweep's columns again on the card and on the CPU
+    args = rec.calls[0][0]
+    cols, (weights, q, r) = args[:7], args[7:10]
+
+    def tensors(d):
+        return [torch.from_numpy(np.asarray(c)).to(d) for c in cols]
+
+    cd, cc = tensors(dev), tensors("cpu")
+    card_out = [x.cpu().numpy() for x in odecay.decay_scores_t(*cd, weights, q, r)]
+    cpu_out = [x.numpy() for x in odecay.decay_scores_t(*cc, weights, q, r)]
+    decay_err = max(float(np.max(np.abs(a.astype(np.float64) - b)))
+                    for a, b in zip(card_out, cpu_out))
+    if decay_err > CARD_CPU_ATOL:
+        raise AssertionError(f"decay card vs CPU: max err {decay_err:.3g} > {CARD_CPU_ATOL}")
+    decay_ms = time_ms(lambda: odecay.decay_scores_t(*cd, weights, q, r))
+    del cd, cc
+    out["decay"] = {"sweeps": sweeps, "card_cpu_max_err": decay_err, "device_ms": decay_ms,
+                    "counts": dict(plane.counts)}
+    log(f"memory (a) decay: {n} nodes, cold sweep {sweeps[0]['scored_archived']} on both, "
+        f"device {sweeps[0]['device_s']:.3f} s against host {sweeps[0]['host_s']:.3f} s; warm "
+        f"{sweeps[1]['scored_archived']}, device {sweeps[1]['device_s']:.3f} s against host "
+        f"{sweeps[1]['host_s']:.3f} s; archived sets equal; the pass {decay_ms:.4f} device ms "
+        f"(CUDA events), card vs CPU max err {decay_err:.3g} ({card})")
+
+    # -- link prediction: 256 seeds x 3 scorers ------------------------------
+    seeds = [f"n{i}" for i in range(n_seeds)]
+    # the snapshots every later call reuses, timed apart: the plane's union
+    # CSR, and the host AdjacencySnapshot of each engine (the host loop's,
+    # and the one the plane's re-scores and step-downs read)
+    builds = {}
+    for name, fn in (("union_csr", plane._union_snapshot),
+                     ("adjacency_device_engine", lambda: lp.adjacency_snapshot(eng_dev, cat_dev)),
+                     ("adjacency_host_engine", lambda: lp.adjacency_snapshot(eng_host, cat_host))):
+        t = time.perf_counter()
+        fn()
+        builds[name] = time.perf_counter() - t
+    mem0 = device_memory()
+    lp_out = {"snapshot_build_s": builds}
+    log(f"memory (a) snapshots: union CSR {builds['union_csr']:.3f} s, host adjacency "
+        f"{builds['adjacency_device_engine']:.3f} s (the plane's engine) and "
+        f"{builds['adjacency_host_engine']:.3f} s (the host loop's)")
+    for method in MEMORY_SCORERS:
+        before = dict(plane.counts)
+        with ArgRecorder(olp, "linkpredict_topk") as rec:
+            t = time.perf_counter()
+            got = plane.linkpredict_topk(seeds, method=method, limit=MEMORY_LIMIT)
+            dev_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = {s: lp.predict_links(eng_host, s, method=method, limit=MEMORY_LIMIT,
+                                    catalog=cat_host) for s in seeds}
+        host_s = time.perf_counter() - t
+        if got is None:
+            raise AssertionError(f"{method}: the plane stepped the batch down: "
+                                 f"{dict(plane.counts)}")
+        bad = [s for s in seeds if got[s] != want[s]]
+        if bad:
+            raise AssertionError(f"{method}: {len(bad)} seeds differ from host predict_links, "
+                                 f"first {bad[0]}: {got[bad[0]]} vs {want[bad[0]]}")
+        steps = {k: v - before.get(k, 0) for k, v in plane.counts.items()
+                 if k.startswith("degrade_") and v != before.get(k, 0)}
+        err, ms = lp_card_vs_cpu(dev, rec.calls)
+        groups = [(a[5], len(a[0])) for a, _ in rec.calls]
+        lp_out[method] = {"lists_equal": len(seeds), "device_s": dev_s, "host_s": host_s,
+                          "step_downs": steps, "groups_f1_b": groups, "device_ms": ms,
+                          "card_cpu_max_err": err}
+        log(f"memory (a) linkpredict {method}: {len(seeds)} lists equal to host predict_links; "
+            f"device {dev_s:.3f} s against host {host_s:.3f} s; step-downs {steps}; passes "
+            f"(f1, seeds) {groups} in {ms:.4f} device ms; card vs CPU max err {err:.3g} ({card})")
+    stats = plane.resource_stats()
+    delta = device_memory() - mem0
+    if abs(delta - stats["device_bytes"]) > MEMORY_MEM_SLACK:
+        raise AssertionError(f"snapshot device bytes {stats['device_bytes']} against the "
+                             f"memory_allocated delta {delta}")
+    lp_out["snapshot"] = dict(stats, memory_allocated_delta=delta)
+    log(f"memory (a) snapshot: {stats['rows']} CSR rows, {stats['device_bytes']} device bytes "
+        f"(memory_allocated +{delta}), {stats['host_bytes']} host bytes")
+    out["linkpredict"] = lp_out
+
+    # -- FastRP over the union graph -----------------------------------------
+    with ArgRecorder(ofastrp, "fastrp_device") as rec:
+        t = time.perf_counter()
+        res = plane.fastrp(dim=FASTRP_DIM)
+        dev_s = time.perf_counter() - t
+    if res is None or len(rec.calls) != 1:
+        raise AssertionError(f"the plane did not serve FastRP: {dict(plane.counts)}")
+    ids, emb = res
+    src, dst = plane.fastrp_edges(plane._union_snapshot())
+    t = time.perf_counter()
+    host = ofastrp.fastrp_embeddings(len(ids), src, dst, dim=FASTRP_DIM)
+    host_s = time.perf_counter() - t
+    live = np.linalg.norm(host, axis=1) > 1e-9
+    if not np.array_equal(np.linalg.norm(emb, axis=1) > 1e-9, live):
+        raise AssertionError("FastRP: the card's zero rows differ from the host's")
+    cos = float(np.sum(emb[live] * host[live], axis=1).min())
+    if not cos > FASTRP_COS_MIN:
+        raise AssertionError(f"FastRP min cosine {cos} against host <= {FASTRP_COS_MIN}")
+    a = rec.calls[0][0]
+    card_rows = ofastrp.fastrp_device(*a).cpu().numpy()
+    cpu_rows = ofastrp.fastrp_device(*[x.cpu() if torch.is_tensor(x) else x for x in a]).numpy()
+    cc = float(np.sum(card_rows[live] * cpu_rows[live], axis=1).min())
+    if not cc >= CARD_CPU_FASTRP_COS:
+        raise AssertionError(f"FastRP card vs CPU min cosine {cc} < {CARD_CPU_FASTRP_COS}")
+    fr_ms = time_ms(lambda: ofastrp.fastrp_device(*a), iters=5, warmup=1)
+    out["fastrp"] = {"dim": FASTRP_DIM, "rows": len(ids), "live_rows": int(live.sum()),
+                     "min_cos_host": cos, "min_cos_card_cpu": cc, "device_s": dev_s,
+                     "host_s": host_s, "device_ms": fr_ms}
+    log(f"memory (a) fastrp: dim {FASTRP_DIM} over {len(ids)} nodes, min cosine {cos:.7f} "
+        f"against host fastrp_embeddings; device {dev_s:.3f} s against host {host_s:.3f} s; "
+        f"the chain {fr_ms:.4f} device ms; card vs CPU min cosine {cc:.7f} ({card})")
+    out["counts"] = dict(plane.counts)
+    return out
+
+
+def clustered_memories(rng, n, d):
+    """Unit float32 rows around ``n / INFER_CLUSTER`` random centers: ~0.89
+    cosine inside a cluster, ~0 across."""
+    centers = rng.standard_normal((max(1, n // INFER_CLUSTER), d))
+    cid = rng.integers(0, len(centers), n)
+    x = centers[cid] + 0.35 * rng.standard_normal((n, d))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32), cid
+
+
+def suggestion_keys(res):
+    return {nid: [(s.from_id, s.to_id, s.rel_type, s.confidence) for s in sugs]
+            for nid, sugs in res.items()}
+
+
+def memory_db(dev, seed, card, memories):
+    """Phase 9 (b) and (c): inference and gds.* through a port DB. Returns
+    the kernel launches of the path (the checks' launches left out) and
+    the report."""
+    import nornicdb_tpu_torch as nt
+    from nornicdb_tpu_torch import linkpredict as lp
+    from nornicdb_tpu_torch.background.device_plane import BackgroundDevicePlane
+    from nornicdb_tpu_torch.inference import EvidenceBuffer, InferenceEngine
+    from nornicdb_tpu_torch.ops.fastrp import GdsGraphCatalog
+    from nornicdb_tpu_torch.query.columnar import ColumnarCatalog
+
+    rng = np.random.default_rng(seed + 19)
+    total = memories + INFER_STORES + INFER_BATCH
+    vecs, cid = clustered_memories(rng, total, INFER_DIMS)
+    out = {"memories": memories, "auto_link_stores": INFER_STORES, "batch": INFER_BATCH}
+    db = nt.open(device=dev)
+    try:
+        svc = db.search
+        t = time.perf_counter()
+        for i in range(memories):
+            db.store(f"memory {i}", node_id=f"mem{i}", embedding=vecs[i].tolist())
+        out["store_s"] = time.perf_counter() - t
+        if len(svc.vectors) != memories or svc.stats.strategy != "brute":
+            raise AssertionError(f"{len(svc.vectors)} vectors on the {svc.stats.strategy} tier")
+        reset_counts()
+        check_b1 = 0
+        t = time.perf_counter()
+        for i in range(memories, memories + INFER_STORES):
+            db.store(f"memory {i}", node_id=f"mem{i}", embedding=vecs[i].tolist(),
+                     auto_link=True)
+        out["auto_link_s"] = time.perf_counter() - t
+        b1_auto = read_counts()["cosine_topk"]
+        if b1_auto < INFER_STORES:
+            raise AssertionError(f"B1 launched {b1_auto} times for {INFER_STORES} auto-link "
+                                 f"stores")
+        inf = db.inference
+        fresh = [f"mem{i}" for i in range(memories + INFER_STORES, total)]
+        for nid in fresh:
+            i = int(nid[3:])
+            db.store(f"memory {i}", node_id=nid, embedding=vecs[i].tolist())
+        nodes = [db.storage.get_node(nid) for nid in fresh]
+        plane = BackgroundDevicePlane(db.storage, ColumnarCatalog(db.storage), inference=inf,
+                                      device=dev)
+        # the batched path against the per-node path from the same state:
+        # two engines that write no edge (a check: its launches are not the path's)
+        c0 = read_counts()["cosine_topk"]
+        dry = {}
+        for name, attached in (("batched", True), ("per_node", False)):
+            eng = InferenceEngine(db.storage, svc, evidence=EvidenceBuffer())
+            eng.device_plane = plane if attached else None
+            eng._create = lambda sug: True
+            dry[name] = suggestion_keys(eng.on_store_batch(nodes))
+        check_b1 += read_counts()["cosine_topk"] - c0
+        if dry["batched"] != dry["per_node"]:
+            raise AssertionError("on_store_batch through the plane differs from the per-node path")
+        t = time.perf_counter()
+        got = suggestion_keys(inf.on_store_batch(nodes))
+        out["batch_s"] = time.perf_counter() - t
+        if got != dry["batched"] or plane.counts["infer_candidates_device"] != 2:
+            raise AssertionError(f"on_store_batch wrote other suggestions than its dry run: "
+                                 f"{dict(plane.counts)}")
+        n_batch = sum(len(v) for v in got.values())
+        # evidence-gated co-access: two memories of different clusters, unlinked
+        a, b = next((f"mem{i}", f"mem{j}") for i in range(memories) for j in range(i + 1, memories)
+                    if cid[i] != cid[j] and not db.storage.get_node_edges(f"mem{i}")
+                    and not db.storage.get_node_edges(f"mem{j}"))
+        t = time.perf_counter()
+        for _ in range(INFER_REMEMBER_ROUNDS):
+            db.remember(a)
+            db.remember(b)
+        out["remember_s"] = time.perf_counter() - t
+        co = [e for e in db.storage.get_node_edges(a)
+              if e.type == "CO_ACCESSED_WITH" and {e.start_node, e.end_node} == {a, b}]
+        if len(co) != 1 or co[0].properties.get("inferred") is not True:
+            raise AssertionError(f"{INFER_REMEMBER_ROUNDS} rounds of remember made {len(co)} "
+                                 f"CO_ACCESSED_WITH edges between {a} and {b}")
+        out["evidence"] = inf.evidence.stats()
+
+        # -- (c) gds.* through DB.cypher --------------------------------------
+        t = time.perf_counter()
+        proj = db.cypher("CALL gds.graph.project('mem', 'Memory', 'SIMILAR_TO')").rows
+        ref = GdsGraphCatalog()
+        g = ref.project(db.storage, "mem", "Memory", "SIMILAR_TO")
+        if proj != [["mem", g["nodeCount"], g["relationshipCount"], "Memory", "SIMILAR_TO"]]:
+            raise AssertionError(f"gds.graph.project: {proj} against the catalog's {g}")
+        rows = db.cypher("CALL gds.fastRP.stream('mem', {embeddingDimension: 64}) "
+                         "YIELD nodeId, embedding RETURN nodeId, embedding").rows
+        ids, emb = ref.fastrp("mem", dim=64)
+        if rows != [[nid, [float(x) for x in vec]] for nid, vec in zip(ids, emb)]:
+            raise AssertionError("gds.fastRP.stream rows differ from fastrp_embeddings'")
+        sims = sorted({e.start_node for e in db.storage.all_edges() if e.type == "SIMILAR_TO"})
+        sources = sims[:GDS_SOURCES]
+        for s in sources:
+            rows = db.cypher("CALL gds.linkPrediction.adamicAdar.stream({sourceNode: $s, "
+                             "topK: 10}) YIELD node1, node2, score RETURN node1, node2, score",
+                             {"s": s}).rows
+            want = [[s, nid, float(sc)] for nid, sc in
+                    lp.predict_links(db.storage, s, method="adamic_adar", limit=10)]
+            if rows != want:
+                raise AssertionError(f"gds.linkPrediction.adamicAdar.stream from {s}: "
+                                     f"{rows} against predict_links {want}")
+        out["gds_s"] = time.perf_counter() - t
+        counts = read_counts()
+        path = {"cosine_topk": counts["cosine_topk"] - check_b1,
+                "flash_attention": counts["flash_attention"]}
+
+        # -- checks after the path's counts ------------------------------------
+        inferred = [e for e in db.storage.all_edges() if e.type == "SIMILAR_TO"]
+        worst = 0.0
+        exact_lists = {}
+        for e in inferred:
+            conf = e.properties.get("confidence")
+            if e.properties.get("inferred") is not True or conf < inf.similarity_threshold:
+                raise AssertionError(f"inferred edge {e.start_node}->{e.end_node}: {e.properties}")
+            i, j = int(e.start_node[3:]), int(e.end_node[3:])
+            worst = max(worst, abs(conf - float(np.dot(vecs[i].astype(np.float64),
+                                                       vecs[j].astype(np.float64)))))
+            if i not in exact_lists:
+                exact_lists[i] = dict(svc.vector_search_candidates(vecs[i].tolist(), k=INFER_K[0],
+                                                                   exact=True))
+            if e.end_node in exact_lists[i]:
+                worst = max(worst, abs(conf - exact_lists[i][e.end_node]))
+        if not inferred or worst > INFER_CONF_ATOL:
+            raise AssertionError(f"{len(inferred)} inferred edges, max |confidence - exact "
+                                 f"cosine| {worst:.3g} > {INFER_CONF_ATOL}")
+        out.update({"similar_to": len(inferred), "from_batch": n_batch,
+                    "confidence_max_err": worst, "b1_auto_link": b1_auto,
+                    "gds_sources": len(sources), "plane_counts": dict(plane.counts),
+                    "launches": path})
+        log(f"memory (b): {memories} memories stored in {out['store_s']:.2f} s; {INFER_STORES} "
+            f"auto_link stores in {out['auto_link_s']:.2f} s (B1 {b1_auto} launches); "
+            f"on_store_batch of {INFER_BATCH} through the plane in {out['batch_s']:.3f} s, "
+            f"the per-node path's suggestions ({n_batch}); {len(inferred)} SIMILAR_TO edges, "
+            f"confidence >= {inf.similarity_threshold}, max |conf - exact cosine| {worst:.3g}; "
+            f"{INFER_REMEMBER_ROUNDS} remember rounds made the CO_ACCESSED_WITH edge in "
+            f"{out['remember_s']:.3f} s ({card})")
+        log(f"memory (c): gds.graph.project ({g['nodeCount']} nodes, "
+            f"{g['relationshipCount']} rels), gds.fastRP.stream and "
+            f"gds.linkPrediction.adamicAdar.stream from {len(sources)} sources equal the "
+            f"module calls, in {out['gds_s']:.2f} s; path launches {path}")
+        if path["cosine_topk"] < 1:
+            raise AssertionError(f"B1 never launched on the memory path: {path}")
+        return path, out
+    finally:
+        db.close()
+
+
+def phase_memory(dev, seed, card, n_nodes=MEMORY_NODES, n_seeds=MEMORY_SEEDS,
+                 memories=INFER_MEMORIES):
+    """Phase 9 (module docstring). Returns the launches of (b) and (c)."""
+    out = REPORT["memory"] = {}
+    out["plane"] = memory_plane(dev, card, n_nodes, n_seeds)
+    path, out["db"] = memory_db(dev, seed, card, memories)
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3490,13 +3970,16 @@ def main() -> int:
     path_launches["durable"] = phase_durable(dev, corpus)
     lap("durable")
     # a run near the chip call's limit shortens (a)'s windows, not its graph
-    late = time.perf_counter() - t_start + CYPHER_PHASE_S + QUANT_PHASE_S > RUN_LIMIT_S
+    late = (time.perf_counter() - t_start + CYPHER_PHASE_S + QUANT_PHASE_S + MEMORY_PHASE_S
+            > RUN_LIMIT_S)
     window_s = 0.5 if late else LDBC_WINDOW_S
     path_launches["cypher"] = phase_cypher(dev, args.seed, card, window_s=window_s)
     lap("cypher")
     path_launches["quant"] = phase_quant_tiered(dev, corpus, bm25)
     del corpus, bm25
     lap("quant_tiered")
+    path_launches["memory"] = phase_memory(dev, args.seed, card)
+    lap("memory")
     REPORT["total_s"] = time.perf_counter() - t_start
 
     def path_sum(name):

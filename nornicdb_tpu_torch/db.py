@@ -1,5 +1,6 @@
 """DB facade: open / store / link / neighbors / cypher / flush / search /
-recall / forget / close (counterpart of ``nornicdb_tpu/db.py:DB``).
+recall / remember / forget / close (counterpart of
+``nornicdb_tpu/db.py:DB``).
 
 The engine chain is the reference's: a base engine (``MemoryEngine``
 without a data dir; with one, the native KV ``DiskEngine`` or the WAL +
@@ -15,9 +16,15 @@ and, with a data dir, persists its indexes under ``data_dir/search``.
 ``db.index.vector.queryNodes`` reads the search service, and writes
 arriving outside Cypher invalidate the executor's caches through a
 storage listener. ``multidb_manager`` hosts more databases on the chain
-below the namespace. Encryption at rest and replication wait for later
-slices: ``passphrase`` and ``replication`` raise ``NotPortedError``;
-``graph_vector_search`` and ``remember`` are not ported yet.
+below the namespace. The AI-native memory plane is built on first use:
+``decay`` (``DecayManager``), ``temporal`` (``TemporalTracker``) and
+``inference`` (``InferenceEngine`` over the search service, with an
+evidence buffer ahead of co-access edges); ``store(auto_link=True)``
+infers ``SIMILAR_TO`` edges for an explicit embedding, and ``remember``
+records an access for decay, the temporal tracker and co-access
+inference. Encryption at rest and replication wait for later slices:
+``passphrase`` and ``replication`` raise ``NotPortedError``;
+``graph_vector_search`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -99,6 +106,9 @@ class DB:
         self._db_manager = None
         self._executor = None
         self._search = None
+        self._decay = None
+        self._temporal = None
+        self._inference = None
         if embedder is None:
             try:
                 embedder = self._default_embedder()
@@ -222,6 +232,36 @@ class DB:
                     self._executor.set_search_service(svc)
             return self._search
 
+    @property
+    def decay(self):
+        """The decay manager, built on first use."""
+        if self._decay is None:
+            from nornicdb_tpu_torch.decay import DecayManager
+
+            self._decay = DecayManager(self.storage)
+        return self._decay
+
+    @property
+    def temporal(self):
+        """The temporal access tracker, built on first use."""
+        if self._temporal is None:
+            from nornicdb_tpu_torch.temporal import TemporalTracker
+
+            self._temporal = TemporalTracker()
+        return self._temporal
+
+    @property
+    def inference(self):
+        """The inference engine over the search service, built on first
+        use; co-access edges materialize only after accumulated evidence
+        (the reference's evidence buffer ahead of Auto-TLP edges)."""
+        if self._inference is None:
+            from nornicdb_tpu_torch.inference import EvidenceBuffer, InferenceEngine
+
+            self._inference = InferenceEngine(
+                self.storage, self.search, evidence=EvidenceBuffer())
+        return self._inference
+
     def _on_embedded(self, node: Node) -> None:
         if self._search is not None:
             self._search.index_node(node)
@@ -235,8 +275,11 @@ class DB:
         properties: Optional[Dict[str, Any]] = None,
         node_id: Optional[str] = None,
         embedding: Optional[List[float]] = None,
+        auto_link: bool = False,
     ) -> Node:
-        """Store a memory node."""
+        """Store a memory node; with ``auto_link`` and an explicit
+        ``embedding``, infer ``SIMILAR_TO`` edges to its nearest stored
+        memories (``inference.on_store``)."""
         nid = node_id or str(uuid.uuid4())
         props = dict(properties or {})
         props.setdefault("content", content)
@@ -257,6 +300,8 @@ class DB:
                 self._search.index_node(self.storage.get_node(nid))
             except DimsMismatch:
                 pass
+        if auto_link and embedding is not None:
+            self.inference.on_store(node)
         return self.storage.get_node(nid)
 
     def link(
@@ -297,6 +342,24 @@ class DB:
         """Hybrid search over stored memories."""
         return self.search.search(query, limit=limit, **kw)
 
+    def remember(self, node_id: str) -> Node:
+        """Fetch a node and record the access for decay and temporal
+        tracking; repeated co-access accumulates evidence toward inferred
+        edges. Co-access inference runs only once the inference engine
+        exists (a read must not build the search stack), and, as in the
+        reference, a failure there never fails the read: that path is
+        host work (the temporal tracker, the evidence buffer and an edge
+        write), so it hides no device fault."""
+        node = self.storage.get_node(node_id)
+        self.decay.record_access(node_id)
+        self.temporal.record_access(node_id)
+        if self._inference is not None:
+            try:
+                self._inference.on_access(self._temporal, node_id)
+            except Exception:  # noqa: BLE001 — inference must never fail a read
+                log.exception("co-access inference failed for %s", node_id)
+        return node
+
     def forget(self, node_id: str) -> None:
         """Delete a node (and its edges) and drop it from the indexes."""
         self.storage.delete_node(node_id)
@@ -311,7 +374,8 @@ class DB:
 
     def close(self) -> None:
         """Stop the embed queue, make the search service's final index
-        save, then close storage (which snapshots the Python engine)."""
+        save, stop the decay manager, then close storage (which snapshots
+        the Python engine)."""
         with self._lock:
             if self._closed:
                 return
@@ -321,6 +385,8 @@ class DB:
                 self._embed_queue.stop()
             if self._search is not None:
                 self._search.close()
+            if self._decay is not None:
+                self._decay.stop()
         finally:
             self.storage.close()
 

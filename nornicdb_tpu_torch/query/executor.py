@@ -9,7 +9,7 @@ non-aggregate projection keys exactly as Cypher defines.
 
 Not ported yet, each raising ``NotPortedError`` where it would run: APOC
 (``apoc.*`` functions, ``apoc.agg.*`` aggregates, procedures and
-triggers), ``gds.*`` and the strict parser mode. There is no device graph
+triggers) and the strict parser mode. There is no device graph
 plane: every fast-path shape serves from the host arrays. PROFILE keeps
 the plan, its db hits and row counts; there is no metrics registry to
 record them in.

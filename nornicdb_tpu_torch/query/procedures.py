@@ -1,7 +1,7 @@
 """CALL procedure implementations (counterpart of
 ``nornicdb_tpu/query/procedures.py``): the ``db.*`` and ``dbms.*``
-procedures. ``gds.*`` (graph catalog, FastRP, link prediction) and
-``apoc.*`` raise ``NotPortedError``.
+procedures and ``gds.*`` (the graph catalog, host FastRP and host link
+prediction, as the reference's). ``apoc.*`` raises ``NotPortedError``.
 
 Reference: pkg/cypher/call.go:613 executeCall dispatch + the db.*/dbms.*
 surface (call_vector.go:19 db.index.vector.queryNodes, call_fulltext.go,
@@ -254,9 +254,112 @@ def run_procedure(
                        "cache": executor.query_cache.stats()})}
             return
 
-    if name.startswith("gds."):
-        raise NotPortedError(f"{name}: the gds.* procedures (graph catalog, "
-                             "FastRP, link prediction) are not ported yet")
+    if name == "gds.version":
+        yield {"version": "2.x-compat (nornicdb-tpu)"}
+        return
+
+    if name.startswith("gds.graph.") or name == "gds.fastrp.stream":
+        # graph catalog + FastRP (reference: pkg/cypher/fastrp.go:8-26)
+        from nornicdb_tpu_torch.ops.fastrp import GdsGraphCatalog
+
+        catalog = getattr(executor, "gds_catalog", None)
+        if catalog is None:
+            catalog = GdsGraphCatalog()
+            executor.gds_catalog = catalog
+        if name == "gds.graph.project":
+            if len(args) < 3:
+                raise CypherRuntimeError(
+                    "gds.graph.project(name, nodeProjection, relProjection)")
+            g = catalog.project(storage, str(args[0]),
+                                args[1] if args[1] != "*" else None,
+                                args[2] if args[2] != "*" else None)
+            yield {
+                "graphName": g["name"], "nodeCount": g["nodeCount"],
+                "relationshipCount": g["relationshipCount"],
+                "nodeProjection": g["nodeProjection"],
+                "relationshipProjection": g["relationshipProjection"],
+            }
+            return
+        if name == "gds.graph.list":
+            for g in catalog.list():
+                yield {"graphName": g["name"], "nodeCount": g["nodeCount"],
+                       "relationshipCount": g["relationshipCount"]}
+            return
+        if name == "gds.graph.drop":
+            g = catalog.drop(str(args[0]) if args else "")
+            if g is None:
+                raise CypherRuntimeError(f"graph {args[0]!r} not found")
+            yield {"graphName": g["name"]}
+            return
+        if name == "gds.fastrp.stream":
+            if not args:
+                raise CypherRuntimeError(
+                    "gds.fastRP.stream(graphName, config)")
+            cfg = args[1] if len(args) > 1 else {}
+            cfg = cfg or {}
+            try:
+                ids, emb = catalog.fastrp(
+                    str(args[0]),
+                    dim=int(cfg.get("embeddingDimension", 64)),
+                    iteration_weights=cfg.get("iterationWeights",
+                                              (0.0, 1.0, 1.0)),
+                    normalization_strength=float(
+                        cfg.get("normalizationStrength", 0.0)),
+                    seed=int(cfg.get("randomSeed", 42)),
+                )
+            except KeyError as e:
+                raise CypherRuntimeError(str(e))
+            for nid, vec in zip(ids, emb):
+                yield {"nodeId": nid, "embedding": [float(x) for x in vec]}
+            return
+
+    if name.startswith("gds.linkprediction."):
+        # Neo4j GDS link-prediction procedures (reference:
+        # pkg/cypher/linkprediction.go:1-559 — always available, result
+        # format {node1, node2, score}; hybrid predict adds
+        # topology_score/semantic_score).
+        from nornicdb_tpu_torch.linkpredict import hybrid_predict, predict_links
+
+        method_map = {
+            "gds.linkprediction.adamicadar.stream": "adamic_adar",
+            "gds.linkprediction.commonneighbors.stream": "common_neighbors",
+            "gds.linkprediction.jaccard.stream": "jaccard",
+            "gds.linkprediction.preferentialattachment.stream":
+                "preferential_attachment",
+            "gds.linkprediction.resourceallocation.stream":
+                "resource_allocation",
+        }
+        cfg = args[0] if args else {}
+        if not isinstance(cfg, dict):
+            raise CypherRuntimeError(
+                "gds.linkPrediction.*.stream expects a configuration map "
+                "{sourceNode, topK}"
+            )
+        source = cfg.get("sourceNode") or cfg.get("sourcenode")
+        if source is None:
+            raise CypherRuntimeError("configuration requires sourceNode")
+        source_id = source.id if hasattr(source, "id") else str(source)
+        top_k = int(cfg.get("topK", cfg.get("topk", 10)))
+        if name in method_map:
+            for nid, score in predict_links(
+                storage, source_id, method=method_map[name], limit=top_k
+            ):
+                yield {"node1": source_id, "node2": nid, "score": float(score)}
+            return
+        if name == "gds.linkprediction.predict.stream":
+            weight = float(cfg.get("topologyWeight",
+                                   cfg.get("topologyweight", 0.5)))
+            for nid, score, topo, sem in hybrid_predict(
+                storage, executor._search, source_id,
+                topology_weight=weight, limit=top_k,
+            ):
+                yield {
+                    "node1": source_id, "node2": nid, "score": float(score),
+                    "topology_score": float(topo),
+                    "semantic_score": float(sem),
+                }
+            return
+        raise CypherRuntimeError(f"unknown procedure {name}")
 
     if name.startswith("apoc."):
         raise NotPortedError(f"{name}: APOC procedures are not ported yet")

@@ -422,3 +422,92 @@ def test_quant_walks_on_the_card_match_the_cpu(dev, mode, b):
     s_c, i_c = walk(*cpu, *extra)
     s_g, i_g = walk(*(t.to(dev) for t in cpu), *extra)
     assert topk_agree(i_g.cpu().numpy(), s_g.cpu().numpy(), i_c.numpy(), s_c.numpy(), SCORE_ATOL)
+
+
+# -- the background plane's ops (PyTorch ops, no kernel): card vs CPU ---------
+
+
+def _memory_graph(n=2000, e=6000, seed=5):
+    """A random graph in the port's memory engine, as chip_smoke.py phase 9
+    builds its own at 100,000 nodes."""
+    import random
+
+    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, Node
+
+    rng = random.Random(seed)
+    eng = MemoryEngine()
+    now = 1_700_000_000_000
+    for i in range(n):
+        eng.create_node(Node(id=f"n{i}", labels=["T"], properties={"importance": rng.random()},
+                             created_at=now - rng.randrange(0, 80 * 86_400_000)))
+    for j in range(e):
+        eng.create_edge(Edge(id=f"e{j}", type=("KNOWS", "LIKES")[j % 2],
+                             start_node=f"n{rng.randrange(n)}", end_node=f"n{rng.randrange(n)}"))
+    return eng
+
+
+def test_decay_scores_on_the_card_match_the_cpu(dev):
+    from nornicdb_tpu_torch.ops.decay import decay_scores
+
+    rng = np.random.default_rng(0)
+    m = 50_000
+    cols = (rng.uniform(0, 8e9, m), rng.choice([6.048e8, 5.9616e9, 5.98752e10], m),
+            rng.integers(0, 40, m), rng.random(m), rng.random(m), rng.uniform(0.01, 1, m),
+            rng.random(m) < 0.5)
+    card = decay_scores(*cols, (0.5, 0.3, 0.2), 1e-3, 1e-1, device=dev)
+    cpu = decay_scores(*cols, (0.5, 0.3, 0.2), 1e-3, 1e-1, device="cpu")
+    for a, b in zip(card, cpu):
+        assert np.max(np.abs(a.astype(np.float64) - b)) <= 1e-6
+
+
+@pytest.mark.parametrize("method", ["common_neighbors", "adamic_adar", "resource_allocation"])
+def test_linkpredict_topk_on_the_card_matches_the_cpu(dev, method):
+    from nornicdb_tpu_torch.background.device_plane import BackgroundDevicePlane
+    from nornicdb_tpu_torch.ops.linkpredict import linkpredict_topk
+    from nornicdb_tpu_torch.query.columnar import ColumnarCatalog
+
+    eng = _memory_graph()
+    plane = BackgroundDevicePlane(eng, ColumnarCatalog(eng), device=dev)
+    snap = plane._union_snapshot()
+    ip, nb, w, _ = plane._device_arrays(snap, method)
+    f2 = 1 << (snap["max_deg"] - 1).bit_length()
+    for f1 in (8, 16):
+        seeds = np.asarray(list(range(0, 2000, 7)) + [-1], np.int64)
+        card = linkpredict_topk(seeds, ip, nb, w, snap["n"], f1, f2, 32)
+        cpu = linkpredict_topk(seeds, ip.cpu(), nb.cpu(), w.cpu(), snap["n"], f1, f2, 32)
+        assert np.array_equal(card[2], cpu[2])
+        live = np.isfinite(cpu[0])
+        assert np.array_equal(np.isfinite(card[0]), live)
+        assert topk_agree(card[1], np.where(live, card[0], -1e30),
+                          cpu[1], np.where(live, cpu[0], -1e30), atol=1e-6)
+
+
+def test_background_plane_on_the_card_equals_the_host_loops(dev):
+    from nornicdb_tpu_torch import linkpredict as lp
+    from nornicdb_tpu_torch.background.device_plane import BackgroundDevicePlane
+    from nornicdb_tpu_torch.decay import DecayManager
+    from nornicdb_tpu_torch.ops.fastrp import fastrp_embeddings
+    from nornicdb_tpu_torch.query.columnar import ColumnarCatalog
+
+    card_eng, host_eng = _memory_graph(), _memory_graph()
+    managers = []
+    for eng in (card_eng, host_eng):
+        dm = DecayManager(eng, archive_threshold=0.45)
+        for i in range(0, 2000, 3):
+            dm.record_access(f"n{i}", at_ms=1_700_000_000_000 - i * 1_000_000)
+        managers.append(dm)
+    cat = ColumnarCatalog(card_eng)
+    plane = BackgroundDevicePlane(card_eng, cat, decay=managers[0], device=dev)
+    now = 1_700_000_000_000
+    assert managers[0].sweep(now) == managers[1].sweep(now)
+    seeds = [f"n{i}" for i in range(0, 2000, 9)]
+    for method in ("common_neighbors", "adamic_adar", "resource_allocation"):
+        got = plane.linkpredict_topk(seeds, method=method, limit=10)
+        for s in seeds:
+            assert got[s] == lp.predict_links(card_eng, s, method=method, limit=10), (method, s)
+    ids, emb = plane.fastrp(dim=64)
+    src, dst = plane.fastrp_edges(plane._union_snapshot())
+    host = fastrp_embeddings(len(ids), src, dst, dim=64)
+    live = np.linalg.norm(host, axis=1) > 1e-9
+    assert np.sum(emb[live] * host[live], axis=1).min() > 0.999
+    assert plane.counts["decay_sweep_device"] == 1 and plane.counts["fastrp_device"] == 1

@@ -2,8 +2,8 @@
 package's on the same inputs: parser ASTs over the queries of the
 reference's Cypher tests, the differential fuzzer's graphs and queries
 with the fast paths on and off, the fast-path parity corpus, temporal
-values and their record bytes, the ``db.*`` procedures on a DB, Cypher
-writes through the DB and both result caches, and the parts of the
+values and their record bytes, the ``db.*`` and ``gds.*`` procedures,
+Cypher writes through the DB and both result caches, and the parts of the
 reference that raise ``NotPortedError`` in the port.
 
 The JAX side is ``nornicdb_tpu.query.executor.CypherExecutor`` over the
@@ -649,13 +649,124 @@ def test_temporal_properties_written_by_cypher_reopen_across_packages(tmp_path, 
     "RETURN apoc.coll.sum([1, 2])",
     "UNWIND [1, 2] AS x RETURN apoc.agg.median(x)",
     "CALL apoc.help('coll')",
-    "CALL gds.version()",
-    "CALL gds.graph.list()",
 ])
 def test_apoc_and_gds_raise_not_ported_where_jax_answers(query):
     JExecutor(JNamespaced(JMemory(), "t")).execute(query)  # the reference answers
     with pytest.raises(NotPortedError, match="not ported"):
         CypherExecutor(NamespacedEngine(MemoryEngine(), "t")).execute(query)
+
+
+# -- gds.* procedures ------------------------------------------------------------
+
+_GDS_PROJECT = "CALL gds.graph.project('g', 'P', 'KNOWS')"
+_LP_SOURCES = ("p0", "p3", "p7", "p12")
+
+
+def _gds_pair():
+    """The same seeded graph (24 people, KNOWS and LIKES edges, unit
+    embeddings) under both executors, each with a search service over it
+    for ``gds.linkPrediction.predict.stream``."""
+    from nornicdb_tpu.search.service import SearchService as JService
+    from nornicdb_tpu.storage import Edge as JEdge
+    from nornicdb_tpu.storage import Node as JNode
+    from nornicdb_tpu_torch.search.service import SearchService as TService
+
+    rng = random.Random(4)
+    vecs = np.random.default_rng(4).standard_normal((24, 8)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    edges = [(f"p{rng.randrange(24)}", f"p{rng.randrange(24)}", rng.choice(["KNOWS", "LIKES"]))
+             for _ in range(70)]
+    out = []
+    for mem, ns, node_cls, edge_cls, ex_cls, svc_of in (
+            (JMemory, JNamespaced, JNode, JEdge, JExecutor, JService),
+            (MemoryEngine, NamespacedEngine, Node, Edge, CypherExecutor,
+             lambda e: TService(e, device="cpu"))):
+        eng = ns(mem(), "t")
+        svc = svc_of(eng)
+        for i in range(24):
+            eng.create_node(node_cls(id=f"p{i}", labels=["P"] if i < 20 else ["Q"],
+                                     properties={"name": f"p{i}"}, embedding=vecs[i].tolist()))
+            svc.index_node(eng.get_node(f"p{i}"))
+        for j, (a, b, t) in enumerate(edges):
+            eng.create_edge(edge_cls(id=f"k{j}", type=t, start_node=a, end_node=b))
+        ex = ex_cls(eng)
+        ex.set_search_service(svc)
+        out.append(ex)
+    return out
+
+
+_LP_PROCS = ("adamicAdar", "commonNeighbors", "jaccard", "preferentialAttachment",
+             "resourceAllocation")
+
+GDS_CASES = {
+    "version": ["CALL gds.version() YIELD version RETURN version"],
+    "graph_list_empty": ["CALL gds.graph.list()"],
+    "project_list_drop": [
+        _GDS_PROJECT, "CALL gds.graph.project('all', '*', '*')",
+        "CALL gds.graph.list() YIELD graphName, nodeCount, relationshipCount "
+        "RETURN graphName, nodeCount, relationshipCount ORDER BY graphName",
+        "CALL gds.graph.drop('g')", "CALL gds.graph.list()"],
+    "fastrp_default": [_GDS_PROJECT, "CALL gds.fastRP.stream('g', {}) YIELD nodeId, embedding "
+                       "RETURN nodeId, embedding"],
+    "fastrp_config": [
+        "CALL gds.graph.project('all', '*', '*')",
+        "CALL gds.fastRP.stream('all', {embeddingDimension: 16, iterationWeights: [1.0, 0.5], "
+        "normalizationStrength: -0.5, randomSeed: 7}) YIELD nodeId, embedding "
+        "RETURN nodeId, embedding"],
+    **{f"linkprediction_{p}": [
+        f"CALL gds.linkPrediction.{p}.stream({{sourceNode: '{s}', topK: 5}}) "
+        "YIELD node1, node2, score RETURN node1, node2, score" for s in _LP_SOURCES]
+       for p in _LP_PROCS},
+    "linkprediction_predict": [
+        f"CALL gds.linkPrediction.predict.stream({{sourceNode: '{s}', topK: 4, "
+        f"topologyWeight: {w}}}) YIELD node1, node2, score, topology_score, semantic_score "
+        "RETURN node1, node2, score, topology_score, semantic_score"
+        for s in _LP_SOURCES for w in (0.3, 1.0)],
+}
+
+GDS_ERRORS = [
+    "CALL gds.fastRP.stream('missing', {})",
+    "CALL gds.graph.drop('missing')",
+    "CALL gds.graph.project('g', 'P')",
+    "CALL gds.linkPrediction.adamicAdar.stream({topK: 3})",
+    "CALL gds.linkPrediction.adamicAdar.stream('p1')",
+    "CALL gds.linkPrediction.nosuch.stream({sourceNode: 'p1'})",
+]
+
+
+@pytest.mark.parametrize("case", sorted(GDS_CASES))
+def test_gds_procedures_match_jax(case):
+    """Each ``gds.*`` procedure answers as the JAX package's: the graph
+    catalog, host FastRP (bitwise), host link prediction (bitwise); the
+    hybrid ``predict.stream`` blends a vector search's cosines, so its
+    scores agree within 1e-6 with the same node order."""
+    jex, tex = _gds_pair()
+    for q in GDS_CASES[case]:
+        want, got = jex.execute(q), tex.execute(q)
+        assert got.columns == want.columns, q
+        if case == "linkprediction_predict":
+            assert [r[:2] for r in got.rows] == [r[:2] for r in want.rows], q
+            assert np.allclose([r[2:] for r in got.rows], [r[2:] for r in want.rows],
+                               rtol=0.0, atol=1e-6), q
+        else:
+            assert got.rows == want.rows, q
+        if case.startswith(("fastrp", "linkprediction")) and "project" not in q:
+            assert got.rows, q
+
+
+@pytest.mark.parametrize("query", GDS_ERRORS)
+def test_gds_procedure_errors_match_jax(query):
+    jex, tex = _gds_pair()
+    jex.execute(_GDS_PROJECT)
+    tex.execute(_GDS_PROJECT)
+    if "project" in query:
+        query = _GDS_PROJECT  # a second projection of the same name
+    with pytest.raises(Exception) as want:
+        jex.execute(query)
+    with pytest.raises(Exception) as got:
+        tex.execute(query)
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert str(got.value) == str(want.value)
 
 
 def test_strict_parser_mode_raises_not_ported():

@@ -49,7 +49,9 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
     assert "nornicdb_tpu_torch.db" in result["imported"]
     assert "nornicdb_tpu_torch.storage.codec" in result["imported"]
     for name in ("ops.kmeans", "search.device_quant", "search.tiered_store",
-                 "storage.partition_store"):
+                 "storage.partition_store", "filters", "decay", "temporal",
+                 "linkpredict", "inference", "ops.decay", "ops.linkpredict",
+                 "ops.fastrp", "background", "background.device_plane"):
         assert "nornicdb_tpu_torch." + name in result["imported"]
     assert result["bad"] == []
 
