@@ -116,16 +116,32 @@ Phases, in order; any failure exits non-zero:
    reopen, every id read back; and for each engine a child process that
    writes with ``sync_every_write=True`` until it has acknowledged 1,000
    writes and is SIGKILLed: the reopen must find every acknowledged id.
-7. Cypher, in three parts. (a) On the host: the reference's Cypher
-   benchmark graph (``bench.py:_bench_cypher``, ``random.Random(11)``:
-   50,000 persons with 20 KNOWS each, 100,000 messages, 50 cities, 40
-   tags, ~1.35 M edges) in ``NamespacedEngine(MemoryEngine(), "bench")``
-   under a ``CypherExecutor`` with its query cache off; the four LDBC
-   shapes and the Northwind write each run for ``LDBC_WINDOW_S``
-   (queries/s, p50, p99), and each read shape's fast-path rows must
-   equal the row interpreter's as multisets (8 rotating parameters per
-   point shape, one run per aggregate shape); every Northwind write must
-   create its edge, and no read shape any. (b) On the card, through
+7. Cypher, in four parts. (a) The reference's Cypher benchmark graph
+   (``bench.py:_bench_cypher``, ``random.Random(11)``: 50,000 persons
+   with 20 KNOWS each, 100,000 messages, 50 cities, 40 tags, ~1.35 M
+   edges) in ``NamespacedEngine(MemoryEngine(), "bench")`` under a
+   ``CypherExecutor`` with its query cache off; the four LDBC shapes and
+   the Northwind write each run for ``LDBC_WINDOW_S`` (queries/s, p50,
+   p99), and each read shape's fast-path rows must equal the row
+   interpreter's as multisets (8 rotating parameters per point shape,
+   one run per aggregate shape); every Northwind write must create its
+   edge, and no read shape any. Under the default
+   ``NORNICDB_GRAPH_DEVICE=auto`` the executor's device graph plane
+   builds ``avg_friends_per_city``'s strip view on the card; the other
+   shapes serve from the host. (d), right after (a), on its graph and
+   executor: ``recent_messages_friends`` rows against the same executor
+   under ``off``, for 64 single reads under ``on`` (one dispatch each)
+   and 16 threads x 16 reads under ``auto`` (coalesced batches,
+   dispatched or below ``MIN_B``), one B 16 and one B 64 dispatch timed;
+   the strip view and the tag Gram built on a fresh catalog on the card
+   and on the host, bitwise, and ``tag_cooccurrence`` rows under ``on``;
+   traverse-then-rank over ``KNOWS`` (1 and 2 hops, B 1, 16, 64, k 10)
+   into a 50,000 x 160 ``BruteForceIndex`` of seeded unit vectors against
+   the host version (ids tie-aware, scores within 1e-5); a fresh plane's
+   chain, rank and whole-graph snapshots against the ``memory_allocated``
+   delta (within 1 MB), PageRank (20 iterations) against the host
+   version (rtol 1e-4, atol 1e-7), degree counts against
+   ``np.bincount``, the snapshot cached. (b) On the card, through
    ``open(data_dir, engine="native")``: 8,000 ``Memory`` nodes of a
    seeded Zipf corpus created by ``UNWIND $rows ... CREATE`` in batches
    of 500, a flush (every memory embedded through the queue, B2), then 3
@@ -139,7 +155,10 @@ Phases, in order; any failure exits non-zero:
    against the BM25 index; a 2-hop ``MATCH`` against the row
    interpreter. B1 is timed on the index's rows at B in {1, 4, 8}. 16 threads
    × 16 GraphRAG queries must coalesce (mean batch above 1, a B1 launch
-   at B >= 5) and answer as one at a time. (c) 1,000 ``Event`` nodes with
+   at B >= 5) and answer as one at a time. ``DB.graph_vector_search``
+   from 32 anchors over 1 and 2 ``RELATES_TO`` hops must answer as the
+   plane's host version, in one dispatch each, with no B1 launch. (c)
+   1,000 ``Event`` nodes with
    ``datetime``, ``date`` and ``duration`` values created by Cypher; the
    DB is closed and reopened (``engine="auto"``): the values, and
    GraphRAG answers (bitwise), must be those before the close, with no
@@ -236,6 +255,7 @@ A copy of every measurement goes to ``chiprun_out/chip_smoke_report.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -296,6 +316,7 @@ RUN_LIMIT_S = 1200.0  # the whole run must end within this
 # H100; a run that could not fit it before the limit measures (a)'s
 # shapes for 0.5 s each instead (its graph keeps its size)
 CYPHER_PHASE_S = 240.0
+GRAPH_PLANE_S = 60.0  # phase 7 (d)'s budget; a late run shortens its timing, not its checks
 QUANT_PHASE_S = 260.0  # phase 8 (a)'s length (206-237 s on an H100 80GB, 700 W), with room
 
 REPORT: dict = {}
@@ -2509,6 +2530,19 @@ CYPHER_PER_THREAD = 16
 # (c) temporal values and restart
 CYPHER_EVENTS = 1_000
 CYPHER_RESTART_QUERIES = 16
+# (d) the device graph plane on (a)'s graph (and DB.graph_vector_search on (b)'s)
+GRAPH_SINGLE_READS = 64
+GRAPH_THREADS = 16
+GRAPH_PER_THREAD = 16
+GRAPH_CHAIN_TIMED_B = (16, 64)
+GRAPH_HOPS = (("KNOWS", "out"), ("KNOWS", "out"))
+GRAPH_RANK_B = (1, 16, 64)
+GRAPH_RANK_K = 10
+GRAPH_RANK_DIMS = 160  # the DB's width
+GRAPH_GVS_ANCHORS = 32
+GRAPH_REPS = 10  # timing repetitions; a late run takes 2 (the checks stay)
+GRAPH_MEM_SLACK = 1 << 20  # the snapshots' device bytes against the memory_allocated delta
+PAGERANK_RTOL, PAGERANK_ATOL = 1e-4, 1e-7  # the reference's (tests/test_ops.py:364)
 
 GRAPHRAG = ("CALL db.index.vector.queryNodes('memory', 10, $v) YIELD node, score "
             "MATCH (node)-[:RELATES_TO]->(r:Memory) "
@@ -2591,8 +2625,8 @@ def latency_summary(lat_ms):
 
 
 def cypher_ldbc(card, n_people, n_msgs, knows_per, window_s):
-    """Phase 7 (a): the LDBC shapes on the host, fast paths against the
-    row interpreter."""
+    """Phase 7 (a): the LDBC shapes, fast paths against the row
+    interpreter. Returns (report, engine, executor, shapes)."""
     from collections import Counter
 
     from nornicdb_tpu_torch.query.executor import CypherExecutor
@@ -2650,7 +2684,10 @@ def cypher_ldbc(card, n_people, n_msgs, knows_per, window_s):
             f"{cold_ms:.1f} ms)" + (f"; rows equal to the row interpreter's on "
                                     f"{row['parity_runs']} runs ({row['interpreter_s']:.2f} s)"
                                     if "parity_runs" in row else "") + f" ({card})")
-    return out
+    out["plane_counts"] = dict(ex.device_graph.counts)
+    log(f"  device graph plane under auto: {out['plane_counts']}, "
+        f"{ex.device_graph.dispatches} chain/rank dispatches")
+    return out, eng, ex, shapes
 
 
 def graphrag_rows(db, qv):
@@ -2834,7 +2871,412 @@ def cypher_multidb(db):
     return {"counts": counts, "after_drop": left}
 
 
-def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S):
+@contextlib.contextmanager
+def graph_mode(value):
+    """NORNICDB_GRAPH_DEVICE set for a block, and restored."""
+    prev = os.environ.get("NORNICDB_GRAPH_DEVICE")
+    os.environ["NORNICDB_GRAPH_DEVICE"] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("NORNICDB_GRAPH_DEVICE", None)
+        else:
+            os.environ["NORNICDB_GRAPH_DEVICE"] = prev
+
+
+class Capture:
+    """Wraps a program of ``query/device_graph.py`` for a block: records
+    each call's arguments and the batch it served (anchors >= 0)."""
+
+    def __init__(self, name):
+        from nornicdb_tpu_torch.query import device_graph as dg
+
+        self.dg, self.name, self.real = dg, name, getattr(dg, name)
+        self.args, self.calls, self.riders = None, 0, 0
+
+    def __enter__(self):
+        def wrapped(*args):
+            self.args = args
+            self.calls += 1
+            if self.name in ("_chain_topk", "_traverse_rank"):
+                self.riders += int((args[0] >= 0).sum())
+            return self.real(*args)
+
+        setattr(self.dg, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.dg, self.name, self.real)
+
+    def event_ms(self, reps):
+        """CUDA-event ms of the program alone on the last call's inputs."""
+        return time_ms(lambda: self.real(*self.args), iters=reps, warmup=1)
+
+
+def graph_chain(ex, shapes, card, reps):
+    """(d) 1: ``recent_messages_friends`` on the plane. Rows against the
+    host path's (the same executor under ``off``) for every read; 64
+    single-stream reads under ``on`` (one dispatch each), 16 threads x 16
+    reads under ``auto`` and again under ``on`` (riders per dispatch); one
+    B 16 and one B 64 dispatch timed, kernels per call by the profiler."""
+    import threading
+
+    import torch
+
+    q, mk = shapes["recent_messages_friends"]
+    plane = ex.device_graph
+    single = [mk(it) for it in range(GRAPH_SINGLE_READS)]
+    conc = [[mk(5000 + t * GRAPH_PER_THREAD + j) for j in range(GRAPH_PER_THREAD)]
+            for t in range(GRAPH_THREADS)]
+    with graph_mode("off"):
+        d0 = plane.dispatches
+        want = {p["pid"]: ex.execute(q, p).rows for p in single + [p for c in conc for p in c]}
+        if plane.dispatches != d0:
+            raise AssertionError("the plane dispatched under NORNICDB_GRAPH_DEVICE=off")
+    out = {}
+    with graph_mode("on"):
+        plane._forced = None  # the pre-gate's cached mode: read it again now
+        d0 = plane.dispatches
+        t = time.perf_counter()
+        ex.execute(q, single[0])  # builds the chain snapshot
+        out["first_read_s"] = time.perf_counter() - t
+        lat = []
+        for p in single:
+            t = time.perf_counter()
+            rows = ex.execute(q, p).rows
+            lat.append((time.perf_counter() - t) * 1e3)
+            if rows != want[p["pid"]]:
+                raise AssertionError(f"chain rows for {p} differ from the host path's")
+        out["on_dispatches"] = plane.dispatches - d0
+        out["on_single"] = latency_summary(lat)
+        if out["on_dispatches"] != len(single) + 1:
+            raise AssertionError(f"{len(single) + 1} reads under on made "
+                                 f"{out['on_dispatches']} dispatches")
+    spec = next(k[1:] for k in plane._batchers if k[0] == "chainb")
+    batcher = plane._chain_batcher(spec)
+
+    def concurrent(mode):
+        got, errors = [], []
+        barrier = threading.Barrier(GRAPH_THREADS)
+
+        def client(t):
+            try:
+                barrier.wait()
+                for p in conc[t]:
+                    got.append((p["pid"], ex.execute(q, p).rows))
+            except BaseException as exc:  # noqa: BLE001 -- re-raised below
+                errors.append(exc)
+
+        with graph_mode(mode), Capture("_chain_topk") as cap:
+            b0, i0, d0 = batcher.batches, batcher.batched_items, plane.dispatches
+            below0 = plane.counts["batch_below_min_b"]
+            threads = [threading.Thread(target=client, args=(t,)) for t in range(GRAPH_THREADS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("a chain client did not finish")
+        if errors:
+            raise errors[0]
+        for pid, rows in got:
+            if rows != want[pid]:
+                raise AssertionError(f"concurrent chain rows for pid {pid} differ from the "
+                                     f"host's")
+        row = {"reads": len(got), "wall_s": wall, "queries_per_s": len(got) / wall,
+               "coalesced_batches": batcher.batches - b0, "riders": batcher.batched_items - i0,
+               "dispatched": plane.dispatches - d0, "riders_dispatched": cap.riders,
+               "min_batch": plane.counts["batch_below_min_b"] - below0}
+        row["mean_riders_per_dispatch"] = cap.riders / max(row["dispatched"], 1)
+        log(f"  chain, {GRAPH_THREADS} threads x {GRAPH_PER_THREAD} under {mode}: "
+            f"{row['reads']} reads in {wall:.3f} s ({row['queries_per_s']:.0f}/s), "
+            f"{row['coalesced_batches']} coalesced batches of {row['riders']} riders, "
+            f"{row['dispatched']} dispatched ({row['riders_dispatched']} riders, mean "
+            f"{row['mean_riders_per_dispatch']:.2f}), {row['min_batch']} below min_b; rows "
+            f"equal ({card})")
+        return row
+
+    out["auto_concurrent"] = auto = concurrent("auto")
+    out["on_concurrent"] = concurrent("on")
+    if out["on_concurrent"]["dispatched"] < 1:
+        raise AssertionError("the concurrent reads under on never dispatched")
+    timed = {}
+    rows = ex.columnar.label_rows("Person")
+    with graph_mode("on"):
+        for b in GRAPH_CHAIN_TIMED_B:
+            items = [(int(r), 10) for r in rows[:b]]
+            with Capture("_chain_topk") as cap:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(reps):
+                    res = plane._chain_batch(spec, items)
+                wall_ms = (time.perf_counter() - t) * 1e3 / reps
+            if any(r is None for r in res):
+                raise AssertionError(f"a B {b} chain dispatch stepped down: {plane.counts}")
+            args = cap.args
+            kernels = {}
+            split = device_split(lambda: cap.real(*args), iters=3, launches=kernels)
+            timed[b] = {"event_ms": cap.event_ms(reps), "wall_ms": wall_ms,
+                        "f": int(args[-2]), "kp": int(args[-1]),
+                        "device_ms": sum(split.values()), "kernels": sum(kernels.values())}
+    out["timed"] = timed
+    log(f"cypher (d) chain: {len(single)} single reads under on, {out['on_dispatches']} "
+        f"dispatches, p50 {out['on_single']['p50_ms']:.3f} ms, p99 "
+        f"{out['on_single']['p99_ms']:.3f} ms (first read with the snapshot "
+        f"{out['first_read_s']:.3f} s); rows equal to the host path's ({card})")
+    for b, row in timed.items():
+        log(f"  chain dispatch B={b} (f {row['f']}, kp {row['kp']}): event "
+            f"{row['event_ms']:.4f} ms, device {row['device_ms']:.4f} ms in "
+            f"{row['kernels']:.0f} kernels, _chain_batch wall {row['wall_ms']:.3f} ms ({card})")
+    return out, spec
+
+
+def graph_strip_gram(dev, eng, ex, shapes, card, reps):
+    """(d) 2 and 3: the strip view and the co-occurrence Gram, each built
+    on the card and on the host from one fresh catalog (its tables built
+    first), bitwise; ``tag_cooccurrence`` rows under ``on`` equal the host
+    view's."""
+    from nornicdb_tpu_torch.query.executor import CypherExecutor
+
+    if ex.device_graph.counts["strip_view_device_built"] < 1:
+        raise AssertionError(f"(a)'s avg_friends_per_city did not build its view on the "
+                             f"card: {ex.device_graph.counts}")
+    fresh = CypherExecutor(eng, device=dev)
+    fresh.enable_query_cache = False
+    cat, plane = fresh.columnar, fresh.device_graph
+    args = ("IS_LOCATED_IN", "dst", "Person", "KNOWS", "out", "Person")
+    t = time.perf_counter()
+    for et in ("IS_LOCATED_IN", "KNOWS", "HAS_TAG"):
+        cat.edge_table(et)
+    cat.label_mask("Person")
+    inc = cat.incidence("HAS_TAG", "mid_src", "Message", "Tag")[0]
+    tables_s = time.perf_counter() - t
+    dev_s, host_s = [], []
+    for _ in range(reps):
+        with cat._lock:
+            cat._strip_views.clear()
+        with graph_mode("on"):
+            t = time.perf_counter()
+            sv_d = plane.build_strip_view(*args)
+            dev_s.append(time.perf_counter() - t)
+        with cat._lock:
+            cat._strip_views.clear()
+        t = time.perf_counter()
+        sv_h = cat.strip_view(*args)
+        host_s.append(time.perf_counter() - t)
+        if sv_d is None or any(not np.array_equal(getattr(sv_d, k), getattr(sv_h, k))
+                               or getattr(sv_d, k).dtype != getattr(sv_h, k).dtype
+                               for k in ("deg", "sum_deg", "nnz")):
+            raise AssertionError("the card's strip view differs from the host build")
+    gram_d, gram_h = [], []
+    with graph_mode("on"), Capture("_gram") as cap:
+        for _ in range(reps):
+            t = time.perf_counter()
+            c = plane.gram_matmul(inc, inc)
+            gram_d.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            h = inc.T @ inc
+            gram_h.append(time.perf_counter() - t)
+            if c is None or c.dtype != h.dtype or not np.array_equal(c, h):
+                raise AssertionError("the card's Gram differs from the host's Ma^T @ Ma")
+        gram_ms = cap.event_ms(reps)
+        q = shapes["tag_cooccurrence"][0]
+        calls = cap.calls
+        rows_on = sorted(map(repr, fresh.execute(q).rows))
+        if cap.calls != calls + 1:
+            raise AssertionError("tag_cooccurrence under on did not multiply on the card")
+    with graph_mode("off"):
+        if rows_on != sorted(map(repr, ex.execute(q).rows)):
+            raise AssertionError("tag_cooccurrence rows under on differ from the host's")
+    out = {"tables_s": tables_s, "strip_device_s": dev_s, "strip_host_s": host_s,
+           "gram_shape": list(inc.shape), "gram_device_s": gram_d, "gram_host_s": gram_h,
+           "gram_event_ms": gram_ms, "tag_rows": len(rows_on)}
+    log(f"cypher (d) strip view: card build {min(dev_s):.4f} s (wall, best of {reps}) against "
+        f"the host's {min(host_s):.4f} s, arrays bitwise; the catalog's tables "
+        f"{tables_s:.2f} s first; Gram {inc.shape[0]} x {inc.shape[1]}: card {min(gram_d):.4f}"
+        f" s wall ({gram_ms:.4f} event ms for the product) against host {min(gram_h):.4f} s, "
+        f"bitwise; tag_cooccurrence rows under on equal the host's ({card})")
+    return out
+
+
+def graph_rank(dev, ex, card, reps, seed):
+    """(d) 4: traverse-then-rank over ``KNOWS`` (1 and 2 hops) into a
+    50,000-row index of seeded unit vectors, against the host version.
+    Returns (report, index)."""
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    cat, plane = ex.columnar, ex.device_graph
+    nodes = cat.nodes()
+    persons = cat.label_rows("Person")
+    rng = np.random.default_rng(seed + 17)
+    vecs = rng.normal(size=(len(persons), GRAPH_RANK_DIMS)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    idx = BruteForceIndex(dims=GRAPH_RANK_DIMS, device=dev)
+    t = time.perf_counter()
+    idx.add_batch([(nodes[int(r)].id, v) for r, v in zip(persons, vecs)])
+    index_s = time.perf_counter() - t
+    out = {"index_rows": len(persons), "index_s": index_s, "runs": []}
+    for hops in (GRAPH_HOPS[:1], GRAPH_HOPS):
+        for b in GRAPH_RANK_B:
+            anchors = [int(a) for a in rng.choice(persons, size=b, replace=False)]
+            qv = rng.normal(size=(b, GRAPH_RANK_DIMS)).astype(np.float32)
+            with graph_mode("on"), Capture("_traverse_rank") as cap:
+                plane.traverse_rank(anchors, hops, qv, GRAPH_RANK_K, idx)  # the snapshot
+                d0 = plane.dispatches
+                t = time.perf_counter()
+                for _ in range(reps):
+                    got = plane.traverse_rank(anchors, hops, qv, GRAPH_RANK_K, idx)
+                wall_ms = (time.perf_counter() - t) * 1e3 / reps
+                if got is None or plane.dispatches - d0 != reps:
+                    raise AssertionError(f"traverse_rank stepped down: {plane.counts}")
+                event_ms = cap.event_ms(reps)
+                args, kernels = cap.args, {}
+                split = device_split(lambda: cap.real(*args), iters=3, launches=kernels)
+            t = time.perf_counter()
+            host = plane.traverse_rank_host(anchors, hops, qv, GRAPH_RANK_K, idx)
+            host_ms = (time.perf_counter() - t) * 1e3
+            for g, h in zip(got, host):
+                if not hits_agree(g, h, TOPK_SCORE_ATOL):
+                    raise AssertionError(f"traverse_rank {g} differs from the host's {h}")
+            run = {"hops": len(hops), "b": b, "f1": int(cap.args[-3]), "f2": int(cap.args[-2]),
+                   "kp": int(cap.args[-1]), "event_ms": event_ms, "wall_ms": wall_ms,
+                   "device_ms": sum(split.values()), "kernels": sum(kernels.values()),
+                   "host_ms": host_ms,
+                   "ids_equal": sum([i for i, _ in g] == [i for i, _ in h]
+                                    for g, h in zip(got, host))}
+            out["runs"].append(run)
+            log(f"  traverse_rank {len(hops)} hop(s) B={b} (frontier {run['f1']} x "
+                f"{max(run['f2'], 1)}, k {GRAPH_RANK_K}): event {event_ms:.4f} ms, device "
+                f"{run['device_ms']:.4f} ms in {run['kernels']:.0f} kernels, wall "
+                f"{wall_ms:.3f} ms against the host version's {host_ms:.3f} ms; rows agree "
+                f"({run['ids_equal']} of {b} with the same ids in the same order) ({card})")
+    log(f"cypher (d) traverse_rank: {len(persons)} x {GRAPH_RANK_DIMS} index on the card in "
+        f"{index_s:.2f} s; every answer agrees with the host version ({card})")
+    return out, idx
+
+
+def graph_pagerank(dev, ex, spec, idx, card, reps):
+    """(d) 6 and 7: a fresh plane's chain, rank and whole-graph snapshots
+    against the ``memory_allocated`` delta; PageRank (20 iterations) on the
+    card against the host version; degree counts against ``np.bincount``;
+    the snapshot cached."""
+    from nornicdb_tpu_torch.ops.graph import (
+        _pagerank_host,
+        pagerank_arrays,
+        pagerank_engine,
+        pagerank_torch,
+    )
+    from nornicdb_tpu_torch.query.device_graph import DeviceGraphPlane
+
+    plane = DeviceGraphPlane(ex.columnar, dev)
+    with graph_mode("on"):
+        before = device_memory()
+        t = time.perf_counter()
+        plane._chain_snapshot(spec)
+        plane._rank_snapshot(GRAPH_HOPS, idx)
+        snap_s = time.perf_counter() - t
+        t = time.perf_counter()
+        snap = plane.pagerank_snapshot()
+        pr_snap_s = time.perf_counter() - t
+        delta = device_memory() - before
+    stats = plane.resource_stats()
+    if len(plane._snaps) != 3 or abs(stats["device_bytes"] - delta) > GRAPH_MEM_SLACK:
+        raise AssertionError(f"the plane's {len(plane._snaps)} snapshots state "
+                             f"{stats['device_bytes']} device bytes, memory_allocated moved "
+                             f"{delta}")
+    src, dst, n = snap["src"], snap["dst"], len(snap["ids"])
+    got = pagerank_arrays(src, dst, n, dev_src=snap["dev_src"], dev_dst=snap["dev_dst"])
+    t = time.perf_counter()
+    host = _pagerank_host(src, dst, n, 20, 0.85)
+    host_ms = (time.perf_counter() - t) * 1e3
+    err = np.abs(got.astype(np.float64) - host)
+    if not np.all(err <= PAGERANK_ATOL + PAGERANK_RTOL * np.abs(host)):
+        raise AssertionError(f"PageRank on the card differs from the host version by "
+                             f"{err.max():.3g}")
+    dev_ms = time_ms(lambda: pagerank_torch(snap["dev_src"], snap["dev_dst"], n, 20, 0.85),
+                     iters=reps, warmup=1)
+    pr_kernels = {}
+    pr_split = device_split(lambda: pagerank_torch(snap["dev_src"], snap["dev_dst"], n, 20,
+                                                   0.85), iters=2, launches=pr_kernels)
+    out_d, in_d = plane.degree_counts()
+    if not (np.array_equal(out_d, np.bincount(src, minlength=n))
+            and np.array_equal(in_d, np.bincount(dst, minlength=n))):
+        raise AssertionError("degree counts differ from np.bincount")
+    # the engine's top score, from the cached snapshot (CUDA's float
+    # index_add_ may add in another order on each call)
+    ranked = pagerank_engine(ex.columnar.storage, plane=plane)
+    top = float(got.max())
+    if plane.pagerank_snapshot() is not snap \
+            or abs(ranked[0][1] - top) > PAGERANK_ATOL + PAGERANK_RTOL * top:
+        raise AssertionError("the PageRank snapshot was rebuilt, or the engine ranks otherwise")
+    out = {"snapshots": {k[0]: int(s["device_bytes"]) for k, s in plane._snaps.items()},
+           "device_bytes": stats["device_bytes"], "memory_allocated_delta": delta,
+           "chain_rank_snapshots_s": snap_s, "pagerank_snapshot_s": pr_snap_s,
+           "nodes": n, "edges": int(len(src)), "pagerank_device_ms": dev_ms,
+           "pagerank_host_ms": host_ms, "pagerank_max_err": float(err.max()),
+           "pagerank_device_split": pr_split, "pagerank_kernels": sum(pr_kernels.values())}
+    log(f"cypher (d) PageRank: {n} nodes, {len(src)} edges, 20 iterations: card {dev_ms:.4f} "
+        f"event ms ({out['pagerank_kernels']:.0f} kernels, device ms by kernel "
+        f"{json.dumps({k: round(v, 4) for k, v in pr_split.items()})}) against the host "
+        f"version's {host_ms:.2f} ms, max |err| {err.max():.3g}; "
+        f"degree counts equal np.bincount; the snapshot cached (built in {pr_snap_s:.2f} s); "
+        f"snapshots {out['snapshots']}: {stats['device_bytes']} device bytes, memory_allocated "
+        f"+{delta} ({card})")
+    return out
+
+
+def phase_graph_plane(dev, seed, eng, ex, shapes, card, reps):
+    """Phase 7 (d) (module docstring): the device graph plane on (a)'s
+    graph."""
+    t0 = time.perf_counter()
+    out = {}
+    out["chain"], spec = graph_chain(ex, shapes, card, reps)
+    out["strip_gram"] = graph_strip_gram(dev, eng, ex, shapes, card, reps)
+    out["rank"], idx = graph_rank(dev, ex, card, reps, seed)
+    out["pagerank"] = graph_pagerank(dev, ex, spec, idx, card, reps)
+    out["counts"] = dict(ex.device_graph.counts)
+    out["dispatches"] = ex.device_graph.dispatches
+    out["total_s"] = time.perf_counter() - t0
+    log(f"cypher (d): the plane's counts {out['counts']}, {out['dispatches']} dispatches; "
+        f"{out['total_s']:.1f} s ({card})")
+    return out
+
+
+def cypher_graph_vector_search(db, svc, qvs, mid_of, card):
+    """(d) 5: ``DB.graph_vector_search`` on (b)'s DB, 1 and 2
+    ``RELATES_TO`` hops from 32 anchors, against the host version."""
+    plane, cat = db.executor.device_graph, db.executor.columnar
+    id_of = {m: nid for nid, m in mid_of.items()}
+    anchors = [id_of[(i * 251) % len(id_of)] for i in range(GRAPH_GVS_ANCHORS)]
+    d0 = plane.dispatches
+    lat = {1: [], 2: []}
+    for hops in (["RELATES_TO"], ["RELATES_TO", "RELATES_TO"]):
+        for i, a in enumerate(anchors):
+            qv = qvs[i % len(qvs)]
+            t = time.perf_counter()
+            got = db.graph_vector_search(a, hops, qv, k=10)
+            lat[len(hops)].append((time.perf_counter() - t) * 1e3)
+            nodes = cat.nodes()
+            want = [(nodes[r].id, s) for r, s in plane.traverse_rank_host(
+                [cat.node_row(a)], [(h, "out") for h in hops],
+                np.asarray([qv], np.float32), 10, svc.vectors)[0]]
+            if not got or not hits_agree(got, want, TOPK_SCORE_ATOL):
+                raise AssertionError(f"graph_vector_search from {a} over {hops}: {got} "
+                                     f"against the host version's {want}")
+    out = {"anchors": len(anchors), "dispatches": plane.dispatches - d0,
+           **{f"hops{h}": latency_summary(v) for h, v in lat.items()}}
+    if out["dispatches"] != 2 * len(anchors):
+        raise AssertionError(f"{2 * len(anchors)} searches made {out['dispatches']} dispatches")
+    log(f"  graph_vector_search: {len(anchors)} anchors x 1 and 2 hops, {out['dispatches']} "
+        f"dispatches, p50 {out['hops1']['p50_ms']:.3f} / {out['hops2']['p50_ms']:.3f} ms; "
+        f"answers agree with the host version ({card})")
+    return out
+
+
+def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S, graph_reps=GRAPH_REPS):
     """Phase 7 (module docstring). Returns the kernel launches of parts
     (b) and (c)."""
     import shutil
@@ -2844,7 +3286,10 @@ def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S):
     from nornicdb_tpu_torch.storage.disk import DiskEngine
 
     out = REPORT["cypher"] = {}
-    out["ldbc"] = cypher_ldbc(card, LDBC_PERSONS, LDBC_MESSAGES, LDBC_KNOWS, window_s)
+    out["ldbc"], eng, ex, shapes = cypher_ldbc(card, LDBC_PERSONS, LDBC_MESSAGES, LDBC_KNOWS,
+                                               window_s)
+    out["graph_plane"] = phase_graph_plane(dev, seed, eng, ex, shapes, card, graph_reps)
+    del eng, ex, shapes
     memories = CYPHER_MEMORIES
 
     rng = np.random.default_rng(seed + 13)
@@ -2903,6 +3348,10 @@ def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S):
             raise AssertionError(f"B1 launched {b1_reads} times for {len(qvs)} GraphRAG queries")
         b["reads_b1_launches"] = b1_reads
         b["concurrent"] = cypher_concurrent(db, svc, qvs, answers, card)
+        b1_before = read_counts()["cosine_topk"]
+        b["graph_vector_search"] = cypher_graph_vector_search(db, svc, qvs, mid_of, card)
+        if read_counts()["cosine_topk"] != b1_before:
+            raise AssertionError("graph_vector_search launched B1")
         m, valid, _, _ = svc.vectors.device_view()
         if tuple(m.shape) != (CYPHER_CAPACITY, 160) or int(valid.sum()) != memories:
             raise AssertionError(f"the vector index is {tuple(m.shape)} with {int(valid.sum())} "
@@ -3970,10 +4419,11 @@ def main() -> int:
     path_launches["durable"] = phase_durable(dev, corpus)
     lap("durable")
     # a run near the chip call's limit shortens (a)'s windows, not its graph
-    late = (time.perf_counter() - t_start + CYPHER_PHASE_S + QUANT_PHASE_S + MEMORY_PHASE_S
-            > RUN_LIMIT_S)
+    late = (time.perf_counter() - t_start + CYPHER_PHASE_S + GRAPH_PLANE_S + QUANT_PHASE_S
+            + MEMORY_PHASE_S > RUN_LIMIT_S)
     window_s = 0.5 if late else LDBC_WINDOW_S
-    path_launches["cypher"] = phase_cypher(dev, args.seed, card, window_s=window_s)
+    path_launches["cypher"] = phase_cypher(dev, args.seed, card, window_s=window_s,
+                                           graph_reps=2 if late else GRAPH_REPS)
     lap("cypher")
     path_launches["quant"] = phase_quant_tiered(dev, corpus, bm25)
     del corpus, bm25

@@ -22,9 +22,13 @@ below the namespace. The AI-native memory plane is built on first use:
 evidence buffer ahead of co-access edges); ``store(auto_link=True)``
 infers ``SIMILAR_TO`` edges for an explicit embedding, and ``remember``
 records an access for decay, the temporal tracker and co-access
-inference. Encryption at rest and replication wait for later slices:
-``passphrase`` and ``replication`` raise ``NotPortedError``;
-``graph_vector_search`` is not ported yet.
+inference. ``graph_vector_search`` expands one or two hops from an
+anchor and ranks the distinct frontier by cosine against a query vector
+over the search service's index: one dispatch on the executor's device
+graph plane, or its host version where the plane answers None.
+``database`` names the namespace the DB's records live under
+(``"neo4j"``). Encryption at rest and replication wait for later slices:
+``passphrase`` and ``replication`` raise ``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import logging
 import os
 import threading
 import uuid
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device
 from nornicdb_tpu_torch.errors import NotPortedError
@@ -73,6 +77,8 @@ class DB:
         engine: str = "auto",
         replication: Optional[Any] = None,
         passphrase: Optional[str] = None,
+        *,
+        database: str = DEFAULT_DB,
     ):
         self.device = resolve_device(device)
         if engine not in ENGINES:
@@ -99,8 +105,9 @@ class DB:
         chain: Engine = AsyncEngine(base) if async_writes else base
         self._chain = chain  # below the namespace: multidb roots here
         # the listener layer sits on top, so callbacks carry logical ids
-        self._listenable = ListenableEngine(NamespacedEngine(chain, DEFAULT_DB))
+        self._listenable = ListenableEngine(NamespacedEngine(chain, database))
         self.storage = self._listenable
+        self.database = database
         self._lock = threading.Lock()
         self._closed = False
         self._db_manager = None
@@ -200,7 +207,7 @@ class DB:
             if self._executor is None:
                 from nornicdb_tpu_torch.query.executor import CypherExecutor
 
-                ex = CypherExecutor(self.storage)
+                ex = CypherExecutor(self.storage, device=self.device)
                 if self._search is not None:
                     ex.set_search_service(self._search)
                 self._listenable.add_listener(_CacheInvalidator(ex))
@@ -326,6 +333,57 @@ class DB:
         """Execute a Cypher query; a ``CypherResult``."""
         return self.executor.execute(query, params or {})
 
+    def graph_vector_search(
+        self,
+        anchor_id: str,
+        hops: Sequence[Any],
+        query_vector: Sequence[float],
+        k: int = 10,
+    ) -> List[Tuple[str, float]]:
+        """Fused graph+vector query: expand ``hops`` (1 or 2 (etype,
+        direction) stages; a bare string means outgoing) from the anchor
+        node, then rank the distinct frontier nodes by cosine similarity to
+        ``query_vector`` over the search service's vector index. Top-k
+        ``(node_id, score)``, score descending; ``[]`` for an unknown
+        anchor."""
+        import numpy as np
+
+        ex = self.executor
+        cat = ex.columnar
+        hops_n: List[Tuple[str, str]] = []
+        for h in hops:
+            if isinstance(h, str):
+                hops_n.append((h, "out"))
+            elif isinstance(h, (list, tuple)) and len(h) == 2:
+                etype, direction = h
+                if direction not in ("out", "in"):
+                    raise ValueError(f"bad hop direction {direction!r}")
+                hops_n.append((str(etype), direction))
+            else:
+                raise ValueError(
+                    "each hop must be a relationship type or a "
+                    "[type, 'in'|'out'] pair")
+        if not hops_n or len(hops_n) > 2:
+            raise ValueError("graph_vector_search supports 1 or 2 hops")
+        row = cat.node_row(anchor_id)
+        if row is None:
+            return []
+        q = np.asarray(query_vector, dtype=np.float32)
+        if q.ndim != 1 or q.size == 0:
+            raise ValueError("query_vector must be a flat float vector")
+        index = self.search.vectors
+        dims = getattr(index, "dims", None)
+        if dims and q.shape[0] != dims:
+            raise ValueError(
+                f"query_vector has {q.shape[0]} dims, index has {dims}")
+        q = q[None, :]
+        plane = ex.device_graph
+        hits = plane.traverse_rank([row], hops_n, q, k, index)
+        if hits is None:
+            hits = plane.traverse_rank_host([row], hops_n, q, k, index)
+        nodes = cat.nodes()
+        return [(nodes[r].id, s) for r, s in hits[0]]
+
     def multidb_manager(self, max_databases: int = 64):
         """The multi-database manager, built on first use over the chain
         this DB namespaces, so other databases share its durability."""
@@ -334,7 +392,7 @@ class DB:
                 from nornicdb_tpu_torch.multidb import DatabaseManager
 
                 self._db_manager = DatabaseManager(
-                    self._chain, default_database=DEFAULT_DB,
+                    self._chain, default_database=self.database,
                     max_databases=max_databases)
             return self._db_manager
 

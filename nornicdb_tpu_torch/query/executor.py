@@ -9,8 +9,9 @@ non-aggregate projection keys exactly as Cypher defines.
 
 Not ported yet, each raising ``NotPortedError`` where it would run: APOC
 (``apoc.*`` functions, ``apoc.agg.*`` aggregates, procedures and
-triggers) and the strict parser mode. There is no device graph
-plane: every fast-path shape serves from the host arrays. PROFILE keeps
+triggers) and the strict parser mode. The device graph plane
+(``query/device_graph.py``) serves the fast-path shapes its gates route
+to it; every other read serves from the catalog's host arrays. PROFILE keeps
 the plan, its db hits and row counts; there is no metrics registry to
 record them in.
 """
@@ -189,7 +190,8 @@ class CypherExecutor:
     (reference: cypher.NewStorageExecutor, wired at db.go:974)."""
 
     def __init__(self, storage: Engine, cache_size: int = 1024,
-                 cache_ttl: float = 60.0, parser_mode: Optional[str] = None):
+                 cache_ttl: float = 60.0, parser_mode: Optional[str] = None,
+                 device=None):
         import os
 
         self.storage = storage
@@ -209,9 +211,13 @@ class CypherExecutor:
 
         self.columnar = ColumnarCatalog(storage)
         self.enable_fastpaths = True
-        # no device graph plane yet: the fast paths serve every shape
-        # from the catalog's host arrays
-        self.device_graph = None
+        # Device graph plane: the LDBC fast-path shapes on device
+        # snapshots of the catalog (query/device_graph.py), keyed on its
+        # versions and gated by NORNICDB_GRAPH_DEVICE. It resolves
+        # ``device`` (None: CUDA) only when a read routes to it.
+        from nornicdb_tpu_torch.query.device_graph import DeviceGraphPlane
+
+        self.device_graph = DeviceGraphPlane(self.columnar, device)
         # Read-query result cache with write invalidation (reference:
         # read-cache probe executor.go:634, pkg/cache/query_cache.go).
         from nornicdb_tpu_torch.cache import LRUCache

@@ -25,10 +25,10 @@ Two tiers here:
 Any unsupported feature falls through (return None) to the general
 executor — parity between paths is enforced by tests/test_fastpath_parity.
 
-The reference can route the chain shapes to its device graph plane
-(``query/device_graph.py``); the port has none yet, so ``plane`` is
-always None here and every shape serves from the host arrays, which is
-also what the reference serves below its plane's gates. The reference's
+The chain, strip and co-occurrence shapes ask the executor's device
+graph plane (``query/device_graph.py``) first; whenever it answers None
+(gated off, below its gates, a stale snapshot or a guard) the shape
+serves from the host arrays, with the same rows. The reference's
 serving-tier counters (``obs.audit``) are not ported.
 """
 

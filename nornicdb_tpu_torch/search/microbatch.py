@@ -1,5 +1,6 @@
 """Micro-batching of concurrent single queries (counterpart of the
-coalescing core of ``nornicdb_tpu/search/microbatch.py:MicroBatcher``).
+coalescing core of ``nornicdb_tpu/search/microbatch.py``: ``MicroBatcher``
+and ``BatchCoalescer``).
 
 A single query cannot fill the card, and a serving workload is many
 concurrent single queries. The first idle request leads the next batch
@@ -8,7 +9,8 @@ arriving while a batch is in flight queue up and the next leader drains
 them as ONE batched call. When the previous batch was concurrent, a
 leader first waits up to ``GATHER_WINDOW_S`` for riders returning from
 it; a batch holds at most ``MAX_BATCH`` requests. Admission lanes,
-deadlines, stage tracing and tier attribution wait for later slices.
+deadlines, tenants, stage tracing and tier attribution wait for later
+slices, in both classes.
 The batch is not padded to a power of two (that padding bounds XLA's
 compile cache; the kernels here take any batch), and the answers are the
 same either way.
@@ -139,3 +141,91 @@ class MicroBatcher:
         finally:
             for r in batch:
                 r.done = True
+
+
+class _Item:
+    __slots__ = ("value", "done", "result", "error")
+
+    def __init__(self, value: Any):
+        self.value = value
+        self.done = False
+        self.result: Any = None
+        self.error: Any = None
+
+
+class BatchCoalescer:
+    """Leader-elected coalescer for any batchable operation (the device
+    graph plane's chain lookups): N concurrent ``submit`` calls become one
+    ``apply_batch(values) -> results`` call, one result per value, run on
+    the leader's thread.
+
+    An exception in ``apply_batch`` reaches every waiter of that batch,
+    unless ``apply_single`` is given: then each value is applied alone, so
+    one poisoned value fails only its own caller."""
+
+    def __init__(self, apply_batch: Callable[[List[Any]], List[Any]],
+                 apply_single: Callable[[Any], Any] = None, max_batch: int = MAX_BATCH):
+        self._apply_batch = apply_batch
+        self._apply_single = apply_single
+        self._max_batch = max_batch
+        self._cond = threading.Condition()
+        self._pending: List[_Item] = []
+        self._busy = False
+        self.batches = 0
+        self.batched_items = 0
+
+    def queue_depth(self) -> int:
+        """Items not yet claimed by a leader."""
+        with self._cond:
+            return len(self._pending)
+
+    def submit(self, value: Any) -> Any:
+        item = _Item(value)
+        with self._cond:
+            self._pending.append(item)
+        while True:
+            with self._cond:
+                while not item.done and self._busy:
+                    self._cond.wait(timeout=30.0)
+                if item.done:
+                    break
+                batch = self._pending[:self._max_batch]
+                del self._pending[:self._max_batch]
+                if not batch:
+                    continue  # taken by another leader, not done yet
+                self._busy = True
+            try:
+                self._run(batch)
+            finally:
+                with self._cond:
+                    self._busy = False
+                    self._cond.notify_all()
+            if item.done:
+                break
+        if item.error is not None:
+            raise item.error
+        return item.result
+
+    def _run(self, batch: List[_Item]) -> None:
+        self.batches += 1
+        self.batched_items += len(batch)
+        try:
+            for item, res in zip(batch, self._apply_batch([i.value for i in batch])):
+                item.result = res
+        except Exception as exc:  # noqa: BLE001 -- delivered to each waiter
+            if self._apply_single is None or len(batch) == 1:
+                for item in batch:
+                    item.error = exc
+            else:
+                for item in batch:
+                    try:
+                        item.result = self._apply_single(item.value)
+                    except Exception as single_exc:  # noqa: BLE001
+                        item.error = single_exc
+        except BaseException as exc:  # an interrupt: no waiter may read a None
+            for item in batch:
+                item.error = exc
+            raise
+        finally:
+            for item in batch:
+                item.done = True

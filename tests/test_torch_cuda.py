@@ -511,3 +511,122 @@ def test_background_plane_on_the_card_equals_the_host_loops(dev):
     live = np.linalg.norm(host, axis=1) > 1e-9
     assert np.sum(emb[live] * host[live], axis=1).min() > 0.999
     assert plane.counts["decay_sweep_device"] == 1 and plane.counts["fastrp_device"] == 1
+
+
+# -- the device graph plane --------------------------------------------------------
+
+GRAPH_Q_CHAIN = ("MATCH (p:Person {id: $pid})-[:KNOWS]->(f:Person)<-[:HAS_CREATOR]-(m:Message) "
+                 "RETURN f.name, m.content, m.creationDate ORDER BY m.creationDate DESC LIMIT 10")
+GRAPH_Q_STRIP = ("MATCH (c:City)<-[:IS_LOCATED_IN]-(p:Person)-[:KNOWS]->(f:Person) "
+                 "RETURN c.name, count(f) / count(DISTINCT p) AS avgFriends")
+GRAPH_Q_COOC = ("MATCH (t1:Tag)<-[:HAS_TAG]-(m:Message)-[:HAS_TAG]->(t2:Tag) "
+                "WHERE t1 <> t2 RETURN t1.name, t2.name, count(m) AS freq")
+
+
+def _social_graph(n_people=400, n_msgs=1200, knows=6, seed=7):
+    """tests/test_device_graph.py's graph shape, larger: creation dates
+    repeat every 10 messages (ties the chain merge must order as the
+    host does)."""
+    import random
+
+    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, NamespacedEngine, Node
+
+    eng = NamespacedEngine(MemoryEngine(), "t")
+    rng = random.Random(seed)
+    for c in range(6):
+        eng.create_node(Node(id=f"c{c}", labels=["City"], properties={"name": f"city{c}"}))
+    for t in range(8):
+        eng.create_node(Node(id=f"t{t}", labels=["Tag"], properties={"name": f"tag{t}"}))
+    for i in range(n_people):
+        eng.create_node(Node(id=f"p{i}", labels=["Person"], properties={"id": i, "name": f"p{i}"}))
+    seq = iter(range(10 ** 9))
+    for i in range(n_people):
+        eng.create_edge(Edge(id=f"e{next(seq)}", type="IS_LOCATED_IN", start_node=f"p{i}",
+                             end_node=f"c{i % 6}"))
+        for j in rng.sample(range(n_people), knows):
+            if j != i:
+                eng.create_edge(Edge(id=f"e{next(seq)}", type="KNOWS", start_node=f"p{i}",
+                                     end_node=f"p{j}"))
+    for m in range(n_msgs):
+        eng.create_node(Node(id=f"m{m}", labels=["Message"], properties={
+            "id": 1000 + m, "content": f"message {m}", "creationDate": 1700000000 + (m % 10) * 37}))
+        eng.create_edge(Edge(id=f"e{next(seq)}", type="HAS_CREATOR", start_node=f"m{m}",
+                             end_node=f"p{rng.randrange(n_people)}"))
+        for t in rng.sample(range(8), rng.randrange(1, 3)):
+            eng.create_edge(Edge(id=f"e{next(seq)}", type="HAS_TAG", start_node=f"m{m}",
+                                 end_node=f"t{t}"))
+    return eng
+
+
+@pytest.fixture(scope="module")
+def social_graph():
+    return _social_graph()
+
+
+@pytest.mark.parametrize("surface", ["chain", "strip", "gram", "rank", "pagerank"])
+def test_graph_plane_on_the_card_matches_the_cpu(dev, social_graph, surface, monkeypatch):
+    from nornicdb_tpu_torch.ops import graph as tgraph
+    from nornicdb_tpu_torch.query.executor import CypherExecutor
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    monkeypatch.setenv("NORNICDB_GRAPH_DEVICE", "on")
+    ex = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        ex[name] = CypherExecutor(social_graph, device=d)
+        ex[name].enable_query_cache = False
+    card, cpu = ex["card"].device_graph, ex["cpu"].device_graph
+    if surface == "chain":
+        for pid in range(0, 400, 7):
+            params = {"pid": pid}
+            assert ex["card"].execute(GRAPH_Q_CHAIN, params).rows == \
+                ex["cpu"].execute(GRAPH_Q_CHAIN, params).rows
+        assert card.dispatches == cpu.dispatches > 0
+    elif surface == "strip":
+        args = ("IS_LOCATED_IN", "dst", "Person", "KNOWS", "out", "Person")
+        a, b = card.build_strip_view(*args), cpu.build_strip_view(*args)
+        for name in ("deg", "sum_deg", "nnz"):
+            assert np.array_equal(getattr(a, name), getattr(b, name))
+        assert sorted(map(repr, ex["card"].execute(GRAPH_Q_STRIP).rows)) == \
+            sorted(map(repr, ex["cpu"].execute(GRAPH_Q_STRIP).rows))
+    elif surface == "gram":
+        inc = ex["cpu"].columnar.incidence("HAS_TAG", "mid_src", "Message", "Tag")[0]
+        assert np.array_equal(card.gram_matmul(inc, inc), cpu.gram_matmul(inc, inc))
+        assert sorted(map(repr, ex["card"].execute(GRAPH_Q_COOC).rows)) == \
+            sorted(map(repr, ex["cpu"].execute(GRAPH_Q_COOC).rows))
+    elif surface == "rank":
+        cat = ex["cpu"].columnar
+        nodes = cat.nodes()
+        ids = [nodes[int(r)].id for r in cat.label_rows("Message")]
+        rng = np.random.default_rng(3)
+        vecs = rng.normal(size=(len(ids), 160)).astype(np.float32)
+        idx = {}
+        for name, d in (("cpu", "cpu"), ("card", dev)):
+            idx[name] = BruteForceIndex(device=d)
+            idx[name].add_batch(list(zip(ids, vecs)))
+        hops = [("KNOWS", "out"), ("HAS_CREATOR", "in")]
+        for b in (1, 16, 64):
+            anchors = [int(cat.node_row(f"p{i}")) for i in range(b)]
+            q = rng.normal(size=(b, 160)).astype(np.float32)
+            got = card.traverse_rank(anchors, hops, q, 10, idx["card"])
+            want = cpu.traverse_rank(anchors, hops, q, 10, idx["cpu"])
+            host = cpu.traverse_rank_host(anchors, hops, q, 10, idx["cpu"])
+            for g, w, h in zip(got, want, host):
+                assert len(g) == len(h)
+                assert topk_agree([[r for r, _ in g]], [[s for _, s in g]],
+                                  [[r for r, _ in h]], [[s for _, s in h]], SCORE_ATOL)
+                assert np.allclose([s for _, s in g], [s for _, s in w], atol=SCORE_ATOL)
+    else:
+        snap = card.pagerank_snapshot()
+        n = len(snap["ids"])
+        got = tgraph.pagerank_arrays(snap["src"], snap["dst"], n, dev_src=snap["dev_src"],
+                                     dev_dst=snap["dev_dst"])
+        np.testing.assert_allclose(
+            got, tgraph.pagerank_arrays(snap["src"], snap["dst"], n, device="cpu"),
+            rtol=1e-4, atol=1e-7)
+        np.testing.assert_allclose(
+            got, tgraph._pagerank_host(snap["src"], snap["dst"], n, 20, 0.85),
+            rtol=1e-4, atol=1e-7)
+        out_d, in_d = card.degree_counts()
+        assert np.array_equal(out_d, np.bincount(snap["src"], minlength=n))
+        assert np.array_equal(in_d, np.bincount(snap["dst"], minlength=n))
+        assert card.pagerank_snapshot() is snap

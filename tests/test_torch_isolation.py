@@ -8,11 +8,14 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import nornicdb_tpu_torch
 from nornicdb_tpu_torch.embed.embedder import TorchEncoderEmbedder
+from nornicdb_tpu_torch.ops.graph import pagerank_arrays
+from nornicdb_tpu_torch.query.device_graph import DeviceGraphPlane
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,7 +54,8 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
     for name in ("ops.kmeans", "search.device_quant", "search.tiered_store",
                  "storage.partition_store", "filters", "decay", "temporal",
                  "linkpredict", "inference", "ops.decay", "ops.linkpredict",
-                 "ops.fastrp", "background", "background.device_plane"):
+                 "ops.fastrp", "background", "background.device_plane",
+                 "query.device_graph", "ops.graph", "search.microbatch"):
         assert "nornicdb_tpu_torch." + name in result["imported"]
     assert result["bad"] == []
 
@@ -79,6 +83,8 @@ def test_port_sources_import_nothing_of_jax(path):
     lambda: BruteForceIndex(),
     lambda: TorchEncoderEmbedder(),
     lambda: nornicdb_tpu_torch.resolve_device("cuda"),
+    lambda: pagerank_arrays(np.zeros(1, np.int32), np.zeros(1, np.int32), 1),
+    lambda: DeviceGraphPlane(None).device,
 ])
 def test_entry_points_default_to_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -603,3 +603,88 @@ def test_rescan_embeds_nodes_that_missed_the_event_path(tmp_path):
     q.stop()
     assert q.rescans >= 1 and db.storage.get_node("quiet").embedding is not None
     db.close()
+
+
+# -- C26: the database argument; C27: flush waits and raises ----------------------
+
+
+@pytest.mark.parametrize("engine", ["native", "python"])
+def test_database_argument_opens_what_jax_wrote_under_it(engine, tmp_path):
+    d = str(tmp_path)
+    jdb = nornicdb_tpu.open(d, database="t", engine=engine, auto_embed=False, embedder=JHash())
+    for i in range(5):
+        jdb.store(f"doc {i}", node_id=f"n{i}")
+    jdb.link("n0", "n1", "KNOWS")
+    jdb.close()
+    db = nornicdb_tpu_torch.open(d, device="cpu", database="t", engine=engine,
+                                 auto_embed=False, embedder=HashEmbedder())
+    try:
+        assert db.database == "t" and db.storage.inner.database == "t"
+        assert sorted(n.id for n in db.storage.all_nodes()) == [f"n{i}" for i in range(5)]
+        assert [e.type for e in db.storage.all_edges()] == ["KNOWS"]
+        mgr = db.multidb_manager()
+        assert [x.name for x in mgr.list_databases() if x.default] == ["t"]
+        assert mgr.counts("t") == {"nodes": 5, "edges": 1}
+    finally:
+        db.close()
+    for db in (nornicdb_tpu.open(d, engine=engine, auto_embed=False, embedder=JHash()),
+               nornicdb_tpu_torch.open(d, device="cpu", engine=engine, auto_embed=False,
+                                       embedder=HashEmbedder())):
+        try:  # the default database sees none of them, in both packages
+            assert db.database == "neo4j" and db.storage.count_nodes() == 0
+        finally:
+            db.close()
+
+
+def test_database_is_keyword_only_so_a_positional_name_reaches_the_device(tmp_path):
+    with pytest.raises(RuntimeError):
+        nornicdb_tpu_torch.DB(str(tmp_path), "t")
+
+
+class _FakeTime:
+    """A clock for an embed queue's ``drain``: each sleep advances it 10 s,
+    and once it reaches ``done_at`` the stuck node leaves the queue."""
+
+    def __init__(self, q, done_at):
+        self.q, self.done_at, self.t = q, done_at, 0.0
+
+    def time(self):
+        return self.t
+
+    def sleep(self, _dt):
+        self.t += 10.0
+        if self.t >= self.done_at:
+            with self.q._lock:
+                self.q._pending.discard("stuck")
+
+
+@pytest.mark.parametrize("case", ["slow_worker", "worker_gone"])
+def test_flush_waits_without_a_limit_and_raises_without_a_worker(case, monkeypatch):
+    """C27: the port's flush waits past the reference's 60 s and raises when
+    the worker is gone with work pending; the reference's returns at 60 s
+    without a word in both cases."""
+    import nornicdb_tpu.embed.queue as jqueue
+    import nornicdb_tpu_torch.embed.queue as tqueue
+
+    for mod, db in ((jqueue, nornicdb_tpu.DB(embedder=JHash())),
+                    (tqueue, nornicdb_tpu_torch.DB(device="cpu", embedder=HashEmbedder()))):
+        q = db._embed_queue
+        try:
+            if case == "worker_gone":
+                q.stop()
+            clock = _FakeTime(q, done_at=150.0 if case == "slow_worker" else float("inf"))
+            monkeypatch.setattr(mod, "time", clock)
+            with q._lock:
+                q._pending.add("stuck")  # a node the worker has not embedded yet
+            if mod is jqueue:
+                db.flush()
+                assert 60.0 <= clock.t < 150.0 and "stuck" in q._pending
+            elif case == "slow_worker":
+                db.flush()
+                assert clock.t >= 150.0 and not q._pending
+            else:
+                with pytest.raises(RuntimeError, match="worker stopped with work pending"):
+                    db.flush()
+        finally:
+            monkeypatch.undo()
+            db.close()
