@@ -165,6 +165,33 @@ Phases, in order; any failure exits non-zero:
    node re-embedded; then ``multidb_manager`` creates two databases,
    writes to each, checks their counts are isolated and drops one. The
    launches of (b) and (c) are the kernels line's ``launches_cypher``.
+   (e) APOC, strict mode, rerank and ``similar``, each part's launches
+   counted apart (counts set to 0 just before it, read just after, the
+   enclosing path's put back): on (a)'s graph, right after (d),
+   ``CALL apoc.algo.pageRank() YIELD node, score`` through (a)'s executor
+   (query cache off), every node once with scores within rtol 1e-4 / atol
+   1e-7 of the host version, descending beyond that tolerance, the
+   plane's snapshot built at most once and reused, wall split into
+   PageRank and row materialisation; on (b)'s DB, before (c):
+   ``svc.similar`` for 64 stored nodes (B1 through the vector batcher) against B1's
+   plain top-k over the index's rows without the node (ids tie-aware,
+   scores within 1e-5); 64 hybrid ``recall``s of texts the embedder has
+   not cached with ``LocalReranker(embedder)`` attached, each answer's
+   order and ``rerank_score`` equal to the reranker's formula recomputed
+   in numpy from the candidates it was handed (within 1e-6), B1 and B2
+   launched, timed against the same 64 without the reranker (embed cache
+   cleared between); (b)'s three read shapes, 64 parameters each,
+   alternating ``parser_mode`` fast and strict on the DB's executor
+   (query cache off): rows equal, the added ms per query; a trigger added
+   by ``apoc.trigger.add`` fires on one write and is removed;
+   ``apoc.periodic.iterate`` sets a property on all 8,000 memories in
+   batches of 1,000 (8,000 committed, 0 failed), and 2-hop chain reads
+   afterwards see it, equal to those of an executor whose catalog is built
+   after the writes, from a new catalog version. On phase 4's DB, after its recall check: ``similar`` for 64
+   stored nodes served by HNSW (no B1 launch), recall@10 >= 0.95 against
+   ``exact=True``. Its launches are the kernels line's ``launches_apoc``;
+   ``APOC_PHASE_S`` joins the late rule (a late run takes 1 timed
+   repetition and 1 strict-corpus repeat, not ``APOC_REPS``).
 8. Quant and tiered (``NORNICDB_VECTOR_QUANT``, ``NORNICDB_VECTOR_TIERED``,
    each set for the block and restored). (b) runs right after phase 5, on
    its 1,048,576 x 1024 index: the int8 plane's build by part, its device
@@ -1040,6 +1067,9 @@ def phase_main_path(dev, seed, n_docs):
         f"exact=True over {len(queries)} queries{extra}")
     if recall10_vec < RECALL_MIN:
         raise AssertionError(f"vector recall@10 {recall10_vec:.4f} < {RECALL_MIN}")
+    if use_hnsw:  # phase 7 (e)'s part on this DB
+        REPORT.setdefault("apoc", {})["similar_hnsw"] = apoc_similar_hnsw(
+            db, svc, n_docs, REPORT["card"])
     # right answers: hits are well-formed
     for (mode, q), hits in results.items():
         if not hits or len(hits) > 10:
@@ -3276,9 +3306,342 @@ def cypher_graph_vector_search(db, svc, qvs, mid_of, card):
     return out
 
 
-def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S, graph_reps=GRAPH_REPS):
+# -- phase 7 (e): APOC, strict mode, rerank and similar ------------------------
+
+APOC_PHASE_S = 45.0  # (e)'s budget in the late rule
+APOC_SIMILAR = 64  # stored nodes asked for their 10 nearest
+APOC_RECALLS = 64  # hybrid recalls with the reranker, and the same without it
+APOC_REPS = 3  # timed repetitions and strict-corpus repeats; a late run takes 1
+APOC_PERIODIC_BATCH = 1000
+APOC_STAMP = 7
+RERANK_ATOL = 1e-6
+PERIODIC = ("CALL apoc.periodic.iterate('MATCH (m:Memory) RETURN m', 'SET m.touched = $stamp', "
+            "{batchSize: $batch, params: {stamp: $stamp}}) "
+            "YIELD batches, total, committedOperations, failedOperations "
+            "RETURN batches, total, committedOperations, failedOperations")
+TOUCHED_CHAIN = ("MATCH (a:Memory {mid: $m})-[:RELATES_TO]->(b:Memory)-[:RELATES_TO]->(c:Memory) "
+                 "RETURN count(DISTINCT c), min(c.touched), max(c.touched)")
+
+# (e)'s kernel launches over its three parts, counted apart from the
+# paths they run inside
+APOC_LAUNCHES = {"flash_attention": 0, "cosine_topk": 0}
+
+
+@contextlib.contextmanager
+def apoc_window():
+    """Counts set to 0 just before the block and read just after, into
+    the yielded dict and ``APOC_LAUNCHES``; the enclosing path's counts
+    are put back after it."""
+    from nornicdb_tpu_torch.ops.attention import flash_attention
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+
+    saved, sizes = read_counts(), dict(fused_cosine_topk.launch_sizes)
+    reset_counts()
+    got = {}
+    try:
+        yield got
+    finally:
+        got.update(read_counts())
+        for name, n in got.items():
+            APOC_LAUNCHES[name] += n
+        flash_attention.launches = saved["flash_attention"]
+        fused_cosine_topk.launches = saved["cosine_topk"]
+        fused_cosine_topk.launch_sizes.clear()
+        fused_cosine_topk.launch_sizes.update(sizes)
+
+
+def apoc_pagerank(dev, ex, card, reps):
+    """(e) on (a)'s graph: ``CALL apoc.algo.pageRank()`` through (a)'s
+    executor; every node once, scores against the host version, the
+    plane's snapshot built at most once, wall split into PageRank and
+    row materialisation."""
+    from nornicdb_tpu_torch.ops import graph as tgraph
+
+    t0 = time.perf_counter()
+    plane = ex.device_graph
+    built0 = plane.counts.get("snapshot_built", 0)
+    cache_on, ex.enable_query_cache = ex.enable_query_cache, False
+    timer = PartTimer({"pagerank": (tgraph, "pagerank_engine")})
+    walls, pr_ms = [], []
+    try:
+        with apoc_window() as launches:
+            for _ in range(1 + reps):
+                before = timer.ms["pagerank"]
+                t = time.perf_counter()
+                rows = ex.execute("CALL apoc.algo.pageRank() YIELD node, score").rows
+                walls.append((time.perf_counter() - t) * 1e3)
+                pr_ms.append(timer.ms["pagerank"] - before)
+    finally:
+        timer.close()
+        ex.enable_query_cache = cache_on
+    builds = plane.counts.get("snapshot_built", 0) - built0
+    snap = plane._get_snap(("pagerank",))
+    if snap is None or snap["dev_src"].device.type != dev.type or builds > 1:
+        raise AssertionError(f"PageRank snapshot: {builds} builds, cached "
+                             f"{snap is not None}, on the card {snap and snap['dev_src'].device}")
+    n = len(snap["ids"])
+    host = dict(zip(snap["ids"], tgraph._pagerank_host(snap["src"], snap["dst"], n, 20, 0.85)))
+    ids = [r[0].id for r in rows]
+    if len(ids) != n or n != ex.storage.count_nodes() or set(ids) != host.keys():
+        raise AssertionError(f"apoc.algo.pageRank answered {len(ids)} rows "
+                             f"({len(set(ids))} nodes) for {n} nodes")
+    got = np.asarray([r[1] for r in rows], np.float64)
+    want = np.asarray([host[i] for i in ids])
+    err = np.abs(got - want)
+    if not np.all(err <= PAGERANK_ATOL + PAGERANK_RTOL * np.abs(want)):
+        raise AssertionError(f"apoc.algo.pageRank differs from the host version by {err.max():.3g}")
+    # descending, wherever two scores differ by more than the tolerance
+    if not np.all(got[:-1] >= got[1:] - (PAGERANK_ATOL + PAGERANK_RTOL * np.abs(got[1:]))):
+        raise AssertionError("apoc.algo.pageRank rows are not in score order")
+    steady = walls[1:]
+    steady_pr = pr_ms[1:]
+    out = {"nodes": n, "edges": int(len(snap["src"])), "snapshot_builds": builds,
+           "first_wall_ms": walls[0], "first_pagerank_ms": pr_ms[0],
+           "wall_ms": float(np.median(steady)), "pagerank_ms": float(np.median(steady_pr)),
+           "rows_ms": float(np.median(np.subtract(steady, steady_pr))),
+           "max_err": float(err.max()), "launches": dict(launches),
+           "s": time.perf_counter() - t0}
+    log(f"cypher (e) apoc.algo.pageRank: {n} rows, every node once, max |err| "
+        f"{err.max():.3g} against the host version; snapshot builds {builds} (then reused); "
+        f"wall {out['wall_ms']:.1f} ms = PageRank {out['pagerank_ms']:.1f} + rows "
+        f"{out['rows_ms']:.1f} (first call {walls[0]:.1f} ms, PageRank {pr_ms[0]:.1f}) ({card})")
+    return out
+
+
+def rerank_formula(query, cands, qv, alpha):
+    """``LocalReranker``'s scores recomputed in numpy: ``alpha`` x cosine
+    (the candidate's vector score without its own embedding) + the rest x
+    the share of query terms in its properties."""
+    import re
+
+    def terms(text):
+        return set(re.findall(r"[a-z0-9]+", text.lower()))
+
+    q = terms(query)
+    lex = np.zeros(len(cands), np.float32)
+    for i, c in enumerate(cands):
+        t = terms(" ".join(str(v) for v in (c.get("properties") or {}).values()))
+        if q and t:
+            lex[i] = len(q & t) / len(q)
+    cos = np.zeros(len(cands), np.float32)
+    if qv is not None:
+        for i, c in enumerate(cands):
+            cos[i] = float(c.get("vector_score") or 0.0)
+    return alpha * cos + (1.0 - alpha) * lex
+
+
+def apoc_similar_rerank(db, svc, docs, queries, mid_of, card, reps):
+    """(e) on (b)'s DB: ``similar`` against B1's plain top-k, and hybrid
+    recalls with ``LocalReranker`` against its formula and against the
+    same recalls without it."""
+    from nornicdb_tpu_torch.search.rerank import LocalReranker
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    node_ids = sorted(mid_of)
+    pick = [node_ids[int(i)] for i in rng.choice(len(node_ids), APOC_SIMILAR, replace=False)]
+    embs = [list(db.storage.get_node(nid).embedding) for nid in pick]
+    lat = []
+    with apoc_window() as sim_launches:
+        answers = [svc.similar(nid, 10) for nid in pick]
+        for _ in range(reps):
+            for nid in pick:
+                t = time.perf_counter()
+                svc.similar(nid, 10)
+                lat.append((time.perf_counter() - t) * 1e3)
+    if sim_launches["cosine_topk"] < APOC_SIMILAR:
+        raise AssertionError(f"similar launched B1 {sim_launches['cosine_topk']} times for "
+                             f"{APOC_SIMILAR} nodes")
+    for nid, got, want in zip(pick, answers, plain_vector_hits(svc, embs, 11, mid_of)):
+        want = [(m, s) for m, s in want if m != mid_of[nid]][:10]
+        got = [(mid_of[h["id"]], h["score"]) for h in got]
+        if len(got) != 10 or mid_of[nid] in {m for m, _ in got} \
+                or not hits_agree(got, want, TOPK_SCORE_ATOL):
+            raise AssertionError(f"similar({nid}) {got} differs from the plain top-k {want}")
+    out = {"similar": {**latency_summary(lat), "launches": dict(sim_launches),
+                       "s": time.perf_counter() - t0}}
+    t0 = time.perf_counter()
+
+    class Recording:
+        def __init__(self, inner):
+            self.inner, self.calls = inner, []
+
+        def rerank(self, query, candidates, query_embedding=None, limit=None):
+            self.calls.append((query, candidates, query_embedding))
+            return self.inner.rerank(query, candidates, query_embedding=query_embedding,
+                                     limit=limit)
+
+    # texts the embedder has not cached, so each recall embeds through B2
+    texts = [f"{q} {docs[int(i)].split()[0]}"
+             for q, i in zip(queries, rng.integers(0, len(docs), len(queries)))][:APOC_RECALLS]
+    reranker = Recording(LocalReranker(db._embedder))
+    lat = {"reranked": [], "plain": []}
+    with apoc_window() as rr_launches:
+        for arm in ("reranked", "plain"):
+            with db._embedder._lock:  # both arms embed their texts through B2
+                db._embedder._cache.clear()
+            svc.reranker = reranker if arm == "reranked" else None
+            try:
+                results = []
+                for text in texts:
+                    t = time.perf_counter()
+                    results.append(db.recall(text, limit=10))
+                    lat[arm].append((time.perf_counter() - t) * 1e3)
+            finally:
+                svc.reranker = None
+            if arm == "reranked":
+                reranked, counts = results, read_counts()
+    if counts["flash_attention"] < 1 or counts["cosine_topk"] < 1:
+        raise AssertionError(f"reranked recalls launched {counts}")
+    if len(reranker.calls) != len(texts):
+        raise AssertionError(f"the reranker ran {len(reranker.calls)} times for {len(texts)}")
+    for hits, (query, cands, qv) in zip(reranked, reranker.calls):
+        scores = rerank_formula(query, cands, qv, reranker.inner.alpha)
+        order = np.argsort(-scores)[:10]
+        want = [(cands[int(i)]["id"], float(scores[int(i)])) for i in order]
+        if len(cands) <= 10 or [h["id"] for h in hits] != [i for i, _ in want] or any(
+                abs(h["rerank_score"] - s) > RERANK_ATOL for h, (_, s) in zip(hits, want)):
+            raise AssertionError(f"reranked recall of {query!r} differs from the formula")
+    out["rerank"] = {"reranked": latency_summary(lat["reranked"]),
+                     "plain": latency_summary(lat["plain"]),
+                     "candidates_mean": float(np.mean([len(c) for _, c, _ in reranker.calls])),
+                     "launches": dict(rr_launches), "s": time.perf_counter() - t0}
+    s, r = out["similar"], out["rerank"]
+    log(f"cypher (e) similar: {APOC_SIMILAR} nodes, ids tie-aware and scores within "
+        f"{TOPK_SCORE_ATOL} of B1's plain top-k; p50 {s['p50_ms']:.3f} ms, p99 "
+        f"{s['p99_ms']:.3f} ms; B1 launches {sim_launches['cosine_topk']} ({card})")
+    log(f"cypher (e) reranked recall: {len(texts)} hybrid recalls, order and rerank_score "
+        f"equal the formula within {RERANK_ATOL} over {r['candidates_mean']:.1f} candidates "
+        f"each; p50 {r['reranked']['p50_ms']:.3f} / p99 {r['reranked']['p99_ms']:.3f} ms "
+        f"against {r['plain']['p50_ms']:.3f} / {r['plain']['p99_ms']:.3f} ms without the "
+        f"reranker; launches {rr_launches} ({card})")
+    return out
+
+
+def apoc_strict(db, queries, qvs, mid_of, card, reps):
+    """(e): (b)'s read shapes under ``parser_mode="strict"``, rows equal
+    to the fast mode's, alternating per query."""
+    t0 = time.perf_counter()
+    ex = db.executor
+    corpus = ([("graphrag", GRAPHRAG, {"v": qv}) for qv in qvs]
+              + [("fulltext", FULLTEXT, {"q": q}) for q in queries]
+              + [("two_hop", TWO_HOP, {"m": (i * 127) % len(mid_of)})
+                 for i in range(len(queries))])
+    lat = {mode: {shape: [] for shape in ("graphrag", "fulltext", "two_hop")}
+           for mode in ("fast", "strict")}
+    cache_on, ex.enable_query_cache = ex.enable_query_cache, False
+    try:
+        with apoc_window() as launches:
+            for _ in range(reps):
+                for shape, q, params in corpus:
+                    rows = {}
+                    for mode in ("fast", "strict"):
+                        ex.parser_mode = mode
+                        t = time.perf_counter()
+                        rows[mode] = ex.execute(q, params).rows
+                        lat[mode][shape].append((time.perf_counter() - t) * 1e3)
+                    if rows["strict"] != rows["fast"] or not rows["fast"]:
+                        raise AssertionError(f"{shape} rows under strict mode differ")
+    finally:
+        ex.parser_mode = "fast"
+        ex.enable_query_cache = cache_on
+    added = {shape: float(np.mean(lat["strict"][shape]) - np.mean(lat["fast"][shape]))
+             for shape in lat["fast"]}
+    out = {"queries": len(corpus) * reps, "added_ms": added,
+           "added_ms_mean": float(np.mean(list(added.values()))),
+           "fast": {k: latency_summary(v) for k, v in lat["fast"].items()},
+           "strict": {k: latency_summary(v) for k, v in lat["strict"].items()},
+           "launches": dict(launches), "s": time.perf_counter() - t0}
+    log(f"cypher (e) strict: {out['queries']} queries of 3 shapes, rows equal the fast mode's; "
+        f"added ms per query {json.dumps({k: round(v, 4) for k, v in added.items()})} ({card})")
+    return out
+
+
+def apoc_writes(db, mid_of, card):
+    """(e): a trigger fires on one write and is removed;
+    ``apoc.periodic.iterate`` sets a property on every memory in batches,
+    and a chain read afterwards answers from a fresh snapshot."""
+    from nornicdb_tpu_torch.query.executor import CypherExecutor
+
+    t0 = time.perf_counter()
+    ex = db.executor
+    stamped = "MATCH (m:Memory) WHERE m.mid < 4 RETURN m.mid, m.stamped ORDER BY m.mid"
+    with apoc_window() as launches:
+        db.cypher("CALL apoc.trigger.add('stamp', 'MATCH (m:Memory) WHERE m.mid < 4 "
+                  "SET m.stamped = coalesce(m.stamped, 0) + 1', {})")
+        db.cypher("CREATE (:_Probe {n: 1})")  # exempt from the embed queue
+        fired = db.cypher(stamped).rows
+        db.cypher("CALL apoc.trigger.remove('stamp')")
+        db.cypher("MATCH (p:_Probe) DELETE p")
+        after = db.cypher(stamped).rows
+        if fired != [[i, 1] for i in range(4)] or after != fired or ex.triggers.triggers:
+            raise AssertionError(f"the trigger stamped {fired}, then {after}")
+        version0 = ex.columnar.version
+        t = time.perf_counter()
+        res = db.cypher(PERIODIC, {"batch": APOC_PERIODIC_BATCH, "stamp": APOC_STAMP}).rows
+        periodic_s = time.perf_counter() - t
+        n = len(mid_of)
+        if res != [[-(-n // APOC_PERIODIC_BATCH), n, n, 0]]:
+            raise AssertionError(f"apoc.periodic.iterate answered {res} for {n} memories")
+        # the live executor's reads against an executor whose catalog is
+        # built from the store now
+        fresh = CypherExecutor(db.storage, device=db.device)
+        fresh.enable_query_cache = False
+        for i in range(16):
+            m = (i * 389) % n
+            rows = db.cypher(TOUCHED_CHAIN, {"m": m}).rows
+            if rows != fresh.execute(TOUCHED_CHAIN, {"m": m}).rows or rows[0][1:] != \
+                    [APOC_STAMP, APOC_STAMP] or db.cypher(TWO_HOP, {"m": m}).rows != \
+                    fresh.execute(TWO_HOP, {"m": m}).rows:
+                raise AssertionError(f"the chain read after the periodic writes: {rows}")
+        if ex.columnar.version == version0:
+            raise AssertionError("the chain read answered from the snapshot before the writes")
+        chain_s = time.perf_counter() - t - periodic_s
+    out = {"trigger_rows": len(fired), "periodic_s": periodic_s,
+           "periodic_ops_per_s": n / periodic_s, "batches": res[0][0], "committed": res[0][2],
+           "failed": res[0][3], "chain_reads_s": chain_s, "launches": dict(launches),
+           "s": time.perf_counter() - t0}
+    log(f"cypher (e) writes: a trigger fired on one write ({len(fired)} memories stamped) and "
+        f"was removed; apoc.periodic.iterate set {n} memories in {res[0][0]} batches of "
+        f"{APOC_PERIODIC_BATCH} in {periodic_s:.2f} s ({n / periodic_s:.0f}/s), 0 failed; "
+        f"chain reads see the writes ({card})")
+    return out
+
+
+def apoc_similar_hnsw(db, svc, n_docs, card):
+    """(e) on phase 4's DB: ``similar`` for 64 stored nodes served by HNSW,
+    recall@10 against ``exact=True`` (computed after the counts are read)."""
+    rng = np.random.default_rng(19)
+    pick = [f"d{int(i)}" for i in rng.choice(n_docs, APOC_SIMILAR, replace=False)]
+    routes0 = svc.vector_routes["hnsw"]
+    lat, answers = [], []
+    with apoc_window() as launches:
+        for nid in pick:
+            t = time.perf_counter()
+            answers.append(svc.similar(nid, 10))
+            lat.append((time.perf_counter() - t) * 1e3)
+    if svc.vector_routes["hnsw"] - routes0 != APOC_SIMILAR or launches["cosine_topk"]:
+        raise AssertionError(f"similar took {svc.vector_routes} with launches {launches}")
+    hit = 0
+    for nid, got in zip(pick, answers):
+        emb = db.storage.get_node(nid).embedding
+        exact = [i for i, _ in svc.vector_search_candidates(emb, 11, exact=True) if i != nid]
+        if nid in {h["id"] for h in got} or len(got) != 10:
+            raise AssertionError(f"similar({nid}) answered {len(got)} hits or itself")
+        hit += len({h["id"] for h in got} & set(exact[:10]))
+    recall = hit / (10 * len(pick))
+    out = {**latency_summary(lat), "recall_at_10": recall, "launches": dict(launches)}
+    log(f"cypher (e) similar (hnsw): {len(pick)} nodes of {n_docs}, recall@10 {recall:.4f} "
+        f"against exact=True; p50 {out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms ({card})")
+    if recall < RECALL_MIN:
+        raise AssertionError(f"similar's recall@10 {recall:.4f} < {RECALL_MIN}")
+    return out
+
+
+def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S, graph_reps=GRAPH_REPS,
+                 apoc_reps=APOC_REPS):
     """Phase 7 (module docstring). Returns the kernel launches of parts
-    (b) and (c)."""
+    (b) and (c); (e)'s are counted apart (``APOC_LAUNCHES``)."""
     import shutil
     import tempfile
 
@@ -3289,6 +3652,10 @@ def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S, graph_reps=GRAPH_REPS)
     out["ldbc"], eng, ex, shapes = cypher_ldbc(card, LDBC_PERSONS, LDBC_MESSAGES, LDBC_KNOWS,
                                                window_s)
     out["graph_plane"] = phase_graph_plane(dev, seed, eng, ex, shapes, card, graph_reps)
+    apoc = REPORT.setdefault("apoc", {})
+    t_apoc = time.perf_counter()
+    apoc["pagerank"] = apoc_pagerank(dev, ex, card, apoc_reps)
+    apoc_s = time.perf_counter() - t_apoc
     del eng, ex, shapes
     memories = CYPHER_MEMORIES
 
@@ -3359,6 +3726,15 @@ def phase_cypher(dev, seed, card, window_s=LDBC_WINDOW_S, graph_reps=GRAPH_REPS)
         b["b1_timed"] = [time_topk(dev, m, valid, bb, 10, seed, card) for bb in CYPHER_TIMED_B]
         del m, valid
         out["memory_graph"] = b
+
+        # -- (e) APOC, strict mode, rerank and similar on (b)'s DB -----------
+        t_apoc = time.perf_counter()
+        apoc.update(apoc_similar_rerank(db, svc, docs, queries, mid_of, card, apoc_reps))
+        apoc["strict"] = apoc_strict(db, queries, qvs, mid_of, card, apoc_reps)
+        apoc["writes"] = apoc_writes(db, mid_of, card)
+        apoc["phase7_s"] = apoc_s + time.perf_counter() - t_apoc
+        log(f"cypher (e): {apoc['phase7_s']:.1f} s in phase 7; launches so far "
+            f"{APOC_LAUNCHES} ({card})")
 
         # -- (c) temporal values and restart ---------------------------------
         events_s = cypher_events(db, rng)
@@ -4419,11 +4795,17 @@ def main() -> int:
     path_launches["durable"] = phase_durable(dev, corpus)
     lap("durable")
     # a run near the chip call's limit shortens (a)'s windows, not its graph
-    late = (time.perf_counter() - t_start + CYPHER_PHASE_S + GRAPH_PLANE_S + QUANT_PHASE_S
-            + MEMORY_PHASE_S > RUN_LIMIT_S)
+    late = (time.perf_counter() - t_start + CYPHER_PHASE_S + GRAPH_PLANE_S + APOC_PHASE_S
+            + QUANT_PHASE_S + MEMORY_PHASE_S > RUN_LIMIT_S)
     window_s = 0.5 if late else LDBC_WINDOW_S
     path_launches["cypher"] = phase_cypher(dev, args.seed, card, window_s=window_s,
-                                           graph_reps=2 if late else GRAPH_REPS)
+                                           graph_reps=2 if late else GRAPH_REPS,
+                                           apoc_reps=1 if late else APOC_REPS)
+    # phase 7 (e)'s launches, over its parts in phases 4 and 7
+    path_launches["apoc"] = dict(APOC_LAUNCHES)
+    log(f"apoc path launches: {path_launches['apoc']}")
+    if min(path_launches["apoc"].values()) < 1:
+        raise AssertionError(f"a kernel of (e)'s path never launched: {path_launches['apoc']}")
     lap("cypher")
     path_launches["quant"] = phase_quant_tiered(dev, corpus, bm25)
     del corpus, bm25

@@ -14,6 +14,10 @@ class CypherRuntimeError(Exception):
     """A Cypher query failed during execution."""
 
 
+class ConstraintViolationError(Exception):
+    """A write that breaks a schema constraint (``storage/schema.py``)."""
+
+
 class NotPortedError(NotImplementedError):
     """A feature of the reference that the port does not have yet."""
 

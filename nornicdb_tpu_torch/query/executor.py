@@ -7,13 +7,14 @@ match/traversal (traversal.go, match_*.go), mutations
 through clause operators as dicts {var: value}; aggregation groups on the
 non-aggregate projection keys exactly as Cypher defines.
 
-Not ported yet, each raising ``NotPortedError`` where it would run: APOC
-(``apoc.*`` functions, ``apoc.agg.*`` aggregates, procedures and
-triggers) and the strict parser mode. The device graph plane
-(``query/device_graph.py``) serves the fast-path shapes its gates route
-to it; every other read serves from the catalog's host arrays. PROFILE keeps
-the plan, its db hits and row counts; there is no metrics registry to
-record them in.
+APOC (``query/apoc*.py``: functions, ``apoc.agg.*`` aggregates,
+procedures and triggers) and the strict parser mode (``query/strict.py``)
+run as the reference's; a trigger or an ``apoc.periodic`` batch that
+meets a device fault raises instead of being swallowed (ROADMAP C29).
+The device graph plane (``query/device_graph.py``) serves the fast-path
+shapes its gates route to it; every other read serves from the catalog's
+host arrays. PROFILE keeps the plan, its db hits and row counts; there is
+no metrics registry to record them in.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import uuid
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
-from nornicdb_tpu_torch.errors import CypherRuntimeError, CypherSyntaxError, NotPortedError
+from nornicdb_tpu_torch.errors import CypherRuntimeError, CypherSyntaxError
 from nornicdb_tpu_torch.query import ast as A
 from nornicdb_tpu_torch.query.functions import PathValue, lookup as lookup_fn
 from nornicdb_tpu_torch.query.parser import parse
@@ -195,6 +196,8 @@ class CypherExecutor:
         import os
 
         self.storage = storage
+        # the device the executor's device work runs on (None: CUDA)
+        self.device = device
         # 'fast' (default) or 'strict' (diagnostic validation before
         # execution — reference: NORNICDB_PARSER antlr mode,
         # cypher-parser-modes.md)
@@ -231,6 +234,11 @@ class CypherExecutor:
         # fast-path query; ASTs are immutable after parse
         self._parse_cache: LRUCache = LRUCache(max_size=512)
         self._tls = threading.local()
+        # apoc.trigger.* registry; statements fire after updating queries
+        from nornicdb_tpu_torch.query.apoc_ext import TriggerRegistry
+
+        self.triggers = TriggerRegistry()
+        self._in_trigger = False
 
     def on_external_mutation(self) -> None:
         """Storage-listener entry point (db.py wires this): invalidate for
@@ -290,8 +298,9 @@ class CypherExecutor:
         if head == "PROFILE" and boundary:
             return self._execute_profile(rest, params)
         if self.parser_mode == "strict":
-            raise NotPortedError("the strict parser mode (strict.py, "
-                                 "strict_grammar.py) is not ported yet")
+            from nornicdb_tpu_torch.query.strict import assert_valid
+
+            assert_valid(query)
         uq = self._parse_cached(query)
         cache_key = None
         if self.enable_query_cache and _is_read_only(uq):
@@ -417,9 +426,25 @@ class CypherExecutor:
                     self.columnar.apply_edge_created(e)
             else:
                 self.invalidate_caches()
-            # the reference fires apoc triggers here; APOC is not
-            # ported, so none is ever registered
+            # apoc triggers ('after' phase); guarded against recursion
+            if self.triggers.triggers and not self._in_trigger:
+                self.triggers.fire(self)
         return result
+
+    def _execute_for_trigger(self, statement: str,
+                             params: Optional[Dict[str, Any]] = None
+                             ) -> "CypherResult":
+        """Nested execution for triggers / apoc.periodic / apoc.cypher.run:
+        bypasses the read cache and suppresses re-entrant trigger firing.
+        Uses the parse cache — a trigger statement re-fires on every
+        updating query with identical text."""
+        prev = self._in_trigger
+        self._in_trigger = True
+        try:
+            return self._execute_parsed(self._parse_cached(statement),
+                                        params or {})
+        finally:
+            self._in_trigger = prev
 
     def _parse_cached(self, query: str) -> "A.UnionQuery":
         uq = self._parse_cache.get(query)
@@ -838,8 +863,13 @@ class CypherExecutor:
             return ctx.storage.degree(v.id, direction)
         args = [self._eval(a, row, ctx) for a in e.args]
         fn = self._plugin_functions.get(name) or lookup_fn(name)
-        if fn is None and name.startswith("apoc."):
-            raise NotPortedError(f"{name}(): APOC functions are not ported yet")
+        if fn is None:
+            from nornicdb_tpu_torch.query.apoc import lookup_apoc, lookup_apoc_ctx
+
+            cfn = lookup_apoc_ctx(name)
+            if cfn is not None:
+                return cfn(ctx, *args)
+            fn = lookup_apoc(name)
         if fn is None:
             raise CypherRuntimeError(f"unknown function {name}()")
         return fn(*args)
@@ -1657,7 +1687,25 @@ class CypherExecutor:
     def _run_agg(self, e: A.FuncCall, rows: List[Dict], ctx) -> Any:
         name = e.name
         if name.startswith("apoc.agg."):
-            raise NotPortedError(f"{name}(): APOC aggregates are not ported yet")
+            from nornicdb_tpu_torch.query.apoc_bulk import AGG_FINALIZERS
+
+            fin = AGG_FINALIZERS.get(name)
+            if fin is None:
+                raise CypherRuntimeError(f"unknown aggregate {name}()")
+            arg_rows = [
+                tuple(self._eval(a, row, ctx) for a in e.args)
+                for row in rows
+            ]
+            if e.distinct:
+                seen = set()
+                dd = []
+                for t in arg_rows:
+                    key = _hashable(list(t))
+                    if key not in seen:
+                        seen.add(key)
+                        dd.append(t)
+                arg_rows = dd
+            return fin(arg_rows)
         if name == "count" and e.star:
             return len(rows)
         values = []

@@ -3,8 +3,8 @@
 
 Reference: pkg/cypher/functions_eval_functions.go (2,211 LoC) + registry
 pkg/cypher/fn/registry.go, builtins_core.go (~200 builtins). This module
-covers the high-traffic core. The reference's APOC-namespaced functions
-are not ported: the executor raises ``NotPortedError`` for them.
+covers the high-traffic core; APOC-namespaced functions register through
+their own tables (``query/apoc.py``), which the executor consults next.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """CALL procedure implementations (counterpart of
 ``nornicdb_tpu/query/procedures.py``): the ``db.*`` and ``dbms.*``
 procedures and ``gds.*`` (the graph catalog, host FastRP and host link
-prediction, as the reference's). ``apoc.*`` raises ``NotPortedError``.
+prediction, as the reference's); ``apoc.*`` dispatches to
+``query/apoc.py:run_apoc_procedure``.
 
 Reference: pkg/cypher/call.go:613 executeCall dispatch + the db.*/dbms.*
 surface (call_vector.go:19 db.index.vector.queryNodes, call_fulltext.go,
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Iterator, List
 
-from nornicdb_tpu_torch.errors import CypherRuntimeError, NotPortedError
+from nornicdb_tpu_torch.errors import CypherRuntimeError
 
 
 def _coerce_instant(v: Any):
@@ -362,6 +363,9 @@ def run_procedure(
         raise CypherRuntimeError(f"unknown procedure {name}")
 
     if name.startswith("apoc."):
-        raise NotPortedError(f"{name}: APOC procedures are not ported yet")
+        from nornicdb_tpu_torch.query.apoc import run_apoc_procedure
+
+        yield from run_apoc_procedure(executor, name, args, ctx)
+        return
 
     raise CypherRuntimeError(f"unknown procedure {name}")

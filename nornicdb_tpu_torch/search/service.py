@@ -35,8 +35,12 @@ live vectors and the CAGRA walk at and above it, once its graph is built
 (``NORNICDB_HYBRID_WALK=0`` keeps it exact); the walk shares the
 ``cagra`` strategy's graph when there is one. Unlike the reference, an
 error on the fused path raises instead of falling back to the host.
-Reranking, the sharded hybrid tiers, the IVF backends and audit/cost
-accounting wait for later slices.
+With a ``reranker`` (``rerank.py``) the whole fused overfetch is reranked
+and then cut to ``limit``, uncached; a ``RuntimeError`` from it raises
+(ROADMAP C29), any other error keeps the fused order. ``similar`` finds
+the nodes nearest a stored node's embedding through the vector tiers.
+The sharded hybrid tiers, the IVF backends and audit/cost accounting
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -155,11 +159,13 @@ class SearchService:
         hnsw_threshold: int = 10_000,
         hnsw_m: int = 16,
         hnsw_ef_search: int = HNSW_EF_SEARCH,
+        reranker: Optional[Any] = None,
         persist_dir: Optional[str] = None,
         save_debounce_s: float = 5.0,
     ):
         self.storage = storage
         self.embedder = embedder
+        self.reranker = reranker  # stage-2 rerank (rerank.py), optional
         self.device = device
         self.hnsw_threshold = hnsw_threshold
         self._lock = threading.RLock()
@@ -614,6 +620,34 @@ class SearchService:
             return None
         return np.asarray(self.embedder.embed(query), dtype=np.float32)
 
+    def similar(self, node_id: str, limit: int = 10) -> List[Dict[str, Any]]:
+        """Nodes nearest to a stored node's embedding, the node itself left
+        out (the reference's REST /similar). Empty when the node has no
+        vector yet. Routed as ``vector_search_candidates``: B1 below the
+        HNSW threshold, HNSW above it."""
+        try:
+            node = self.storage.get_node(node_id)
+        except KeyError:
+            return []
+        emb = node.embedding or (
+            node.chunk_embeddings[0] if node.chunk_embeddings else None)
+        if emb is None:
+            return []
+        hits = self.vector_search_candidates(emb, limit + 1)
+        out: List[Dict[str, Any]] = []
+        for nid, score in hits:
+            if nid == node_id:
+                continue
+            res = SearchResult(node_id=nid, score=score, vector_score=score)
+            try:
+                res.node = self.storage.get_node(nid)
+            except KeyError:
+                continue
+            out.append(res.to_dict())
+            if len(out) >= limit:
+                break
+        return out
+
     def vector_search_candidates(
         self, query_vec: Sequence[float], k: int = 10, exact: bool = False,
         lexical_doc_ids: Optional[Sequence[str]] = None,
@@ -669,7 +703,7 @@ class SearchService:
         if not diag and self.stats.last_timings:
             self.stats.last_timings = {}
         cache_key = None
-        if query_embedding is None:
+        if query_embedding is None and self.reranker is None:
             cache_key = (query, limit, mode, min_score, enrich,
                          tuple(labels) if labels else None,
                          tuple(weights) if weights else None)
@@ -748,13 +782,23 @@ class SearchService:
                 if enrich:
                     res.node = node
             out.append(res.to_dict())
-            if len(out) >= limit:
+            if len(out) >= limit and self.reranker is None:
                 break
+        if self.reranker is not None and out:
+            # stage-2 rerank over the full fused overfetch, then cut; it
+            # gets the query embedding already computed
+            try:
+                out = self.reranker.rerank(query, out, limit=limit,
+                                           query_embedding=qv)
+            except RuntimeError:
+                raise  # a device fault fails the search (ROADMAP C29)
+            except Exception:
+                out = out[:limit]  # fail-open, as the reference
         if diag:
-            # the reference's key; no reranker is ported, so it times
-            # enrichment alone
+            # enrichment and, with a reranker, the rerank
             timings["enrich_rerank_ms"] = (time.perf_counter() - t0) * 1e3
             self.stats.last_timings = timings
+        out = out[:limit]
         if cache_key is not None:
             return self._result_cache.put_guarded(cache_key, out, gen_at_miss)
         return out

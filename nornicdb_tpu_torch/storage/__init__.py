@@ -11,6 +11,8 @@ without a data dir, else one of two durable engines:
 
 Both write the reference's files byte for byte. ``PartitionStore``
 (``partition_store.py``) is the tiered vector plane's disk tier.
+``ConstrainedEngine`` (``schema.py``) enforces the schema constraints
+that ``apoc.schema.*`` declares.
 """
 
 import glob
@@ -21,6 +23,14 @@ from nornicdb_tpu_torch.storage.composite import CompositeEngine  # noqa: F401
 from nornicdb_tpu_torch.storage.memory import MemoryEngine  # noqa: F401
 from nornicdb_tpu_torch.storage.namespaced import DEFAULT_DB, NamespacedEngine  # noqa: F401
 from nornicdb_tpu_torch.storage.partition_store import PartitionStore  # noqa: F401
+from nornicdb_tpu_torch.storage.schema import (  # noqa: F401
+    ConstrainedEngine,
+    Constraint,
+    ConstraintViolation,
+    Receipt,
+    ReceiptLedger,
+    SchemaManager,
+)
 from nornicdb_tpu_torch.storage.types import (  # noqa: F401
     AlreadyExistsError,
     Direction,

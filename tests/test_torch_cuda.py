@@ -630,3 +630,59 @@ def test_graph_plane_on_the_card_matches_the_cpu(dev, social_graph, surface, mon
         assert np.array_equal(out_d, np.bincount(snap["src"], minlength=n))
         assert np.array_equal(in_d, np.bincount(snap["dst"], minlength=n))
         assert card.pagerank_snapshot() is snap
+
+
+def test_apoc_pagerank_on_the_card_matches_the_cpu(dev, social_graph):
+    """CALL apoc.algo.pageRank() on a CUDA executor: every node once, the
+    scores of the CPU executor's within rtol 1e-4 / atol 1e-7, order
+    compared only where the scores differ by more (ROADMAP C28), and a
+    second call reuses the plane's snapshot."""
+    from nornicdb_tpu_torch.query.executor import CypherExecutor
+
+    q = "CALL apoc.algo.pageRank() YIELD node, score"
+    card = CypherExecutor(social_graph, device=dev)
+    cpu = CypherExecutor(social_graph, device="cpu")
+    got, want = ([(n.id, s) for n, s in ex.execute(q).rows] for ex in (card, cpu))
+    assert len(got) == len({r[0] for r in got}) == social_graph.count_nodes()
+    want_map = dict(want)
+    for nid, score in got:
+        assert abs(score - want_map[nid]) <= 1e-7 + 1e-4 * abs(want_map[nid]), nid
+    scores = [s for _, s in got]
+    assert all(a >= b - (1e-7 + 1e-4 * abs(b)) for a, b in zip(scores, scores[1:]))
+    snap = card.device_graph.pagerank_snapshot()
+    assert snap["dev_src"].device.type == "cuda"
+    card.execute(q)
+    assert card.device_graph.pagerank_snapshot() is snap
+
+
+@pytest.mark.parametrize("n", [3000, 12000])
+def test_similar_on_the_card_matches_the_cpu(dev, n):
+    """SearchService.similar on a CUDA service: below the HNSW threshold
+    (3,000 vectors) it launches B1 at B 1, k = limit + 1; above it
+    (12,000) it walks HNSW. Tie-aware ids and scores within 1e-5 of the
+    CPU service's, the node itself left out."""
+    from nornicdb_tpu_torch.search.service import SearchService
+    from nornicdb_tpu_torch.storage import MemoryEngine, Node as TNode
+
+    rng = np.random.default_rng(n)
+    vecs = rng.standard_normal((n, 160)).astype(np.float32)  # above the small-host rung
+    vecs[n // 2: n // 2 + 50] = vecs[:50]
+    svcs = []
+    for d in (dev, "cpu"):
+        svc = SearchService(MemoryEngine(), device=d)
+        for i, v in enumerate(vecs):
+            node = TNode(id=f"v{i}", labels=["V"], properties={"content": f"doc {i}"},
+                         embedding=v.tolist())
+            svc.storage.create_node(node)
+            svc.index_node(node)
+        svcs.append(svc)
+    card, cpu = svcs
+    assert card.stats.strategy == cpu.stats.strategy == ("brute" if n < 10_000 else "hnsw")
+    before = fused_cosine_topk.launches
+    for i in range(0, n, n // 16):
+        got, want = card.similar(f"v{i}", 10), cpu.similar(f"v{i}", 10)
+        assert f"v{i}" not in {h["id"] for h in got} and len(got) == 10
+        assert topk_agree([[h["id"] for h in got]], [[h["score"] for h in got]],
+                          [[h["id"] for h in want]], [[h["score"] for h in want]], SCORE_ATOL)
+    if n < 10_000:
+        assert fused_cosine_topk.launches > before

@@ -3,8 +3,8 @@ package's on the same inputs: parser ASTs over the queries of the
 reference's Cypher tests, the differential fuzzer's graphs and queries
 with the fast paths on and off, the fast-path parity corpus, temporal
 values and their record bytes, the ``db.*`` and ``gds.*`` procedures,
-Cypher writes through the DB and both result caches, and the parts of the
-reference that raise ``NotPortedError`` in the port.
+Cypher writes through the DB and both result caches, and APOC and the
+strict parser mode where the port raised ``NotPortedError`` before them.
 
 The JAX side is ``nornicdb_tpu.query.executor.CypherExecutor`` over the
 JAX ``NamespacedEngine(MemoryEngine())``; both sides run on the host (no
@@ -33,7 +33,7 @@ from nornicdb_tpu.storage import NamespacedEngine as JNamespaced
 from nornicdb_tpu.storage.wal import _pack as j_pack
 from nornicdb_tpu_torch.embed.embedder import HashEmbedder
 from nornicdb_tpu_torch.embed.queue import build_embedding_text
-from nornicdb_tpu_torch.errors import CypherRuntimeError, CypherSyntaxError, NotPortedError
+from nornicdb_tpu_torch.errors import CypherRuntimeError, CypherSyntaxError
 from nornicdb_tpu_torch.ops.topk import topk_agree
 from nornicdb_tpu_torch.query import fastpaths as tfastpaths
 from nornicdb_tpu_torch.query import parser as tparser
@@ -642,7 +642,7 @@ def test_temporal_properties_written_by_cypher_reopen_across_packages(tmp_path, 
             db.close()
 
 
-# -- what raises NotPortedError ---------------------------------------------------
+# -- APOC, once NotPortedError ----------------------------------------------------
 
 
 @pytest.mark.parametrize("query", [
@@ -651,9 +651,13 @@ def test_temporal_properties_written_by_cypher_reopen_across_packages(tmp_path, 
     "CALL apoc.help('coll')",
 ])
 def test_apoc_and_gds_raise_not_ported_where_jax_answers(query):
-    JExecutor(JNamespaced(JMemory(), "t")).execute(query)  # the reference answers
-    with pytest.raises(NotPortedError, match="not ported"):
-        CypherExecutor(NamespacedEngine(MemoryEngine(), "t")).execute(query)
+    """Its name dates from when the port raised ``NotPortedError`` here
+    (ROADMAP C21): an APOC function, an ``apoc.agg.*`` aggregate and a
+    ``CALL apoc.*`` now answer as the JAX package does."""
+    want = JExecutor(JNamespaced(JMemory(), "t")).execute(query)
+    got = CypherExecutor(NamespacedEngine(MemoryEngine(), "t"), device="cpu").execute(query)
+    assert got.columns == want.columns
+    assert got.rows == want.rows and got.rows
 
 
 # -- gds.* procedures ------------------------------------------------------------
@@ -770,9 +774,20 @@ def test_gds_procedure_errors_match_jax(query):
 
 
 def test_strict_parser_mode_raises_not_ported():
+    """Its name dates from when the port raised ``NotPortedError`` for
+    ``parser_mode="strict"`` (ROADMAP C21): the mode now validates as the
+    JAX package's, answering a valid query and raising the same error,
+    diagnostics and all, for one the fast parser would take."""
     ex = CypherExecutor(NamespacedEngine(MemoryEngine(), "t"), parser_mode="strict")
-    with pytest.raises(NotPortedError, match="strict"):
-        ex.execute("RETURN 1")
+    jex = JExecutor(JNamespaced(JMemory(), "t"), parser_mode="strict")
+    assert ex.execute("RETURN 1 AS x").rows == jex.execute("RETURN 1 AS x").rows == [[1]]
+    bad = "MATCH (n) RETURN m"
+    with pytest.raises(JSyntaxError) as want:
+        jex.execute(bad)
+    with pytest.raises(CypherSyntaxError) as got:
+        ex.execute(bad)
+    assert str(got.value) == str(want.value)
+    assert CypherExecutor(NamespacedEngine(MemoryEngine(), "t")).execute(bad).rows == []
 
 
 def test_unknown_function_and_procedure_raise_as_jax():

@@ -16,6 +16,7 @@ import nornicdb_tpu_torch
 from nornicdb_tpu_torch.embed.embedder import TorchEncoderEmbedder
 from nornicdb_tpu_torch.ops.graph import pagerank_arrays
 from nornicdb_tpu_torch.query.device_graph import DeviceGraphPlane
+from nornicdb_tpu_torch.query.executor import CypherExecutor
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,7 +56,10 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
                  "storage.partition_store", "filters", "decay", "temporal",
                  "linkpredict", "inference", "ops.decay", "ops.linkpredict",
                  "ops.fastrp", "background", "background.device_plane",
-                 "query.device_graph", "ops.graph", "search.microbatch"):
+                 "query.device_graph", "ops.graph", "search.microbatch",
+                 "query.apoc", "query.apoc_bulk", "query.apoc_ext", "query.apoc_graph",
+                 "query.apoc_algo", "query.apoc_admin", "query.apoc_io", "query.strict",
+                 "query.strict_grammar", "storage.schema", "search.rerank"):
         assert "nornicdb_tpu_torch." + name in result["imported"]
     assert result["bad"] == []
 
@@ -77,6 +81,11 @@ def test_port_sources_import_nothing_of_jax(path):
                                "msgpack", "cryptography"), (path, name)
 
 
+def _apoc_pagerank(ex):
+    ex.execute("CREATE (:A)-[:R]->(:B)")
+    return ex.execute("CALL apoc.algo.pageRank() YIELD node, score RETURN score")
+
+
 @pytest.mark.parametrize("make", [
     lambda: nornicdb_tpu_torch.open(),
     lambda: nornicdb_tpu_torch.DB(),
@@ -85,6 +94,7 @@ def test_port_sources_import_nothing_of_jax(path):
     lambda: nornicdb_tpu_torch.resolve_device("cuda"),
     lambda: pagerank_arrays(np.zeros(1, np.int32), np.zeros(1, np.int32), 1),
     lambda: DeviceGraphPlane(None).device,
+    lambda: _apoc_pagerank(CypherExecutor(nornicdb_tpu_torch.storage.MemoryEngine())),
 ])
 def test_entry_points_default_to_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
