@@ -86,6 +86,30 @@ Phases, in order; any failure exits non-zero:
    same rows' embeddings builds the device graph once (``strategy
    cagra``), and 64 vector queries must each ride the vector batcher into
    a walk, with recall@10 >= 0.95 against ``exact=True``.
+   The observability core (``nornicdb_tpu_torch/obs``) is reset at the
+   phase's start and read in four parts (``obs (a)``-``(d)`` lines): (a)
+   once the snapshot and the walk graph are built, ``reconcile()``: its
+   ``backend_bytes`` must equal ``torch.cuda.memory_allocated()`` read
+   beside it, the lexical snapshot's resource bytes the snapshot's own
+   (its ``memory_allocated`` delta within the allocator's 512-byte
+   rounding per tensor) and the graph's resource bytes plus the exact
+   tier's join map the graph's delta; the drift is split into the
+   encoder's weights, the join maps, cuBLAS's workspaces (the bytes
+   ``torch._C._cuda_clearCublasWorkspaces()`` frees) and the rest. (b) At the phase's end,
+   ``calibration_summary()``: each kind's dispatches must equal the
+   phase's own counts (``hybrid_fused`` and ``hybrid_walk_fused`` the
+   fused tier's dispatches, ``microbatch`` the batches of the three
+   batchers, ``cagra_walk`` the walks, ``bm25_score`` eight direct
+   ``DeviceBM25.search_batch`` calls of eight queries, held against the
+   host index); the EWMA per bucket and the effective FLOPs/s and bytes/s
+   beside the card's roofs are printed. Over the concurrent block's
+   direct vector rides the ``microbatch`` dispatches must equal B1's
+   launch growth. (c) Hybrid p50 on the exact tier with the layer on and
+   with ``obs.set_enabled(False)``, ``OBS_BLOCKS`` interleaved blocks of
+   the 64 queries per arm (1 in a late run): on must stay within 2x off
+   + 1 ms (the reference's overhead budget); the ratio is printed. (d)
+   ``REGISTRY.render()``: bytes and ms, and every family the wired modules
+   declare at import must appear. ``OBS_PHASE_S`` joins the late rule.
 5. Index at deployment scale: a 1,048,576 x 1024 float32
    ``BruteForceIndex`` filled through ``add_batch`` and searched at
    the (B, k) of ``INDEX_TIMED``, through B1, checked against the plain
@@ -345,12 +369,42 @@ RUN_LIMIT_S = 1200.0  # the whole run must end within this
 CYPHER_PHASE_S = 240.0
 GRAPH_PLANE_S = 60.0  # phase 7 (d)'s budget; a late run shortens its timing, not its checks
 QUANT_PHASE_S = 260.0  # phase 8 (a)'s length (206-237 s on an H100 80GB, 700 W), with room
+OBS_PHASE_S = 20.0  # phase 4's observability block (a)-(d); a late run times 1 block in (c)
+OBS_BLOCKS = 4  # (c)'s interleaved on/off blocks of the 64 hybrid queries per arm
+# families the modules wired into the observability core declare at import
+OBS_FAMILIES = (
+    "nornicdb_microbatch_batch_size", "nornicdb_microbatch_queue_depth",
+    "nornicdb_convoy_batch_size", "nornicdb_deadline_early_dispatch_total",
+    "nornicdb_request_stage_seconds", "nornicdb_device_dispatch_total",
+    "nornicdb_device_compile_total", "nornicdb_device_dispatch_seconds",
+    "nornicdb_device_first_call_seconds", "nornicdb_device_compile_seconds",
+    "nornicdb_device_eff_flops_per_s", "nornicdb_device_eff_bytes_per_s",
+    "nornicdb_device_padding_efficiency", "nornicdb_device_mem_ledger_bytes",
+    "nornicdb_device_mem_backend_bytes", "nornicdb_device_mem_drift_bytes",
+    "nornicdb_device_mem_leak_total", "nornicdb_device_unexpected_recompile_total",
+    "nornicdb_search_strategy_total", "nornicdb_device_bm25_events_total",
+    "nornicdb_hybrid_fused_events_total", "nornicdb_cagra_events_total",
+    "nornicdb_query_cost_flops_total", "nornicdb_query_cost_bytes_total",
+    "nornicdb_query_cost_queries_total", "nornicdb_wal_append_seconds",
+    "nornicdb_wal_fsync_seconds", "nornicdb_index_device_bytes", "nornicdb_index_rows",
+    "nornicdb_queue_depth", "nornicdb_compile_cache_entries",
+    "nornicdb_tenant_cost_flops_total", "nornicdb_tenant_device_seconds_total",
+    "nornicdb_events_total")
 
 REPORT: dict = {}
+T_START = time.perf_counter()  # main() sets it when the run starts
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def run_is_late(extra_s: float = 0.0) -> bool:
+    """The late rule: whether the run so far, ``extra_s`` more and the
+    budgets of phases 7-9 would pass ``RUN_LIMIT_S``. A late phase
+    shortens its timing, never its checks."""
+    return (time.perf_counter() - T_START + extra_s + CYPHER_PHASE_S + GRAPH_PLANE_S
+            + APOC_PHASE_S + QUANT_PHASE_S + MEMORY_PHASE_S > RUN_LIMIT_S)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -863,6 +917,13 @@ def phase_main_path(dev, seed, n_docs):
     flash_attention.launches = 0
     fused_cosine_topk.launches = 0
     fused_cosine_topk.launch_sizes.clear()
+    # the observability core counts this phase from here (obs (b))
+    from nornicdb_tpu_torch import obs
+    from nornicdb_tpu_torch.obs import dispatch as obs_dispatch
+
+    obs.set_enabled(True)
+    obs.device.reset()
+    obs_dispatch.reset()
     db = nornicdb_tpu_torch.open(device=dev)
     t0 = time.perf_counter()
     for i, text in enumerate(docs):
@@ -986,6 +1047,8 @@ def phase_main_path(dev, seed, n_docs):
             f"+ {l2v_bytes} of the exact tier's join map, memory_allocated grew {graph_alloc}")
     else:
         log(f"  walk tier off: {len(svc.vectors)} vectors, walk_min_n {walk_min_n}")
+    ledger = obs_ledger(db, svc, fused, snap_bytes, snap_alloc,
+                        walk.get("memory_allocated_delta"), walk.get("l2v_map_bytes", 0))
     recorder = TrioRecorder(svc)
     counts0 = dict(fused.counts)
     timed("hybrid")  # invalidates first: the warm-up queries above were cached
@@ -1171,6 +1234,8 @@ def phase_main_path(dev, seed, n_docs):
         f"0 B1 launches, answers agree")
     write_mix = phase_write_mix(db, svc, fused, docs, queries, rng)
     profile = phase_cagra_profile(dev, svc, qvs)
+    obs_out = phase_obs(db, svc, fused, queries, profile, conc, run_is_late(OBS_PHASE_S))
+    obs_out["ledger"] = ledger
 
     def pct(xs, p):
         return float(np.percentile(np.asarray(xs), p))
@@ -1210,6 +1275,7 @@ def phase_main_path(dev, seed, n_docs):
         "concurrent_exact_tier": conc_exact,
         "write_mix": write_mix,
         "cagra_profile": profile,
+        "obs": obs_out,
     }
     for mode, ts in lat.items():
         mp[f"{mode}_p50_ms"] = pct(ts, 50)
@@ -1341,7 +1407,7 @@ def phase_cagra_profile(dev, svc, qvs):
     old = os.environ.get("NORNICDB_VECTOR_ANN_QUALITY")
     os.environ["NORNICDB_VECTOR_ANN_QUALITY"] = "cagra"
     try:
-        prof = SearchService(storage, device=dev)
+        prof = SearchService(storage, device=dev, resource_name="service:cagra-profile")
         t0 = time.perf_counter()
         n = prof.build_indexes()
         index_s = time.perf_counter() - t0
@@ -1377,6 +1443,8 @@ def phase_cagra_profile(dev, svc, qvs):
            "width": cg.search_width, "iters": cg._graph["iters"], "launches": launches,
            "cosine_topk_launch_sizes": sizes, "fallbacks": {
                k: v for k, v in cg.counts.items() if k.startswith("fallback_")},
+           # the whole service's, for obs (b)'s dispatch counts
+           "batcher_batches": prof._microbatch.batches, "walks_total": cg.counts["walk"],
            "phase_s": time.perf_counter() - t_phase}
     log(f"cagra profile: {n} vectors (explicit embeddings of the main path's rows, no "
         f"text) backfilled in {index_s:.2f} s; strategy {out['strategy']}, "
@@ -1389,6 +1457,193 @@ def phase_cagra_profile(dev, svc, qvs):
         raise AssertionError(f"cagra profile: vector queries did not all walk: {out}")
     if recall < RECALL_MIN:
         raise AssertionError(f"cagra profile: recall@10 {recall:.4f} < {RECALL_MIN}")
+    return out
+
+
+def obs_dispatches(kind):
+    """Dispatches of ``kind`` the observability core recorded since the
+    phase reset it."""
+    from nornicdb_tpu_torch import obs
+
+    return obs.calibration_summary()["kinds"].get(kind, {}).get("dispatches", 0)
+
+
+def obs_ledger(db, svc, fused, snap_bytes, snap_alloc, graph_alloc, l2v_bytes):
+    """Phase 4's obs (a): one ``reconcile()`` once the snapshot and the
+    graph are built. Its backend bytes must equal ``memory_allocated``
+    read beside it; the lexical snapshot's resource bytes equal the
+    snapshot's columns (its delta within 512 bytes a tensor: the
+    allocator's rounding), the graph's resource bytes plus the exact
+    tier's join map the graph's delta. The drift is split into the
+    encoder's weights, the join maps, cuBLAS's workspaces and the rest."""
+    import torch
+
+    from nornicdb_tpu_torch import obs
+    from nornicdb_tpu_torch.obs import device as obs_device
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rec = obs_device.reconcile()
+    after = torch.cuda.memory_allocated()
+    log(f"obs (a) reconcile: ledger_bytes {rec['ledger_bytes']}, backend_bytes "
+        f"{rec['backend_bytes']} (memory_allocated {before} before, {after} after), "
+        f"drift_bytes {rec['drift_bytes']}, bound {rec['bound_bytes']}, leak "
+        f"{rec['leak_suspected']}; device {obs_device.ledger_device()}")
+    if not before == rec["backend_bytes"] == after:
+        raise AssertionError(f"obs: backend_bytes {rec['backend_bytes']} is not "
+                             f"memory_allocated {before}/{after}")
+    res = {(e["family"], e["index"]): e for e in obs.resource_snapshot()}
+    for (family, index), e in sorted(res.items()):
+        if "device_bytes" in e:
+            log(f"obs (a) resource {family} {index}: device_bytes {e['device_bytes']}, rows "
+                f"{e.get('rows')}, capacity {e.get('capacity')}")
+    lex = res[("device_bm25", svc.resource_name)]["device_bytes"]
+    if lex != snap_bytes or abs(snap_alloc - lex) >= 512 * 4:
+        raise AssertionError(f"obs: the snapshot's resource bytes {lex} against its columns "
+                             f"{snap_bytes} and its memory_allocated delta {snap_alloc}")
+    graph = None
+    if graph_alloc is not None:
+        graph = res[("cagra", f"{svc.resource_name}:hybrid_walk")]["device_bytes"]
+        if graph + l2v_bytes != graph_alloc:
+            raise AssertionError(f"obs: the graph's resource bytes {graph} + the join map "
+                                 f"{l2v_bytes} against its memory_allocated delta {graph_alloc}")
+    model = db._embedder.inner.model
+    encoder = sum(t.numel() * t.element_size()
+                  for t in list(model.parameters()) + list(model.buffers()) if t.is_cuda)
+    maps = sum(m[1].numel() * m[1].element_size()
+               for m in fused.lex._snap.get("row_maps", {}).values())
+    # cuBLAS keeps its workspaces in PyTorch's allocator: the bytes that
+    # clearing them frees (the next product allocates them again)
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    cublas = after - torch.cuda.memory_allocated()
+    rest = rec["drift_bytes"] - encoder - maps - cublas
+    log(f"obs (a) drift {rec['drift_bytes']} = encoder weights {encoder} + join maps {maps} "
+        f"+ cuBLAS workspaces {cublas} + the rest {rest}; snapshot {lex} against its delta "
+        f"{snap_alloc}; graph {graph} + join map {l2v_bytes} against its delta {graph_alloc}")
+    return {**rec, "memory_allocated": before, "snapshot_device_bytes": lex,
+            "snapshot_delta": snap_alloc, "graph_device_bytes": graph, "graph_delta": graph_alloc,
+            "drift_encoder_bytes": encoder, "drift_join_map_bytes": maps,
+            "drift_cublas_workspace_bytes": cublas, "drift_rest_bytes": rest,
+            "resources": {f"{f}:{i}": e.get("device_bytes") for (f, i), e in res.items()
+                          if "device_bytes" in e}}
+
+
+def phase_obs(db, svc, fused, queries, profile, conc, late):
+    """Phase 4's obs (b), (c) and (d), on the main path's live service at
+    the phase's end: the calibration against the phase's own dispatch
+    counts, the layer's overhead on the exact tier's hybrid p50, and the
+    exposition."""
+    import torch
+
+    from nornicdb_tpu_torch import obs
+
+    t_phase = time.perf_counter()
+    # (b) bm25_score: direct batches through the lexical snapshot
+    lex = fused.lex
+    ev0 = dict(lex.events)
+    batches = [queries[i:i + 8] for i in range(0, 64, 8)]
+    for batch in batches:
+        got = lex.search_batch(batch, 10)
+        want = svc.bm25.search_batch(batch, 10)
+        for g, w in zip(got, want):
+            if not hits_agree(g, w, lex_atol(w)):
+                raise AssertionError(f"obs: DeviceBM25 disagrees with the host index on {batch}")
+    handoffs = sum(n - ev0.get(k, 0) for k, n in lex.events.items() if k.startswith("host_"))
+    cal = obs.calibration_summary()
+    kinds = cal["kinds"]
+    cagra = fused.cagra.counts["walk"] if fused.cagra is not None else 0
+    own = {"microbatch": (svc._microbatch.batches + svc._hybrid_batch.batches
+                          + profile["batcher_batches"]),
+           "hybrid_fused": fused.counts["dispatch"],
+           "hybrid_walk_fused": fused.counts["walk_dispatch"],
+           "cagra_walk": profile["walks_total"] + cagra,
+           "bm25_score": len(batches) - handoffs}
+    rows = {}
+    for kind in ("microbatch", "hybrid_fused", "hybrid_walk_fused", "cagra_walk", "bm25_score"):
+        d = kinds.get(kind, {})
+        rows[kind] = {"dispatches": d.get("dispatches", 0), "phase_count": own[kind],
+                      "top_dispatches": d.get("top_dispatches", 0),
+                      "ewma_ms": {b: bk["execute_ms"] for b, bk in d.get("buckets", {}).items()},
+                      "samples": {b: bk["samples"] for b, bk in d.get("buckets", {}).items()},
+                      "compile_s_est": d.get("compile_s_est"), "execute_s": d.get("execute_s"),
+                      "eff_flops_per_s": d.get("eff_flops_per_s"),
+                      "eff_bytes_per_s": d.get("eff_bytes_per_s"),
+                      "padding_efficiency": d.get("padding_efficiency")}
+        r = rows[kind]
+        flops, byts = r["eff_flops_per_s"], r["eff_bytes_per_s"]
+        log(f"obs (b) {kind}: {r['dispatches']} dispatches (the phase counts {own[kind]}), "
+            f"{r['top_dispatches']} top-level; EWMA ms by bucket {r['ewma_ms']} (samples "
+            f"{r['samples']}); first-use split {r['compile_s_est']} s of {r['execute_s']} s "
+            f"execute; eff FLOPs/s {flops} ({(flops or 0) / F32_FLOPS_PER_S:.2e} of the f32 "
+            f"roof), eff bytes/s {byts} ({(byts or 0) / HBM_BYTES_PER_S:.2e} of HBM); padding "
+            f"efficiency {r['padding_efficiency']}")
+    log(f"obs (b) served kinds {cal['served_kinds']}, calibrated {cal['calibrated_kinds']}, "
+        f"coverage {cal['calibration_coverage']}, unexpected recompiles "
+        f"{cal['unexpected_recompiles']}; direct vector rides "
+        f"{conc['direct_vector_rides']['obs']}")
+    wrong = {k: r for k, r in rows.items() if r["dispatches"] != r["phase_count"]}
+    if wrong:
+        raise AssertionError(f"obs: dispatch counts differ from the phase's own: {wrong}")
+
+    # (c) the layer's overhead on the exact tier's hybrid p50
+    blocks = 1 if late else OBS_BLOCKS
+    lat = {"on": [], "off": []}
+    walk_min_n = fused.walk_min_n
+    d0 = fused.counts["dispatch"]
+    invalidate_cache(svc, "before obs (c)")
+    fused.walk_min_n = None
+    try:
+        with CacheBypass(svc):
+            for blk in range(blocks):
+                for arm in (("on", "off") if blk % 2 == 0 else ("off", "on")):
+                    obs.set_enabled(arm == "on")
+                    try:
+                        for q in queries:
+                            t = time.perf_counter()
+                            db.recall(q, limit=10, mode="hybrid")
+                            torch.cuda.synchronize()
+                            lat[arm].append((time.perf_counter() - t) * 1e3)
+                    finally:
+                        obs.set_enabled(True)
+    finally:
+        fused.walk_min_n = walk_min_n
+    served = fused.counts["dispatch"] - d0
+    p50 = {arm: float(np.percentile(v, 50)) for arm, v in lat.items()}
+    ratio = p50["on"] / p50["off"]
+    overhead = {"blocks": blocks, "queries_per_arm": len(lat["on"]), "p50_on_ms": p50["on"],
+                "p50_off_ms": p50["off"], "ratio": ratio, "late": late,
+                "p99_on_ms": float(np.percentile(lat["on"], 99)),
+                "p99_off_ms": float(np.percentile(lat["off"], 99))}
+    log(f"obs (c) hybrid p50 on the exact tier, {blocks} interleaved block(s) of {len(queries)} "
+        f"queries per arm: layer on {p50['on']:.4f} ms, off {p50['off']:.4f} ms, ratio "
+        f"{ratio:.4f} (p99 {overhead['p99_on_ms']:.3f} / {overhead['p99_off_ms']:.3f} ms); "
+        f"{served} fused dispatches")
+    if served != 2 * blocks * len(queries):
+        raise AssertionError(f"obs (c): {served} fused dispatches for "
+                             f"{2 * blocks * len(queries)} queries")
+    if p50["on"] > 2.0 * p50["off"] + 1.0:
+        raise AssertionError(f"obs (c): the layer's p50 {p50['on']:.3f} ms is over 2x "
+                             f"{p50['off']:.3f} + 1 ms")
+
+    # (d) the exposition
+    import nornicdb_tpu_torch.cache  # noqa: F401 -- declare their families
+    import nornicdb_tpu_torch.storage.wal  # noqa: F401
+
+    t = time.perf_counter()
+    text = obs.REGISTRY.render()
+    render_ms = (time.perf_counter() - t) * 1e3
+    missing = [f for f in OBS_FAMILIES if f"# TYPE {f} " not in text]
+    log(f"obs (d) REGISTRY.render(): {len(text.encode())} bytes in {render_ms:.3f} ms, "
+        f"{text.count(chr(10))} lines; {len(OBS_FAMILIES) - len(missing)} of "
+        f"{len(OBS_FAMILIES)} wired families present")
+    if missing:
+        raise AssertionError(f"obs (d): families missing from the exposition: {missing}")
+    out = {"calibration": rows, "served_kinds": cal["served_kinds"],
+           "calibrated_kinds": cal["calibrated_kinds"], "overhead": overhead,
+           "render_bytes": len(text.encode()), "render_ms": render_ms,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"obs (b)-(d) took {out['phase_s']:.2f} s")
     return out
 
 
@@ -1471,6 +1726,8 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios,
     # under the threshold: above it no recall rides it, so the clients
     # ride it directly over the same index
     ride_mark = batcher_mark(svc._microbatch)
+    ride_obs0 = obs_dispatches("microbatch")
+    ride_b1_0 = fused_cosine_topk.launches
     rides = []
     ride_barrier = threading.Barrier(CONCURRENT_THREADS)
 
@@ -1496,6 +1753,10 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios,
         raise AssertionError("a vector rider did not finish")
     if errors:
         raise errors[0]
+    # every direct ride's dispatch went to the brute index: one B1 launch
+    # and one microbatch dispatch record each
+    ride_obs = {"microbatch_dispatches": obs_dispatches("microbatch") - ride_obs0,
+                "cosine_topk_launches": fused_cosine_topk.launches - ride_b1_0}
     launches = {"flash_attention": flash_attention.launches,
                 "cosine_topk": fused_cosine_topk.launches}
     sizes = dict(sorted(fused_cosine_topk.launch_sizes.items()))
@@ -1518,7 +1779,8 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios,
            "vector_batch_sizes": vsizes,
            "direct_vector_rides": {"queries": rq, "batches": rb, "wall_s": ride_wall_s,
                                    "queries_per_s": rq / ride_wall_s if rq else 0.0,
-                                   "mean_batch": rq / max(rb, 1), "batch_sizes": rsizes},
+                                   "mean_batch": rq / max(rb, 1), "batch_sizes": rsizes,
+                                   "obs": ride_obs},
            "hybrid_batches": hb, "hybrid_queries": hq, "hybrid_mean_batch": hq / max(hb, 1),
            "hybrid_batch_sizes": hsizes,
            "mean_batch": (vq + hq) / max(vb + hb, 1), "fused_served": served}
@@ -1532,6 +1794,12 @@ def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios,
         log(f"  direct vector rides: {rq} in {rb} batches in {ride_wall_s:.3f} s, mean batch "
             f"{rq / max(rb, 1):.3f} (sizes {rsizes}); vector batcher in all {vq} rides in "
             f"{vb} batches, mean {out['vector_mean_batch']:.3f}")
+        log(f"obs (b) direct vector rides: {ride_obs['microbatch_dispatches']} microbatch "
+            f"dispatches recorded, B1 launches grew {ride_obs['cosine_topk_launches']}, "
+            f"{rb} batches")
+        if not (ride_obs["microbatch_dispatches"] == ride_obs["cosine_topk_launches"] == rb):
+            raise AssertionError(f"obs: direct rides' microbatch dispatches against B1: "
+                                 f"{ride_obs}, {rb} batches")
     if bypass.probes != n_q or svc.stats.cache_hits != hits0:
         raise AssertionError(f"the result cache answered in the concurrent phase: {out}")
     n_rides = 0 if exact_tier else n_q
@@ -4745,7 +5013,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     phase_s = REPORT["phase_s"] = {}
 
     def lap(name):
@@ -4795,8 +5064,7 @@ def main() -> int:
     path_launches["durable"] = phase_durable(dev, corpus)
     lap("durable")
     # a run near the chip call's limit shortens (a)'s windows, not its graph
-    late = (time.perf_counter() - t_start + CYPHER_PHASE_S + GRAPH_PLANE_S + APOC_PHASE_S
-            + QUANT_PHASE_S + MEMORY_PHASE_S > RUN_LIMIT_S)
+    late = run_is_late()
     window_s = 0.5 if late else LDBC_WINDOW_S
     path_launches["cypher"] = phase_cypher(dev, args.seed, card, window_s=window_s,
                                            graph_reps=2 if late else GRAPH_REPS,

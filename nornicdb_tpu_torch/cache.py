@@ -5,8 +5,11 @@
 ``SearchService.search`` keeps its results in a ``ResultCache``: LRU
 1000, TTL 300 s, every index mutation bumps the generation and drops
 every entry, a put whose compute raced a bump is not kept, and hits are
-copied on the way out. The wire-protocol cache and the fleet's
-generation mirror wait for the slices that port those surfaces.
+copied on the way out. ``WireCache`` (a copy) is the serialized-response
+cache of the protocol surfaces, with the reference's hit, miss and
+invalidation counters (``nornicdb_wire_cache_*_total{cache}``); the
+surfaces themselves and the fleet's generation mirror wait for the
+slices that port them.
 """
 
 from __future__ import annotations
@@ -93,6 +96,82 @@ class GenerationalCache(LRUCache[V]):
     def generation(self) -> int:
         with self._lock:
             return self._generation
+
+
+class WireCache:
+    """Shared serialized-response cache for the protocol surfaces.
+
+    Keyed (method, request bytes) -> (generation, response bytes). A hit
+    is valid only when the caller's CURRENT generation for that method
+    family matches the generation recorded at put time — the same
+    write-generation discipline as ``GenerationalCache``, except the
+    generation counters live with the data planes (QdrantCompat's search
+    cache, SearchService's result cache), each fed by the storage
+    mutation listeners wired in db.py. One instance serves every wire
+    method of a server, so the hot handlers do ZERO protobuf/JSON work
+    on a hit: request bytes in, response bytes out.
+
+    Entries are immutable bytes — no copy-on-return hook is needed
+    (unlike ResultCache, whose hits share nested dicts with live nodes).
+
+    Telemetry: hit/miss/invalidation counters under
+    ``nornicdb_wire_cache_*_total{cache=<name>}`` — per cache NAME, so
+    two instances constructed with the same name share one series. An
+    "invalidation" is a generation-mismatch probe — the entry was
+    present but a write on some surface outdated it (the generation
+    counters live with the data planes, so the mismatch at get() is
+    where staleness becomes observable).
+    """
+
+    def __init__(self, max_size: int = 2048, ttl_seconds: float = 300.0,
+                 name: str = "wire"):
+        from nornicdb_tpu_torch.obs import REGISTRY
+
+        self._lru: LRUCache = LRUCache(max_size=max_size,
+                                       ttl_seconds=ttl_seconds)
+        self.name = name
+        self._hits_c = REGISTRY.counter(
+            "nornicdb_wire_cache_hits_total",
+            "Wire-cache hits (serialized response served)",
+            labels=("cache",)).labels(name)
+        self._misses_c = REGISTRY.counter(
+            "nornicdb_wire_cache_misses_total",
+            "Wire-cache misses (response computed + serialized)",
+            labels=("cache",)).labels(name)
+        self._inval_c = REGISTRY.counter(
+            "nornicdb_wire_cache_invalidations_total",
+            "Wire-cache entries found stale (generation mismatch)",
+            labels=("cache",)).labels(name)
+
+    def get(self, method: str, data: bytes, gen: int) -> Optional[bytes]:
+        hit = self._lru.get((method, data))
+        if hit is not None and hit[0] == gen:
+            self._hits_c.inc()
+            return hit[1]
+        if hit is not None:
+            # present but outdated by a write: the observable moment of
+            # invalidation (entries are never proactively swept)
+            self._inval_c.inc()
+        self._misses_c.inc()
+        return None
+
+    def put(self, method: str, data: bytes, gen: int,
+            payload: bytes) -> None:
+        # gen was sampled BEFORE the compute; a write that raced the
+        # compute bumped the live generation, so the stale entry can
+        # never validate on get() — no put-side guard needed.
+        self._lru.put((method, data), (gen, payload))
+
+    def stats(self) -> dict:
+        # wire_* come from the lock-striped registry counters (exact
+        # under racing gets) and cover every instance sharing this name
+        return {**self._lru.stats(),
+                "wire_hits": self._hits_c.value,
+                "wire_misses": self._misses_c.value,
+                "wire_invalidations": self._inval_c.value}
+
+    def clear(self) -> None:
+        self._lru.clear()
 
 
 class ResultCache(GenerationalCache[list]):

@@ -455,7 +455,8 @@ class DeviceGraphPlane:
         with self._lock:
             b = self._batchers.get(key)
             if b is None:
-                b = BatchCoalescer(functools.partial(self._chain_batch, spec), max_batch=64)
+                b = BatchCoalescer(functools.partial(self._chain_batch, spec), max_batch=64,
+                                   surface="service:graph")
                 self._batchers[key] = b
             return b
 

@@ -221,6 +221,12 @@ class CypherExecutor:
         from nornicdb_tpu_torch.query.device_graph import DeviceGraphPlane
 
         self.device_graph = DeviceGraphPlane(self.columnar, device)
+        from nornicdb_tpu_torch import obs as _obs
+
+        _obs.register_resource(
+            "device_graph",
+            getattr(storage, "database", None) or "default",
+            self.device_graph)
         # Read-query result cache with write invalidation (reference:
         # read-cache probe executor.go:634, pkg/cache/query_cache.go).
         from nornicdb_tpu_torch.cache import LRUCache
@@ -470,17 +476,30 @@ class CypherExecutor:
     ) -> CypherResult:
         """PROFILE: execute through a db-hit-counting storage proxy and
         attach actuals to the plan (reference: executeProfile,
-        explain.go:110). The reference also records them in its metrics
-        registry, which is not ported."""
+        explain.go:110). The actuals also land in the metrics registry:
+        the db-hit and wall-time distributions of profiled queries."""
+        import time as _time
+
+        from nornicdb_tpu_torch.obs import REGISTRY
         from nornicdb_tpu_torch.query.explain import CountingEngine, build_plan
 
         uq = self._parse_cached(query)
         plan = build_plan(self.storage, uq)
         counting = CountingEngine(self.storage)
+        t0 = _time.perf_counter()
         result = self._execute_parsed(uq, params, storage=counting)
+        elapsed = _time.perf_counter() - t0
         root = plan.children[0] if plan.children else plan
         root.db_hits = counting.hits
         plan.actual_rows = root.actual_rows = len(result.rows)
+        REGISTRY.histogram(
+            "nornicdb_profile_db_hits",
+            "Storage hits per PROFILEd query",
+            buckets=(1, 10, 100, 1_000, 10_000, 100_000, 1_000_000),
+        ).observe(counting.hits)
+        REGISTRY.histogram(
+            "nornicdb_profile_query_seconds",
+            "Wall time per PROFILEd query").observe(elapsed)
         # Neo4j semantics: PROFILE returns the query's records; the
         # profiled plan rides on the result (summary-equivalent).
         result.plan = plan.to_dict()

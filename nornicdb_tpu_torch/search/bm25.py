@@ -91,6 +91,8 @@ class BM25Index:
         # slot -> unique terms of that doc, so a tombstone can decrement df
         self._doc_terms: List[Optional[Tuple[str, ...]]] = []
         self._mut_gen = 0
+        # posting entries held, kept incrementally (resource_stats)
+        self._n_postings = 0
         self._np_gen = -1
         self._np_doc_len: Optional[np.ndarray] = None
         self._np_alive: Optional[np.ndarray] = None
@@ -140,10 +142,32 @@ class BM25Index:
                 p.tfs.append(c)
                 self._df[t] = self._df.get(t, 0) + 1
             self._doc_terms.append(tuple(counts))
+            self._n_postings += len(counts)
             self._log_change_locked(doc_id)
 
     def changelog_cap(self) -> int:
         return max(4096, len(self._ext_ids) // 4)
+
+    def resource_stats(self) -> Dict[str, float]:
+        """Memory and freshness accounting for obs/resources.py: postings
+        footprint (the incremental entry count, never a walk of the
+        vocabulary), tombstone pressure, and changelog depth against its
+        cap. A host index: the device CSR snapshot reports its own."""
+        with self._lock:
+            n_slots = len(self._ext_ids)
+            return {
+                "rows": self._n_alive,
+                "capacity": n_slots,
+                "device_bytes": 0,
+                # ~16 B per posting entry (a doc id and a tf), 24 B a slot
+                "host_bytes": self._n_postings * 16 + n_slots * 24,
+                "dead_fraction": round((n_slots - self._n_alive) / max(n_slots, 1), 6),
+                "changelog_depth": len(self._changelog),
+                "changelog_cap": self.changelog_cap(),
+                "mutations": self._mut_gen,
+                "postings": self._n_postings,
+                "terms": len(self._postings),
+            }
 
     def _log_change_locked(self, doc_id: str) -> None:
         self._changelog.append((self._mut_gen, doc_id))
@@ -223,6 +247,7 @@ class BM25Index:
         self._postings = new_postings
         self._df = new_df
         self._doc_terms = new_terms
+        self._n_postings = sum(len(p.doc_ids) for p in new_postings.values())
         self._mut_gen += 1
         self.compactions += 1
         self.tombstones += 1
@@ -473,4 +498,5 @@ class BM25Index:
                           for i, ts in enumerate(terms_per_doc)]
         idx._total_len = sum(n for n, a in zip(idx._doc_len, idx._alive) if a)
         idx._n_alive = sum(1 for a in idx._alive if a)
+        idx._n_postings = sum(len(p.doc_ids) for p in idx._postings.values())
         return idx

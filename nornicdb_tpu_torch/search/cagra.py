@@ -35,8 +35,12 @@ whole pool is re-scored exactly on the host rows, so every answered score
 is an exact cosine.
 
 ``save``/``load`` keep the vectors only, as the reference's do; the
-graph is rebuilt on demand. The sharded walks, the audit, admission and
-cost calls and ``resource_stats`` wait for later slices.
+graph is rebuilt on demand. As the reference's, the index counts its
+lifecycle and step-downs in ``nornicdb_cagra_events_total``, records each
+walk as ``record_dispatch("cagra_walk", ...)`` with its ``price_walk*``
+cost, and reports its device arrays through ``resource_stats`` (fed by
+``device_bytes``). The sharded walks and the audit and admission calls
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -52,6 +56,8 @@ import torch
 
 from nornicdb_tpu_torch._device import DeviceLike
 from nornicdb_tpu_torch.config import env_int
+from nornicdb_tpu_torch.obs import REGISTRY, declare_kind, record_dispatch
+from nornicdb_tpu_torch.obs import cost as _cost
 from nornicdb_tpu_torch.ops.similarity import NEG_INF, l2_normalize, pad_dim, topk_stable
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
 from nornicdb_tpu_torch.search.ann_quality import CAGRA_ITOPK, CAGRA_WIDTH
@@ -68,6 +74,20 @@ _HASH_MULT = 2654435761  # Knuth's multiplicative hash, as a uint32
 # one sequence over every index: consumers key per-graph state on it, and
 # two indexes' first builds must not share a number
 _BUILD_SEQ = itertools.count(1)
+
+# graph (re)builds, delta side-scans merged into walk results and the
+# exact-fallback reasons
+_CAGRA_C = REGISTRY.counter(
+    "nornicdb_cagra_events_total",
+    "CAGRA index lifecycle and per-search freshness decisions",
+    labels=("event",))
+
+declare_kind("cagra_walk")
+
+# counts[] reason -> the reference's event label
+_FALLBACK_EVENTS = {"itopk_exceeded": "exact_fallback_itopk",
+                    "changelog_overrun": "exact_fallback_changelog",
+                    "underfill": "exact_fallback_underfill"}
 
 
 def hash_bucket(ids: torch.Tensor, hash_bits: int) -> torch.Tensor:
@@ -296,6 +316,7 @@ class CagraIndex:
         self._graph: Optional[Dict[str, Any]] = None
         self._build_lock = threading.Lock()
         self._rebuilding = False
+        self._rebuild_started = 0.0  # the open rebuild's start (resource_stats)
         self._rebuild_flag_lock = threading.Lock()
         # a background build that raised: re-raised by every later
         # ensure_graph instead of building again
@@ -391,6 +412,7 @@ class CagraIndex:
         t5 = time.perf_counter()
         self._graph = graph
         self.builds += 1
+        _CAGRA_C.labels("build").inc()
         self.build_s = {"device_copy": (t2 - t1) + (t5 - t_q), "knn_forward": t3 - t2,
                         "reorder": t4 - t3, "quantize": t_q - t4, "total": t5 - t0}
         return True
@@ -424,7 +446,9 @@ class CagraIndex:
             if self._rebuilding:
                 return
             self._rebuilding = True
+            self._rebuild_started = time.time()
         self.counts["background_rebuild"] += 1
+        _CAGRA_C.labels("background_rebuild").inc()
 
         def run():
             try:
@@ -434,6 +458,7 @@ class CagraIndex:
             finally:
                 with self._rebuild_flag_lock:
                     self._rebuilding = False
+                    self._rebuild_started = 0.0
 
         threading.Thread(target=run, name="cagra-rebuild", daemon=True).start()
 
@@ -456,6 +481,38 @@ class CagraIndex:
         else:
             arrays = [quant[key] for key in ("codes", "codes_head", "scale", "rot_dev")]
         return sum(a.numel() * a.element_size() for a in arrays + [g["adj"], g["validf"]])
+
+    def resource_stats(self) -> Dict[str, Any]:
+        """Memory and freshness accounting for obs/resources.py: the
+        graph's device bytes (``device_bytes``), the host row-id table
+        (and under quant the float32 base, held on the host), the
+        mutation gap between the live brute index and the built graph,
+        and the background-rebuild backlog."""
+        g = self._graph
+        stats: Dict[str, Any] = {}
+        host_extra = 0
+        if g is not None and g["quant"] is not None:
+            quant = g["quant"]
+            f32_base = int(g["matrix"].nbytes)  # the host rerank's rows
+            host_extra = f32_base
+            keys = (("codes", "codebooks") if quant["mode"] == "pq"
+                    else ("codes", "codes_head", "scale", "rot_dev"))
+            quant_b = sum(quant[key].numel() * quant[key].element_size() for key in keys)
+            stats = {"quant_device_bytes": quant_b,
+                     "compression_ratio": round(f32_base / max(quant_b, 1), 3)}
+        started = self._rebuild_started
+        return {
+            **stats,
+            "rows": g["n"] if g is not None else 0,
+            "capacity": g["rows"] if g is not None else 0,
+            "device_bytes": self.device_bytes(),
+            "host_bytes": (8 * len(g["row_ids"]) + host_extra) if g is not None else 0,
+            "mutation_gap": (self._brute.mutations - g["built_mutations"]) if g is not None else 0,
+            "rebuild_in_flight": 1.0 if self._rebuilding else 0.0,
+            "rebuild_backlog_s": (round(time.time() - started, 3)
+                                  if self._rebuilding and started else 0.0),
+            "builds": self.builds,
+        }
 
     def stats(self) -> Dict[str, Any]:
         g = self._graph
@@ -516,16 +573,39 @@ class CagraIndex:
         qn = l2_normalize(torch.from_numpy(padded).to(self.device))
         n_iters = iters if iters is not None else g["iters"]
         w = width or self.search_width
+        t0 = time.time()
         if quant is None:
             s, i = walk_body(qn, g["matrix"], g["adj"], g["validf"], kb, n_iters, w, p,
                              self.hash_bits, self.n_seeds)
             s, i = s.cpu().numpy(), i.cpu().numpy()
         else:
             s, i = self._walk_quant(g, qn, kb, n_iters, w, p)
+        # the answer reached the host inside the timed window
+        record_dispatch("cagra_walk", bb, kb, time.time() - t0)
         self.counts["walk"] += 1
+        # the seed round plus iters x width x degree distance evaluations
+        # at the padded batch; the real queries counted
+        if _cost.pricing_enabled():
+            d = int(queries.shape[1])
+            if quant is None:
+                flops, byts = _cost.price_walk(bb, d, n_iters, w, self.degree, p,
+                                               n_seeds=self.n_seeds)
+            else:
+                if quant["mode"] == "pq":
+                    flops, byts = _cost.price_walk_pq(bb, d, n_iters, w, self.degree, p,
+                                                      quant["pq_m"], quant["pq_codes"],
+                                                      n_seeds=self.n_seeds)
+                else:
+                    flops, byts = _cost.price_walk_quant(bb, d, n_iters, w, self.degree, p,
+                                                         quant["head_dims"], quant["keep"],
+                                                         n_seeds=self.n_seeds)
+                rf, rb = _cost.price_rerank(bb, p, d)
+                flops, byts = flops + rf, byts + rb
+            _cost.record_query_cost("cagra_walk", _cost.cost_name(self), b, flops, byts)
         out = self._resolve(g, s[:b], i[:b], k_eff)
         if delta_ids:
             self.counts["delta_merge"] += 1
+            _CAGRA_C.labels("delta_merge").inc()
             ds = qn[:b].cpu().numpy() @ delta_vecs.T  # stored rows are normalized
             out = [merge_delta_hits(hits, delta_ids, ds[r], k_eff)
                    for r, hits in enumerate(out)]
@@ -552,6 +632,7 @@ class CagraIndex:
 
     def _fallback(self, reason: str, queries: np.ndarray, k: int):
         self.counts["fallback_" + reason] += 1
+        _CAGRA_C.labels(_FALLBACK_EVENTS[reason]).inc()
         return self._brute.search_batch(queries, k)
 
     def delta_block(self, g) -> Tuple[Optional[List[str]], Optional[np.ndarray]]:

@@ -28,6 +28,10 @@ shard).
   swapped in whole. A trimmed changelog, a compaction or an overflowing
   plan hands the batch to the host index, counted by reason in
   ``events``.
+- **Observability.** The reference's lifecycle counter
+  (``nornicdb_device_bm25_events_total``), a ``record_dispatch`` of kind
+  ``bm25_score`` per device batch with its ``price_bm25`` cost, and
+  ``resource_stats`` for ``obs/resources.py``.
 """
 
 from __future__ import annotations
@@ -42,11 +46,21 @@ import numpy as np
 import torch
 
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device
+from nornicdb_tpu_torch.obs import REGISTRY, declare_kind, record_dispatch
+from nornicdb_tpu_torch.obs import cost as _cost
 from nornicdb_tpu_torch.ops.similarity import NEG_INF, pad_dim, topk_stable
 from nornicdb_tpu_torch.search.bm25 import B, K1, BM25Index, tokenize
 from nornicdb_tpu_torch.search.microbatch import pow2_bucket
 
 _U16_MAX = 65535
+
+# lifecycle and freshness decisions of the device lexical snapshot
+_LEX_C = REGISTRY.counter(
+    "nornicdb_device_bm25_events_total",
+    "Device BM25 snapshot lifecycle and per-search freshness decisions",
+    labels=("event",))
+
+declare_kind("bm25_score")
 
 
 class PlanOverflow(Exception):
@@ -125,7 +139,11 @@ class DeviceBM25:
         self._snap: Optional[Dict[str, Any]] = None
         self._build_lock = threading.Lock()
         self._rebuilding = False
+        self._rebuild_started = 0.0  # the open rebuild's start (resource_stats)
         self._rebuild_flag_lock = threading.Lock()
+        # per-thread (posting mass, unique terms) of the latest plan():
+        # the cost record reads it instead of re-deriving the term stats
+        self._plan_cost = threading.local()
         self._alive_lock = threading.Lock()
         self._map_lock = threading.Lock()
         self._delta_cache: Optional[Tuple] = None
@@ -173,9 +191,12 @@ class DeviceBM25:
                 "row_of": {e: r for r, e in enumerate(base["row_ids"])},
                 "slots": slots,
             }
+            if snap["post_tf"].dtype == torch.int16 or snap["doc_len"].dtype == torch.int16:
+                _LEX_C.labels("quant_cols").inc()
             self._snap = snap
             self.builds += 1
             self.build_s = time.perf_counter() - t0
+            _LEX_C.labels("build").inc()
             return True
 
     def _kick_background_rebuild(self) -> None:
@@ -183,6 +204,8 @@ class DeviceBM25:
             if self._rebuilding:
                 return
             self._rebuilding = True
+            self._rebuild_started = time.time()
+        _LEX_C.labels("background_rebuild").inc()
 
         def run():
             try:
@@ -190,6 +213,7 @@ class DeviceBM25:
             finally:
                 with self._rebuild_flag_lock:
                     self._rebuilding = False
+                    self._rebuild_started = 0.0
 
         threading.Thread(target=run, name="device-bm25-rebuild",
                          daemon=True).start()
@@ -222,6 +246,26 @@ class DeviceBM25:
             return 0
         return sum(snap[key].numel() * snap[key].element_size()
                    for key in ("post_doc", "post_tf", "doc_len", "alive"))
+
+    def resource_stats(self) -> Dict[str, Any]:
+        """Memory and freshness accounting for obs/resources.py: the CSR
+        columns' device bytes, the host offset and slot tables, the
+        mutation gap between the live index and the snapshot, and the
+        rebuild backlog."""
+        snap = self._snap
+        started = self._rebuild_started
+        return {
+            "rows": snap["n"] if snap is not None else 0,
+            "capacity": snap["c"] if snap is not None else 0,
+            "device_bytes": self.device_bytes(),
+            "host_bytes": ((snap["offsets"].nbytes + snap["slots"].nbytes
+                            + 8 * len(snap["row_ids"])) if snap is not None else 0),
+            "mutation_gap": (self.bm25.mut_gen - snap["built_gen"]) if snap is not None else 0,
+            "rebuild_in_flight": 1.0 if self._rebuilding else 0.0,
+            "rebuild_backlog_s": (round(time.time() - started, 3)
+                                  if self._rebuilding and started else 0.0),
+            "builds": self.builds,
+        }
 
     # -- shared snapshot plumbing -----------------------------------------
 
@@ -307,6 +351,7 @@ class DeviceBM25:
         offsets = snap["offsets"]
         uniq_all = sorted({t for row in token_rows for t in row})
         dfs, n_alive, avgdl = self.bm25.term_stats(uniq_all)
+        self._plan_cost.stats = (float(sum(dfs.values())), len(uniq_all))
         n = max(n_alive, 1)
         terms: List[str] = []
         idfs: List[np.float32] = []
@@ -362,24 +407,38 @@ class DeviceBM25:
         delta = self.delta_block(snap)
         if delta is None:
             self.events["host_changelog"] += 1
+            _LEX_C.labels("host_fallback_changelog").inc()
             self._kick_background_rebuild()
             return self.bm25.search_batch(queries, k)
         token_rows = [tokenize(q) for q in queries]
+        b = len(queries)
         kb = min(pow2_bucket(max(min(k, snap["n"]), 1)), snap["c"])
+        t0 = time.time()
         try:
             self.refresh_alive(snap)
             args = self.device_args(snap, *self.plan(snap, token_rows))
         except SnapshotStale:
             self.events["host_compaction"] += 1
+            _LEX_C.labels("host_fallback_compaction").inc()
             self._kick_background_rebuild()
             return self.bm25.search_batch(queries, k)
         except PlanOverflow:
             self.events["host_overflow"] += 1
+            _LEX_C.labels("host_fallback_overflow").inc()
             return self.bm25.search_batch(queries, k)
         s, i = topk_stable(bm25_dense_scores(*args), kb)
-        out = self._resolve(snap, s.cpu().numpy(), i.cpu().numpy(), min(k, kb))
+        s, i = s.cpu().numpy(), i.cpu().numpy()  # to the host inside the timed window
+        record_dispatch("bm25_score", pow2_bucket(b), kb, time.time() - t0)
+        # the batch's unique-term posting mass (each scattered once) plus
+        # the [B, U] x [U, C] idf-weighted product, at the B rows run
+        if _cost.pricing_enabled():
+            nnz, u = self._plan_cost.stats
+            flops, byts = _cost.price_bm25(b, nnz, u, snap["c"])
+            _cost.record_query_cost("bm25_score", _cost.cost_name(self), b, flops, byts)
+        out = self._resolve(snap, s, i, min(k, kb))
         if delta:
             self.events["delta_merge"] += 1
+            _LEX_C.labels("delta_merge").inc()
             out = self._merge_delta(out, delta, token_rows, k)
         return out
 

@@ -63,16 +63,29 @@ compaction, a changelog overrun, a write racing the join map
 (``vec_race``), a compaction during the rerank (``rerank_race``), an
 under-filled row (``underfill``). The sharded tiers wait for a later
 slice.
+
+**Observability.** The float32 tiers record what the reference's record:
+``nornicdb_hybrid_fused_events_total`` by event (dispatches, host
+fallbacks, the walk's step-downs, delta merges), one
+``record_dispatch`` per device batch (``hybrid_fused``,
+``hybrid_walk_fused``, ``hybrid_walk_fused_quant``) timed to the answer's
+arrival on the host, its cost (the lexical CSR price plus the vector
+half's: ``price_brute`` or ``price_walk*``, at the B rows run), and each
+row's stage ``times`` for the service's trace spans. The quantized brute
+tier's records come with the admission slice.
 """
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from nornicdb_tpu_torch.obs import REGISTRY, declare_kind, record_dispatch
+from nornicdb_tpu_torch.obs import cost as _cost
 from nornicdb_tpu_torch.ops.similarity import NEG_INF, l2_normalize, topk_stable
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
 from nornicdb_tpu_torch.search.ann_quality import current_profile
@@ -91,10 +104,23 @@ from nornicdb_tpu_torch.search.device_quant import (
     _walk_body_quant,
     quant_mode,
 )
+from nornicdb_tpu_torch.search.microbatch import pow2_bucket
 from nornicdb_tpu_torch.search.rrf import DEFAULT_RRF_K, rrf_fuse
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
 
+_HYB_C = REGISTRY.counter(
+    "nornicdb_hybrid_fused_events_total",
+    "Fused hybrid pipeline dispatches and freshness decisions",
+    labels=("event",))
+
+declare_kind("hybrid_fused")
+declare_kind("hybrid_walk_fused")
+declare_kind("hybrid_fused_quant")
+declare_kind("hybrid_walk_fused_quant")
+
 TIER_BRUTE_F32 = "hybrid_brute_f32"
+# hand-offs to the host path the reference counts as host_fallback_<reason>
+_HOST_FALLBACK_EVENTS = ("changelog", "compaction", "overflow", "vec_race")
 TIER_WALK_F32 = "hybrid_walk_f32"
 TIER_WALK_QUANT = "hybrid_walk_quant"
 
@@ -364,7 +390,23 @@ class FusedHybrid:
 
     def _handoff(self, reason: str, b: int) -> List[None]:
         self.counts["handoff_" + reason] += 1
+        if reason in _HOST_FALLBACK_EVENTS:
+            _HYB_C.labels("host_fallback_" + reason).inc()
         return [None] * b
+
+    def _record_cost(self, kind: str, b: int, snap: Dict[str, Any],
+                     vec_flops_bytes: Tuple[float, float]) -> None:
+        """One fused dispatch's price: the lexical CSR price from the
+        (posting mass, unique terms) the lexical plan() stashed on this
+        thread, at the snapshot's padded doc width, plus the vector
+        half's price."""
+        if not _cost.pricing_enabled():
+            return
+        nnz, u = self.lex._plan_cost.stats
+        lex_f, lex_b = _cost.price_bm25(b, nnz, u, int(snap["c"]))
+        vec_f, vec_b = vec_flops_bytes
+        _cost.record_query_cost(kind, _cost.cost_name(self.lex), b,
+                                lex_f + vec_f, lex_b + vec_b)
 
     def search_batch(
         self, queries_emb: np.ndarray, kq: int, extras: Sequence[Dict[str, Any]],
@@ -387,6 +429,7 @@ class FusedHybrid:
         if self.brute.view_meta() is None:
             return self._handoff("vec_empty", b)
         token_rows = [e["tokens"] for e in extras]
+        t_plan0 = time.time()
         try:
             self.lex.refresh_alive(snap)
             plan = self.lex.plan(snap, token_rows)
@@ -407,9 +450,10 @@ class FusedHybrid:
         wctx = self._walk_context(snap, kq)
         if wctx is not None:
             rows = self._dispatch_walk(snap, wctx, lex_args, qn, tail, delta,
-                                       token_rows, extras)
+                                       token_rows, extras, t_plan0)
             if rows is not None:
                 return rows
+            t_plan0 = time.time()  # the vetoed walk is no part of this plan
         # the quantized brute tier; a vetoed batch falls through to float32
         qctx = self._quant_context()
         if qctx is not None:
@@ -417,6 +461,7 @@ class FusedHybrid:
                                         extras)
             if rows is not None:
                 return rows
+            t_plan0 = time.time()
         # the float32 pair is read only here: a batch a quantized or walk
         # tier served never uploads it
         view = self.brute.device_view()
@@ -426,14 +471,25 @@ class FusedHybrid:
         l2v = self._ensure_map(snap, mutations)
         if l2v is None:
             return self._handoff("vec_race", b)
+        t0 = time.time()
         out = fused_single(*lex_args, l2v, qn, m, valid, *tail, kq=kq)
         ls, lgrow, vs, vi, fs, fpos = (x.cpu().numpy() for x in out)
+        t1 = time.time()
+        record_dispatch("hybrid_fused", pow2_bucket(b), kq, t1 - t0)
         self.counts["dispatch"] += 1
+        _HYB_C.labels("dispatch").inc()
+        self._record_cost("hybrid_fused", b, snap,
+                          vec_flops_bytes=_cost.price_brute(b, int(m.shape[0]), int(m.shape[1])))
         rows = self._decode(snap, vec_ids, delta, token_rows, extras,
                             ls, lgrow, vs, vi, fs, fpos, kq)
+        if delta:
+            _HYB_C.labels("delta_merge").inc(len(extras))
+        times = {"plan_s": t0 - t_plan0, "device_t0": t0, "device_t1": t1,
+                 "decode_s": time.time() - t1, "tier": "brute"}
         for row in rows:
             self.counts[row["served_by"]] += 1
             row["tier"] = "brute"
+            row["times"] = times
         return rows
 
     # -- quantized brute tier ---------------------------------------------
@@ -526,15 +582,18 @@ class FusedHybrid:
         if g is None:
             # the first build (or one after the corpus shrank) is running
             self.counts["walk_pending_build"] += 1
+            _HYB_C.labels("walk_pending_build").inc()
             return None
         if kq > cagra.itopk:
             # the pool only ever holds itopk candidates
             self.counts["walk_itopk_exceeded"] += 1
+            _HYB_C.labels("walk_fallback_itopk").inc()
             return None
         delta_ids, delta_vecs = cagra.delta_block(g)
         if delta_ids is None:
             # churn outran the changelog while a rebuild runs
             self.counts["walk_changelog_overrun"] += 1
+            _HYB_C.labels("walk_fallback_changelog").inc()
             return None
         # staleness from the live counter, read after delta_block drained
         # the changelog: a delete landing in between must not skip the
@@ -547,7 +606,8 @@ class FusedHybrid:
                 "n_seeds": cagra.n_seeds,
                 "tier": TIER_WALK_F32 if g["quant"] is None else TIER_WALK_QUANT}
 
-    def _dispatch_walk(self, snap, wctx, lex_args, qn, tail, delta, token_rows, extras):
+    def _dispatch_walk(self, snap, wctx, lex_args, qn, tail, delta, token_rows, extras,
+                       t_plan0):
         """One walk-tier dispatch: the decoded rows, or None when the live
         filter (or a walk miss) left a row short of the candidates the
         corpus has, and the exact tier must serve the batch."""
@@ -558,6 +618,7 @@ class FusedHybrid:
         kp = wctx["itopk"]
         statics = dict(iters=wctx["iters"], width=wctx["width"], itopk=kp,
                        hash_bits=wctx["hash_bits"], n_seeds=wctx["n_seeds"])
+        t0 = time.time()
         if quant is None:
             out = walk_fused_single(*lex_args, wctx["l2g"], qn, g["matrix"], g["adj"],
                                     g["validf"], *tail, kq=kp, **statics)
@@ -579,7 +640,28 @@ class FusedHybrid:
             # the whole pool re-scored on the host rows; the decode re-fuses
             vs, vi = rerank_pool(g["matrix"], qn.cpu().numpy(), vs, vi, vs.shape[1])
             fs = fpos = None
+        t1 = time.time()
+        b = len(extras)
+        kind = "hybrid_walk_fused" if quant is None else "hybrid_walk_fused_quant"
+        record_dispatch(kind, pow2_bucket(b), kp, t1 - t0)
         self.counts["walk_dispatch"] += 1
+        _HYB_C.labels("walk_dispatch").inc()
+        d_model, degree = int(qn.shape[1]), int(g["adj"].shape[1])
+        if quant is None:
+            vec_price = _cost.price_walk(b, d_model, wctx["iters"], wctx["width"], degree,
+                                         wctx["itopk"], n_seeds=wctx["n_seeds"])
+        else:
+            if quant["mode"] == "pq":
+                vf, vb = _cost.price_walk_pq(b, d_model, wctx["iters"], wctx["width"], degree,
+                                             kp, quant["pq_m"], quant["pq_codes"],
+                                             n_seeds=wctx["n_seeds"])
+            else:
+                vf, vb = _cost.price_walk_quant(b, d_model, wctx["iters"], wctx["width"],
+                                                degree, wctx["itopk"], quant["head_dims"],
+                                                quant["keep"], n_seeds=wctx["n_seeds"])
+            rf, rb = _cost.price_rerank(b, kp, d_model)
+            vec_price = (vf + rf, vb + rb)
+        self._record_cost(kind, b, snap, vec_flops_bytes=vec_price)
         rows = self._decode(snap, g["row_ids"], delta, token_rows, extras,
                             ls, lgrow, vs, vi, fs, fpos, kp,
                             vec_delta=(wctx["delta_ids"], wctx["delta_vecs"]),
@@ -590,10 +672,22 @@ class FusedHybrid:
         if any(len(row["vec"]) < min(int(e["n_cand"]), kp, alive_n)
                for row, e in zip(rows, extras)):
             self.counts["walk_underfill"] += 1
+            _HYB_C.labels("walk_underfill_brute").inc()
             return None
+        # freshness accounting only once the walk serves the batch
+        if wctx["delta_ids"]:
+            _HYB_C.labels("walk_delta_merge").inc()
+        elif wctx["stale"]:
+            _HYB_C.labels("walk_live_filter").inc()
+        if delta:
+            _HYB_C.labels("delta_merge").inc(len(extras))
+        times = {"plan_s": t0 - t_plan0, "device_t0": t0, "device_t1": t1,
+                 "decode_s": time.time() - t1, "tier": "walk",
+                 "walk_iters": wctx["iters"], "walk_itopk": wctx["itopk"]}
         for row in rows:
             self.counts[row["served_by"]] += 1
             row["tier"] = "walk"
+            row["times"] = times
         return rows
 
     def _decode(self, snap, vec_ids, delta, token_rows, extras,

@@ -39,8 +39,14 @@ With a ``reranker`` (``rerank.py``) the whole fused overfetch is reranked
 and then cut to ``limit``, uncached; a ``RuntimeError`` from it raises
 (ROADMAP C29), any other error keeps the fused order. ``similar`` finds
 the nodes nearest a stored node's embedding through the vector tiers.
-The sharded hybrid tiers, the IVF backends and audit/cost accounting
-wait for later slices.
+Observability as the reference's: ``nornicdb_search_strategy_total``
+counts each vector request's route and each fused ride's tier; the
+indexes, the batchers' queues, the fused tier's lexical snapshot and the
+graphs are registered with ``obs/resources.py`` under
+``resource_name`` (``service:neo4j`` unless the caller names the
+service); a request's lexical, fuse and rerank stages (and the fused
+dispatch's split) ride its trace as spans. The sharded hybrid
+tiers, the IVF backends and the audit layer wait for later slices.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ import numpy as np
 from nornicdb_tpu_torch._device import DeviceLike
 from nornicdb_tpu_torch.cache import ResultCache
 from nornicdb_tpu_torch.config import env_bool, env_int
+from nornicdb_tpu_torch.obs import REGISTRY, attach_span, register_resource
 from nornicdb_tpu_torch.search.ann_quality import current_profile
 from nornicdb_tpu_torch.search.bm25 import BM25Index, tokenize
 from nornicdb_tpu_torch.search.cagra import CagraIndex
@@ -73,6 +80,11 @@ from nornicdb_tpu_torch.storage.types import Engine, Node
 logger = logging.getLogger(__name__)
 
 TEXT_PROPERTIES = ("content", "title", "name", "description", "text", "summary")
+# which index the strategy machine routed each vector search to, and
+# which tier served each fused hybrid ride
+_STRATEGY_C = REGISTRY.counter(
+    "nornicdb_search_strategy_total",
+    "Vector search dispatches by chosen strategy", labels=("strategy",))
 MODES = ("hybrid", "vector", "text")
 # HNSW's query beam. At the reference's 64, recall@10 against exact
 # search falls under the 0.95 a statistical tier must hold on
@@ -162,6 +174,7 @@ class SearchService:
         reranker: Optional[Any] = None,
         persist_dir: Optional[str] = None,
         save_debounce_s: float = 5.0,
+        resource_name: Optional[str] = None,
     ):
         self.storage = storage
         self.embedder = embedder
@@ -180,14 +193,16 @@ class SearchService:
         self._result_cache = ResultCache(_copy_hit)
         # concurrent single vector queries ride one batched call of the
         # vector tier the strategy machine owns (the graph walk or B1)
-        self._microbatch = MicroBatcher(self._ann_search_batch)
+        self._microbatch = MicroBatcher(self._ann_search_batch,
+                                        surface="service:vector")
         # vector requests by route: tiered_route, cagra, hnsw, exact, brute
         self.vector_routes: Counter = Counter()
         # concurrent hybrid queries ride one fused dispatch; tokens and
         # fusion options ride as extras, and rows come back shaped
         self._fused: Optional[FusedHybrid] = None
         self._hybrid_batch = MicroBatcher(self._fused_hybrid_dispatch,
-                                          pass_extras=True)
+                                          pass_extras=True,
+                                          surface="service:hybrid")
         # index persistence: debounced saves, load on build
         self.persist_dir = persist_dir
         self.save_debounce_s = save_debounce_s
@@ -210,6 +225,13 @@ class SearchService:
         # the last load's seconds by part; after a resumed build, the
         # nodes it indexed again and the ids it removed
         self.load_stats: Dict[str, Any] = {}
+        # resource accounting (obs/resources.py, weakly held): the
+        # indexes' device and host bytes and freshness, the queues' depth
+        self.resource_name = resource_name or "service:neo4j"
+        register_resource("bm25", self.resource_name, self.bm25)
+        register_resource("brute", self.resource_name, self.vectors)
+        register_resource("queue", f"{self.resource_name}:vector", self._microbatch)
+        register_resource("queue", f"{self.resource_name}:hybrid", self._hybrid_batch)
 
     def _ann_search_batch(self, queries: np.ndarray, k: int):
         """The vector batcher's dispatch: the CAGRA walk once the cagra
@@ -260,6 +282,10 @@ class SearchService:
                 self.bm25, self.vectors, min_n=min_n,
                 build_inline=env_bool("HYBRID_INLINE_BUILD", False),
                 walk_min_n=walk_min_n)
+            register_resource("device_bm25", self.resource_name, f.lex)
+            if f.cagra is not None and f.cagra is not self.cagra:
+                # the tier's own graph (no cagra strategy profile)
+                register_resource("cagra", f"{self.resource_name}:hybrid_walk", f.cagra)
         if self.cagra is not None and f.cagra is not self.cagra:
             # the strategy machine built a graph over the same brute index:
             # one graph, one rebuild cadence, and the snapshot keeps serving
@@ -277,9 +303,23 @@ class SearchService:
         w = tuple(weights) if weights else (1.0, 1.0)
         if len(w) != 2:
             return None  # the host rrf_fuse takes other weight shapes
-        return self._hybrid_batch.search(
+        trio = self._hybrid_batch.search(
             qv, overfetch, extra={"tokens": tuple(tokenize(query)),
                                   "n_cand": overfetch, "w": w})
+        if trio is None:
+            return None
+        tier = trio.get("tier", "brute")
+        _STRATEGY_C.labels("hybrid_walk_fused" if tier == "walk" else "hybrid_fused").inc()
+        t = trio.get("times")
+        if t:
+            # the lexical and vector halves ran in one dispatch: split the
+            # trace at the decode boundary
+            attach_span("lexical.score", t["device_t0"] - t["plan_s"], t["device_t1"])
+            if tier == "walk":
+                attach_span("vector.walk", t["device_t0"], t["device_t1"],
+                            iters=t.get("walk_iters"), itopk=t.get("walk_itopk"))
+            attach_span("fuse", t["device_t1"], t["device_t1"] + t["decode_s"])
+        return trio
 
     def _clear_result_cache(self) -> None:
         self._result_cache.bump_generation()
@@ -506,6 +546,9 @@ class SearchService:
         with self._lock:
             self.bm25 = bm25
             self.vectors = vectors
+            # the resource gauges follow the restored structures
+            register_resource("bm25", self.resource_name, bm25)
+            register_resource("brute", self.resource_name, vectors)
             self.hnsw = hnsw
             self.cagra = None
             self._fused = None
@@ -596,6 +639,7 @@ class SearchService:
         if not idx.build():
             return
         self.cagra = idx
+        register_resource("cagra", self.resource_name, idx)
         self.stats.cagra_builds += 1
         self.stats.strategy = "cagra"
 
@@ -663,18 +707,22 @@ class SearchService:
             hnsw, cagra = self.hnsw, self.cagra
         q = np.asarray([query_vec], dtype=np.float32)
         if exact:
-            self.vector_routes["exact"] += 1
+            self._route("exact")
             return self.vectors.search_batch(q, k, exact=True)[0]
         if lexical_doc_ids:
             out = self.vectors._tiered_search_batch(q, k, lex_hints=[list(lexical_doc_ids)])
             if out is not None:
-                self.vector_routes["tiered_route"] += 1
+                self._route("tiered_route")
                 return out[0]
         if cagra is None and hnsw is not None:
-            self.vector_routes["hnsw"] += 1
+            self._route("hnsw")
             return hnsw.search(query_vec, k)
-        self.vector_routes["cagra" if cagra is not None else "brute"] += 1
+        self._route("cagra" if cagra is not None else "brute")
         return self._microbatch.search(query_vec, k)
+
+    def _route(self, route: str) -> None:
+        self.vector_routes[route] += 1
+        _STRATEGY_C.labels(route).inc()
 
     def search(
         self,
@@ -736,7 +784,9 @@ class SearchService:
                 t0 = time.perf_counter()
         else:
             if mode in ("hybrid", "text") and query:
+                t_lex = time.time()
                 bm25_hits = self.bm25.search(query, overfetch)
+                attach_span("lexical.score", t_lex, time.time())
             if diag:
                 timings["bm25_ms"] = (time.perf_counter() - t0) * 1e3
                 t0 = time.perf_counter()
@@ -749,9 +799,13 @@ class SearchService:
 
         if bm25_hits and vec_hits:
             # the trio's device fuse is bitwise the host rrf_fuse
-            fused = trio["fused"] if trio is not None else rrf_fuse(
-                [bm25_hits, vec_hits],
-                weights=list(weights) if weights else (), limit=overfetch)
+            if trio is not None:
+                fused = trio["fused"]
+            else:
+                t_fuse = time.time()
+                fused = rrf_fuse([bm25_hits, vec_hits],
+                                 weights=list(weights) if weights else (), limit=overfetch)
+                attach_span("fuse", t_fuse, time.time())
         elif bm25_hits:
             fused = bm25_hits[:overfetch]
         else:
@@ -760,6 +814,7 @@ class SearchService:
             timings["fuse_ms"] = (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
 
+        t_rerank = time.time()
         bm = dict(bm25_hits)
         vs = dict(vec_hits)
         out: List[Dict[str, Any]] = []
@@ -794,6 +849,7 @@ class SearchService:
                 raise  # a device fault fails the search (ROADMAP C29)
             except Exception:
                 out = out[:limit]  # fail-open, as the reference
+        attach_span("rerank", t_rerank, time.time(), reranker=self.reranker is not None)
         if diag:
             # enrichment and, with a reranker, the rerank
             timings["enrich_rerank_ms"] = (time.perf_counter() - t0) * 1e3

@@ -35,7 +35,9 @@ index, created at first use with every ``NORNICDB_QUANT_*`` and
 a batch a plane answers never uploads it. The planes' exact rerank reads
 ``rows_for_slots`` and ``delta_vectors``; the quantized fused tier reads
 ``ids_meta``. Unlike the reference, an error in a plane propagates
-(ROADMAP C23).
+(ROADMAP C23). The float32 tier prices each batch (``obs/cost.py``,
+``price_brute``), and ``resource_stats`` reports the device pair's bytes
+and the changelog's depth to ``obs/resources.py``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import torch
 
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device
 from nornicdb_tpu_torch.config import env_bool, env_float, env_int, env_str
+from nornicdb_tpu_torch.obs import cost as _cost
 from nornicdb_tpu_torch.ops.similarity import l2_normalize, pad_dim
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
 from nornicdb_tpu_torch.search.device_quant import (
@@ -205,6 +208,38 @@ class BruteForceIndex:
         """The changelog's length cap, well above a derived index's
         rebuild threshold (10% of the corpus)."""
         return max(4096, self._capacity // 4)
+
+    def resource_stats(self) -> Dict[str, float]:
+        """Memory and freshness accounting for obs/resources.py: the
+        device pair's bytes, the host mirror's, tombstone pressure, the
+        changelog's depth against its cap, and the planes' keys. One
+        short lock hold."""
+        with self._lock:
+            dims = self.dims or 0
+            dev_b = 0
+            if self._dev_matrix is not None:
+                dev_b = (self._dev_matrix.numel() * self._dev_matrix.element_size()
+                         + self._dev_valid.numel() * self._dev_valid.element_size())
+            used = max(self._count, 1)
+            quant = self._quant
+            tiered = self._tiered
+            stats = {
+                "rows": self._n_alive,
+                "capacity": self._capacity,
+                "device_bytes": dev_b,
+                # host mirror + the ext-id slot table (pointer-sized slots)
+                "host_bytes": self._capacity * dims * 4 + self._capacity
+                + 8 * len(self._ext_ids),
+                "dead_fraction": round((self._count - self._n_alive) / used, 6),
+                "changelog_depth": len(self._changelog),
+                "changelog_cap": self.changelog_cap(),
+                "mutations": self.mutations,
+            }
+        if quant is not None:
+            stats.update(quant.resource_stats_extra())
+        if tiered is not None:
+            stats.update(tiered.resource_stats_extra())
+        return stats
 
     def changed_since(self, seq: int) -> Optional[List[str]]:
         """Ids added or updated after mutation ``seq``, latest first and
@@ -579,6 +614,12 @@ class BruteForceIndex:
             if self._n_alive == 0:
                 return [[] for _ in range(len(queries))]
             k_eff = min(k, self._n_alive)
+            # the scan's price from its shapes: B queries against the
+            # capacity-padded [C, D] matrix, host or device alike
+            if _cost.pricing_enabled():
+                flops, byts = _cost.price_brute(len(queries), self._capacity, self.dims or 1)
+                _cost.record_query_cost("brute", _cost.cost_name(self), len(queries),
+                                        flops, byts)
             if self._host_served_locked():
                 return self._search_host(
                     np.asarray(queries, np.float32), self._matrix,

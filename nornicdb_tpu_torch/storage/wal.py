@@ -7,8 +7,10 @@ little-endian; the payload is the record codec's msgpack
 (``storage/codec.py``). A torn or corrupt tail record truncates the
 newest segment at the last valid record instead of failing recovery;
 corruption in an older segment stops its replay there and reports it
-(``degraded``). The reference's latency histograms are plain counters
-here (``counters``: appends and fsyncs, with their seconds). A record
+(``degraded``). Appends and fsyncs are observed in the reference's
+latency histograms (``nornicdb_wal_append_seconds``,
+``nornicdb_wal_fsync_seconds``) and counted in ``counters``, with their
+seconds. A record
 encrypted at rest (the ``NKE1`` magic) raises ``EncryptedStoreError``:
 at-rest encryption is not ported.
 """
@@ -24,6 +26,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from nornicdb_tpu_torch.errors import EncryptedStoreError, NotPortedError
+from nornicdb_tpu_torch.obs import REGISTRY
 from nornicdb_tpu_torch.storage.codec import pack as _pack
 from nornicdb_tpu_torch.storage.codec import unpack as _unpack
 
@@ -31,6 +34,13 @@ from nornicdb_tpu_torch.storage.codec import unpack as _unpack
 class WALCorruptionError(Exception):
     """Snapshot files exist but none is readable."""
 
+
+_APPEND_H = REGISTRY.histogram(
+    "nornicdb_wal_append_seconds",
+    "WAL record append latency (encode + write [+ fsync when "
+    "sync_every_write])")
+_FSYNC_H = REGISTRY.histogram(
+    "nornicdb_wal_fsync_seconds", "WAL fsync latency")
 
 _HEADER = struct.Struct("<II")  # payload_len, crc32
 SEGMENT_PREFIX = "wal-"
@@ -164,13 +174,16 @@ class WAL:
             seq = self._seq
             self.counters["appends"] += 1
             self.counters["append_s"] += time.perf_counter() - t0
+        _APPEND_H.observe(time.perf_counter() - t0)
         return seq
 
     def _fsync_locked(self) -> None:
         ts = time.perf_counter()
         os.fsync(self._fh.fileno())
+        dt = time.perf_counter() - ts
         self.counters["fsyncs"] += 1
-        self.counters["fsync_s"] += time.perf_counter() - ts
+        self.counters["fsync_s"] += dt
+        _FSYNC_H.observe(dt)
 
     def _ensure_segment_locked(self, incoming: int) -> None:
         if self._fh is not None and self._fh_size + incoming <= self.max_segment_bytes:

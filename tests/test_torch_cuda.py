@@ -686,3 +686,91 @@ def test_similar_on_the_card_matches_the_cpu(dev, n):
                           [[h["id"] for h in want]], [[h["score"] for h in want]], SCORE_ATOL)
     if n < 10_000:
         assert fused_cosine_topk.launches > before
+
+
+# ---------------------------------------------------------------------------
+# the observability core's device seams (obs/device.py, ROADMAP C30)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def obs_device(monkeypatch):
+    from nornicdb_tpu_torch.obs import device as obs_dev
+    from nornicdb_tpu_torch.obs import resources
+
+    monkeypatch.setenv("NORNICDB_DEVICE_TIMING_SAMPLE", "1")
+    monkeypatch.setattr(resources, "_objects", {})
+    obs_dev.reload()
+    obs_dev.reset()
+    obs_dev.set_backend_probe(None)
+    yield obs_dev
+    obs_dev.reset()
+    obs_dev.reload()
+
+
+def test_obs_backend_bytes_is_the_allocators_count(dev, obs_device):
+    from nornicdb_tpu_torch.obs import resources
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    rng = np.random.default_rng(3)
+    idx = BruteForceIndex(device=dev)
+    idx.add_batch([(f"v{i}", rng.standard_normal(64).astype(np.float32))
+                   for i in range(20000)])
+    idx.search_batch(rng.standard_normal((1, 64)).astype(np.float32), 5)
+    resources.register("brute", "cuda-ledger", idx)
+    torch.cuda.synchronize(dev)
+    assert obs_device.ledger_device() == dev
+    assert obs_device.backend_bytes() == float(torch.cuda.memory_allocated(dev))
+    rec = obs_device.reconcile()
+    assert rec["backend_bytes"] == torch.cuda.memory_allocated(dev)
+    assert rec["ledger_bytes"] == idx.resource_stats()["device_bytes"] > 0
+    assert rec["drift_bytes"] == rec["backend_bytes"] - rec["ledger_bytes"]
+
+
+def test_obs_sampled_maybe_sync_waits_for_the_results_stream(dev, obs_device):
+    x = torch.ones(1024, device=dev)
+    torch.cuda.synchronize(dev)
+    done = torch.cuda.Event()
+    torch.cuda._sleep(400_000_000)  # ~0.2 s of device time on the current stream
+    y = x * 2
+    done.record()
+    assert not done.query()  # still running: the check below can tell
+    assert obs_device.maybe_sync({"rows": [y], "n": 1}) is True
+    assert done.query()
+
+
+_FAULT_PROBE = """
+import numpy as np, torch
+from nornicdb_tpu_torch.search.microbatch import MicroBatcher
+dev = torch.device("cuda")
+table = torch.zeros(8, device=dev)
+
+def dispatch(queries, k):
+    bad = torch.full((len(queries),), 10**6, dtype=torch.int64, device=dev)
+    return [table.index_select(0, bad)]  # out of bounds: a device-side fault
+
+mb = MicroBatcher(dispatch, surface="cuda-fault")
+try:
+    mb.search(np.ones(4, np.float32), 1)
+except Exception as exc:  # the fault must reach the caller
+    print("RAISED", type(exc).__name__, str(exc).splitlines()[0])
+else:
+    print("SWALLOWED")
+"""
+
+
+def test_obs_a_cuda_fault_in_a_bracketed_dispatch_propagates(dev):
+    """The fault is asynchronous: it surfaces at the sampled sync inside
+    the MicroBatcher's dispatch bracket, and reaches the caller. Run in a
+    subprocess: a device-side fault poisons its CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, NORNICDB_DEVICE_TIMING_SAMPLE="1")
+    out = subprocess.run([sys.executable, "-c", _FAULT_PROBE], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=300)
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else out.stderr[-2000:]
+    assert last.startswith("RAISED"), last
+    assert "CUDA" in last or "device-side" in last, last

@@ -59,7 +59,9 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
                  "query.device_graph", "ops.graph", "search.microbatch",
                  "query.apoc", "query.apoc_bulk", "query.apoc_ext", "query.apoc_graph",
                  "query.apoc_algo", "query.apoc_admin", "query.apoc_io", "query.strict",
-                 "query.strict_grammar", "storage.schema", "search.rerank"):
+                 "query.strict_grammar", "storage.schema", "search.rerank",
+                 "obs", "obs.metrics", "obs.tracing", "obs.events", "obs.tenant",
+                 "obs.stages", "obs.dispatch", "obs.resources", "obs.cost", "obs.device"):
         assert "nornicdb_tpu_torch." + name in result["imported"]
     assert result["bad"] == []
 
@@ -79,6 +81,40 @@ def test_port_sources_import_nothing_of_jax(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "nornicdb_tpu",
                                "msgpack", "cryptography"), (path, name)
+
+
+_OBS_PROBE = """
+import json, sys
+import nornicdb_tpu_torch.obs as obs
+obs.REGISTRY.render()
+obs.device_summary()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "nornicdb_tpu"))
+print(json.dumps({"bad": bad, "n": len(obs.__all__)}))
+"""
+
+
+def test_obs_alone_loads_no_jax_in_a_fresh_process():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _OBS_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == [] and result["n"] > 0
+
+
+def test_only_obs_device_imports_torch():
+    importers = set()
+    for path in _sources():
+        if os.sep + "obs" + os.sep not in path:
+            continue
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(n.split(".")[0] == "torch" for n in names):
+                importers.add(os.path.basename(path))
+    assert importers == {"device.py"}
 
 
 def _apoc_pagerank(ex):
