@@ -21,7 +21,7 @@ Phases, in order; any failure exits non-zero:
    k in {9, 16}; two calls
    bitwise equal at B in {1, 4, 8, 64, 256}), and flash attention (B2) against the materializing softmax,
    in f32 and in bf16: S in {1, 16, 33, 64, 100, 128, 512} x (H, Dh) in
-   {(4, 16), (4, 40), (16, 64)} with one row fully masked, two calls
+   {(4, 16), (4, 40), (16, 64), (12, 32)} with one row fully masked, two calls
    bitwise equal at the ingest shape (and in f32 at 8, 512, 16, 64), and
    an f32 query whose base is not 16-byte aligned.
 4. Main path through the public entry points: ``open(device="cuda")`` with
@@ -317,6 +317,41 @@ Phases, in order; any failure exits non-zero:
    ``DB.cypher`` on (b)'s graph: rows equal to the module calls they
    wrap. The launches of (b) and (c), without the checks' (the dry runs,
    ``exact=True``), are the kernels line's ``launches_memory``: B1 only.
+10. Heimdall and the training and import paths (``heimdall (a)``-``(e)``
+   lines), each part held against the port's CPU run. (a) The committed
+   tiny checkpoint behind a ``Manager`` on the card: ``generate`` on the
+   five first ``DEFAULT_CORPUS`` lines and their first halves, ``chat``
+   and ``generate_stream``, greedy: text equal to a CPU ``Manager``'s,
+   streams equal to the text, one Bifrost ``generation`` event each; the
+   tool loop (``generate_with_tools`` over scripted ``EchoGenerator``
+   replies) against a stub MCP whose ``store``/``recall`` handlers are the
+   reference server's over a card DB: two stores, then a recall that
+   finds the first (three ``tool_call`` events); a hybrid recall with
+   ``LLMReranker`` over the card's slm (its reply is no id list, so the
+   order stays the plain recall's) and over a scripted model (the order
+   it names). (b) The default ``DecoderConfig()`` (d 256, 4 heads, 4
+   layers, d_ff 1024, max_seq 512) from ``init_params(seed)``: prefill
+   logits card vs CPU within ``BF16_LOGIT_RTOL`` of the largest, 256
+   greedy tokens (ms a token by CUDA events, kernels a step by the
+   profiler), tokens equal to the CPU's up to the first near tie, and
+   ``param_bytes`` against the ``memory_allocated`` delta (512 B a
+   tensor). (c) A LLaMA-class decoder at TinyLlama-1.1B's published
+   widths from a seeded synthetic state dict through
+   ``import_hf_decoder_params``: a 16-token prefill card vs CPU in f32
+   (``F32_LOGIT_RTOL``), then 16 greedy ids (one prefill per token, as the
+   reference generates), ms a token. (d) ``heimdall.train.train`` for 50
+   steps on ``DEFAULT_CORPUS`` (first loss within ``HEIMDALL_LOSS_ATOL`` of
+   the CPU's, the loss falls) and ``train_mini`` at batch 128, seq 64 for
+   20 steps (first loss within ``MINI_LOSS_RTOL`` of the CPU's); the
+   trained encoder embeds 32 texts through ``TorchEncoderEmbedder`` (B2's
+   counter grows; cosine to the CPU's >= ``EMBED_F32_COS_MIN``), and
+   ``save_params`` and ``save_checkpoint`` round-trip. (e) The HF encoder
+   at bge-m3's published widths (XLM-R large, CLS pooling) from a seeded
+   synthetic state dict: pooled embeddings card vs CPU at B 2, S 64
+   within ``F32_EMBED_ATOL``, ms a forward at B 16, S 512.
+   ``HEIMDALL_PHASE_S`` joins the late rule; a late run decodes 64 tokens
+   in (b) and 4 in (c), and trains 20 and 5 steps in (d). Its launches
+   are the kernels line's ``launches_heimdall``.
 
 Timing uses CUDA events over back-to-back calls, and ``torch.profiler``
 for the device time of each kernel per call: B1 by stage and its library
@@ -432,12 +467,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def run_is_late(extra_s: float = 0.0) -> bool:
+def run_is_late(extra_s: float = 0.0, upcoming_s: float = None) -> bool:
     """The late rule: whether the run so far, ``extra_s`` more and the
-    budgets of phases 7-9 would pass ``RUN_LIMIT_S``. A late phase
-    shortens its timing, never its checks."""
-    return (time.perf_counter() - T_START + extra_s + CYPHER_PHASE_S + GRAPH_PLANE_S
-            + APOC_PHASE_S + QUANT_PHASE_S + MEMORY_PHASE_S > RUN_LIMIT_S)
+    budgets of the phases still to come (``upcoming_s``; by default those
+    of phases 7-10) would pass ``RUN_LIMIT_S``. A late phase shortens its
+    timing, never its checks."""
+    if upcoming_s is None:
+        upcoming_s = (CYPHER_PHASE_S + GRAPH_PLANE_S + APOC_PHASE_S + QUANT_PHASE_S
+                      + MEMORY_PHASE_S + HEIMDALL_PHASE_S)
+    return time.perf_counter() - T_START + extra_s + upcoming_s > RUN_LIMIT_S
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -536,10 +574,14 @@ INDEX_TIMED = ((1, 10), (4, 10), (8, 10), (64, 10), (256, 10), (64, 128))
 
 # B2's timed shapes (B, S, H, Dh), each in both types: ingest through the
 # mini encoder, one query embedded on the search path, the mini encoder at
-# its max_len (the long-document bucket), and bge-m3-like heads (the most
-# work per launch). bf16 is the main path's type; f32 serves exact
+# its max_len (the long-document bucket), bge-m3-like heads (the most
+# work per launch), and ingest through MiniLM / bge-small heads (Dh 32). bf16 is the main path's type; f32 serves exact
 # embeddings, and is bound by its FMAs from S = 80.
-ATTN_SHAPES = ((16, 64, 4, 40), (1, 16, 4, 40), (16, 512, 4, 40), (8, 512, 16, 64))
+ATTN_SHAPES = ((16, 64, 4, 40), (1, 16, 4, 40), (16, 512, 4, 40), (8, 512, 16, 64),
+               (16, 64, 12, 32))
+# (H, Dh) of phase 3's checks: the tiny encoder, the mini encoder, bge-m3-like
+# heads, and MiniLM / bge-small heads (384 wide, 12 heads)
+ATTN_HEADS = ((4, 16), (4, 40), (16, 64), (12, 32))
 ATTN_TIMED = tuple((shape, dtype) for dtype in ("bfloat16", "float32")
                    for shape in ATTN_SHAPES)
 
@@ -742,7 +784,7 @@ def phase_kernels(dev, seed):
     for dtype, atol in ((torch.float32, ATTN_F32_ATOL), (torch.bfloat16, ATTN_BF16_ATOL)):
         e = errs[dtype] = [check_attention(dev, rng, 16, 64, 4, 40, dtype, atol,
                                            twice=True)]  # the ingest shape
-        for h, dh in ((4, 16), (4, 40), (16, 64)):
+        for h, dh in ATTN_HEADS:
             for s in (1, 16, 33, 64, 100, 128, 512):
                 e.append(check_attention(dev, rng, 8, s, h, dh, dtype, atol,
                                          fully_masked=True))
@@ -5454,6 +5496,600 @@ def phase_memory(dev, seed, card, n_nodes=MEMORY_NODES, n_seeds=MEMORY_SEEDS,
     return path
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+HEIMDALL_PHASE_S = 90.0  # phase 10's budget in the late rule
+HEIMDALL_DECODE = 256  # (b)'s greedy tokens after the prefill; 64 in a late run
+LLAMA_TOKENS = 16  # (c)'s prompt length and generated tokens; 4 generated in a late run
+HEIMDALL_TRAIN_STEPS = 50  # (d)'s train() steps; 20 in a late run
+MINI_TRAIN_STEPS = 20  # (d)'s train_mini steps; 5 in a late run
+HF_TIMED = (16, 512)  # (e)'s timed batch and width
+# bf16 forwards of one model on the card and on the CPU: each rounding to
+# bf16 keeps 8 bits and the float sums run in another order, so logits
+# drift by a few roundings of their largest value (the port against the
+# JAX package on the CPU: 0.125 on the tiny checkpoint's scale of ~12.8)
+BF16_LOGIT_RTOL = 0.03
+# float32 forwards (TF32 off): sums in another order only
+F32_LOGIT_RTOL = 1e-4
+F32_EMBED_ATOL = 1e-4
+# the first step's loss, bf16 forward (Heimdall) and float32 (the encoder)
+HEIMDALL_LOSS_ATOL = 5e-3
+MINI_LOSS_RTOL = 1e-4
+TINYLLAMA = dict(vocab_size=32_000, hidden_size=2048, num_hidden_layers=22,
+                 num_attention_heads=32, num_key_value_heads=4, intermediate_size=5632,
+                 max_position_embeddings=2048, rope_theta=10_000.0, rms_norm_eps=1e-5,
+                 tie_word_embeddings=False)  # TinyLlama-1.1B's published config.json
+BGE_M3 = dict(model_type="xlm-roberta", vocab_size=250_002, hidden_size=1024,
+              num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096,
+              max_position_embeddings=8194, type_vocab_size=1, layer_norm_eps=1e-5,
+              pad_token_id=1)  # bge-m3's (XLM-R large) published config.json
+
+
+class StubMcp:
+    """The MCP tool surface ``ToolLoop`` drives (``_tools``/``_handlers``)
+    with the reference server's ``store`` and ``recall`` handlers
+    (``nornicdb_tpu/api/mcp.py``) over a port DB; the MCP server itself is
+    not ported yet."""
+
+    def __init__(self, db):
+        self.db = db
+        self._tools = {"store": {"name": "store"}, "recall": {"name": "recall"}}
+        self._handlers = {"store": self._store, "recall": self._recall}
+
+    def _store(self, args):
+        node = self.db.store(args.get("content", ""), labels=args.get("labels"),
+                             properties=args.get("properties"), node_id=args.get("node_id"))
+        return {"id": node.id, "labels": node.labels}
+
+    def _recall(self, args):
+        hits = self.db.recall(args.get("query", ""), limit=int(args.get("limit", 10)))
+        return [{"id": h.get("id"), "score": h.get("score")} for h in hits]
+
+
+def logits_close(card, cpu, rtol, what):
+    """max |card - cpu| within ``rtol`` of the largest |cpu| logit (plus
+    1e-5); returns the max abs difference."""
+    card, cpu = (np.asarray(x, np.float64) for x in (card, cpu))
+    if card.shape != cpu.shape or not np.isfinite(card).all():
+        raise AssertionError(f"{what}: bad card output {card.shape} against {cpu.shape}")
+    err = float(np.abs(card - cpu).max())
+    bound = rtol * float(np.abs(cpu).max()) + 1e-5
+    if err > bound:
+        raise AssertionError(f"{what}: card and CPU differ by {err:.4g} > {bound:.4g}")
+    return err
+
+
+def agreeing_prefix(card_ids, cpu_ids, margins, tol):
+    """Tokens equal from the start up to the first step whose CPU top-2
+    margin is within ``tol`` (a near tie either side may break); raises
+    on an earlier difference. Returns the length compared."""
+    n = 0
+    for a, b, m in zip(card_ids, cpu_ids, margins):
+        if m <= tol:
+            break
+        if a != b:
+            raise AssertionError(f"token {n} differs (card {a}, CPU {b}) at margin {m:.4g}")
+        n += 1
+    return n
+
+
+def greedy_divergence(card_m, cpu_m, prompt, max_tokens, rtol=BF16_LOGIT_RTOL):
+    """Greedy tokens of one prompt from two ``DecoderModel``s holding the
+    same weights (card and CPU): None where they are equal, else (step,
+    CPU top-2 margin, the card's logit drift there) of the first
+    difference, which must be a near tie: the two logits can trade places
+    only if each moves by half the margin, so the margin must lie within
+    twice ``rtol`` of the step's largest |logit| (raises otherwise). The
+    drift is the largest |card - CPU| logit at that step, both forwards
+    teacher-forced on the CPU's tokens."""
+    import torch
+
+    from nornicdb_tpu_torch.heimdall import model as hm
+
+    cfg = cpu_m.cfg
+    ids = hm.encode_bytes(prompt, cfg.max_seq)
+    length = len(ids)
+    n = min(max_tokens, cfg.max_seq - length)
+    if n <= 0:
+        return None
+    padded = np.full(cfg.max_seq, hm.PAD, np.int64)
+    padded[:length] = ids
+    tokens = torch.from_numpy(padded)
+    a = hm.generate_tokens(cfg, card_m.params, tokens.to(card_m.device), length, n)
+    b = hm.generate_tokens(cfg, cpu_m.params, tokens, length, n)
+    if torch.equal(a, b):
+        return None
+    i = int((a != b).nonzero()[0])
+    fill = padded.copy()
+    fill[length:length + i] = b[:i].numpy()
+    valid = torch.arange(cfg.max_seq) < length + i
+    with torch.no_grad():
+        logits, _ = hm.forward_full(cfg, cpu_m.params, torch.from_numpy(fill), valid)
+        card_logits, _ = hm.forward_full(cfg, card_m.params,
+                                         torch.from_numpy(fill).to(card_m.device),
+                                         valid.to(card_m.device))
+    row = logits[length - 1 + i].clone()
+    drift = float((card_logits[length - 1 + i].cpu() - row).abs().max())
+    row[hm.PAD] = -1e30
+    top2 = torch.topk(row, 2).values
+    margin = float(top2[0] - top2[1])
+    if margin > 2 * rtol * float(row[row > -1e29].abs().max()):
+        raise AssertionError(f"greedy tokens of {prompt!r} differ at step {i} (card "
+                             f"{int(a[i])}, CPU {int(b[i])}) where the CPU's margin is {margin}")
+    return i, margin, drift
+
+
+def cuda_ms(fn):
+    """(result, milliseconds) of one call, by CUDA events."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def heimdall_serving(dev, card, texts):
+    """(a): the committed checkpoint behind the card's Manager against the
+    CPU's; the tool loop on a card DB; a reranked recall through the
+    card's Manager."""
+    import nornicdb_tpu_torch
+    from nornicdb_tpu_torch.heimdall import Bifrost, Manager, ModelSpec
+    from nornicdb_tpu_torch.heimdall.generators import render_chat
+    from nornicdb_tpu_torch.heimdall.train import DEFAULT_CORPUS
+    from nornicdb_tpu_torch.search.rerank import LLMReranker
+
+    out = {}
+    bif = Bifrost()
+    sub = bif.subscribe()
+    mgr, cpu = Manager(), Manager()
+    mgr.bifrost = bif
+    mgr.register(ModelSpec(name="slm", backend="torch", options={"device": dev}))
+    cpu.register(ModelSpec(name="slm", backend="torch", options={"device": "cpu"}))
+    prompts = list(DEFAULT_CORPUS[:5]) + [" ".join(p.split()[: len(p.split()) // 2])
+                                          for p in DEFAULT_CORPUS[:5]]
+    t0 = time.perf_counter()
+    got = [mgr.generate(p, model="slm", max_tokens=64).text for p in prompts]
+    gen_s = time.perf_counter() - t0
+    want = [cpu.generate(p, model="slm", max_tokens=64).text for p in prompts]
+    if got != want:
+        raise AssertionError(f"heimdall (a): card text {got} differs from the CPU's {want}")
+    if not any(got[5:]):
+        raise AssertionError("heimdall (a): every half-prompt completion is empty")
+    # chat transcripts are far from the training corpus, so the greedy
+    # path may meet a near tie where bf16 on the card and on the CPU part
+    chats = [[{"role": "user", "content": p}] for p in prompts]
+    card_m, cpu_m = mgr.load("slm").model, cpu.load("slm").model
+    ties = []
+    for c in chats:
+        a, b = mgr.chat(c, model="slm").text, cpu.chat(c, model="slm").text
+        if a != b:
+            ties.append(greedy_divergence(card_m, cpu_m, render_chat(c), 256))
+            if ties[-1] is None:
+                raise AssertionError(f"heimdall (a): chat text {a!r} against {b!r} from "
+                                     "equal tokens")
+    for p, text in zip(prompts[5:], got[5:]):
+        streamed = "".join(mgr.generate_stream(p, model="slm", max_tokens=64))
+        if streamed != text:
+            raise AssertionError(f"heimdall (a): the stream {streamed!r} is not {text!r}")
+    events = [m["event"] for m in bif.events(sub, timeout=0.05)]
+    if events.count("generation") != len(prompts) + len(chats):
+        raise AssertionError(f"heimdall (a): {events.count('generation')} generation events")
+    out["serving"] = {"prompts": len(prompts), "chars": sum(map(len, got)),
+                      "generate_s": gen_s, "param_bytes": mgr.models()[0].memory_bytes,
+                      "chats": len(chats), "chat_near_ties": ties}
+
+    db = nornicdb_tpu_torch.open(device=dev)
+    try:
+        mcp = StubMcp(db)
+        mgr.register(ModelSpec(name="tools", backend="echo", options={"replies": [
+            'TOOL {"tool": "store", "args": {"content": "%s", "node_id": "h1"}}' % texts[0],
+            'TOOL {"tool": "store", "args": {"content": "%s", "node_id": "h2"}}' % texts[1],
+            "stored both"]}))
+        res = mgr.generate_with_tools("remember two notes", mcp, model="tools")
+        if res.text != "stored both" or [c["tool"] for c in res.tool_calls] != ["store"] * 2 \
+                or not (db.storage.has_node("h1") and db.storage.has_node("h2")):
+            raise AssertionError(f"heimdall (a): the store loop gave {res}")
+        db.flush()
+        mgr.register(ModelSpec(name="tools2", backend="echo", options={"replies": [
+            'TOOL {"tool": "recall", "args": {"query": "%s", "limit": 2}}' % texts[0],
+            "found it"]}))
+        res2 = mgr.generate_with_tools("what did I store?", mcp, model="tools2")
+        recalled = [h["id"] for h in res2.tool_calls[0]["result"]]
+        if res2.text != "found it" or not recalled or recalled[0] != "h1":
+            raise AssertionError(f"heimdall (a): the recall loop gave {res2}")
+        events = [m["event"] for m in bif.events(sub, timeout=0.05)]
+        if events.count("tool_call") != 3:
+            raise AssertionError(f"heimdall (a): {events.count('tool_call')} tool_call events")
+        for i, text in enumerate(texts[2:8]):
+            db.store(text, node_id=f"h{i + 3}")
+        db.flush()
+        svc = db.search
+        query = texts[2]
+        plain = [h["id"] for h in db.recall(query, limit=5)]
+        svc._clear_result_cache()
+        svc.reranker = LLMReranker(mgr, model="slm")
+        try:
+            failed_open = [h["id"] for h in db.recall(query, limit=5)]
+            mgr.register(ModelSpec(name="ranker", backend="echo",
+                                   options={"replies": [json.dumps(plain[::-1])]}))
+            svc.reranker = LLMReranker(mgr, model="ranker")
+            svc._clear_result_cache()
+            reordered = [h["id"] for h in db.recall(query, limit=5)]
+        finally:
+            svc.reranker = None
+        if failed_open != plain or reordered != plain[::-1]:
+            raise AssertionError(f"heimdall (a): reranked recalls {failed_open}, {reordered} "
+                                 f"against {plain}")
+        events = [m["event"] for m in bif.events(sub, timeout=0.05)]
+        if events.count("generation") != 2:
+            raise AssertionError(f"heimdall (a): the reranker made {events.count('generation')} "
+                                 "generations, not 2")
+    finally:
+        db.close()
+    out["tools"] = {"calls": 3, "recalled": recalled, "rerank_plain": plain}
+    log(f"heimdall (a): {len(prompts)} prompts through the card's Manager equal the CPU's "
+        f"({out['serving']['chars']} chars, {gen_s:.3f} s), {len(chats) - len(ties)} of "
+        f"{len(chats)} chats equal, {len(ties)} parting at a near tie (step, CPU margin, drift) "
+        f"{ties}; streams equal, {len(prompts) + len(chats)} generation events; the tool "
+        f"loop stored 2 and recalled {recalled} on a card DB (3 tool_call events); the slm "
+        f"reranker failed open to the plain order, a scripted one reversed it ({card})")
+    return out
+
+
+def heimdall_default_decoder(dev, card, seed, n_decode):
+    """(b): the default DecoderConfig at its max_seq, random weights."""
+    import torch
+
+    from nornicdb_tpu_torch.heimdall import model as hm
+
+    cfg = hm.DecoderConfig()
+    before = device_memory()
+    m = hm.DecoderModel(cfg, seed=seed, device=dev)
+    delta = device_memory() - before
+    n_tensors = len(hm.leaves(m.params))
+    if abs(delta - m.param_bytes()) > 512 * n_tensors:
+        raise AssertionError(f"heimdall (b): param_bytes {m.param_bytes()} against the "
+                             f"memory_allocated delta {delta}")
+    cpu_params = hm.params_to_device(hm.init_params_numpy(cfg, seed), torch.device("cpu"))
+    prompt = hm.encode_bytes("heimdall watches the graph and answers questions.", cfg.max_seq)
+    length = len(prompt)
+    padded = np.full(cfg.max_seq, hm.PAD, np.int64)
+    padded[:length] = prompt
+    tok_card, tok_cpu = torch.from_numpy(padded).to(dev), torch.from_numpy(padded)
+    with torch.no_grad():
+        l_card, _ = hm.forward_full(cfg, m.params, tok_card,
+                                    torch.arange(cfg.max_seq, device=dev) < length)
+        l_cpu, _ = hm.forward_full(cfg, cpu_params, tok_cpu, torch.arange(cfg.max_seq) < length)
+    err = logits_close(l_card[:length].cpu(), l_cpu[:length], BF16_LOGIT_RTOL,
+                       "heimdall (b) prefill logits")
+    hm.generate_tokens(cfg, m.params, tok_card, length, 4)  # warm-up
+    toks, ms = cuda_ms(lambda: hm.generate_tokens(cfg, m.params, tok_card, length, n_decode))
+    steps = int(np.argmax(toks.numpy() == hm.EOS)) + 1 if (toks == hm.EOS).any() else n_decode
+    cpu_toks = hm.generate_tokens(cfg, cpu_params, tok_cpu, length, n_decode)
+    # the CPU's margins along its own greedy path, teacher-forced
+    seq = np.concatenate([prompt, cpu_toks.numpy()])[: cfg.max_seq]
+    fill = np.full(cfg.max_seq, hm.PAD, np.int64)
+    fill[: len(seq)] = seq
+    with torch.no_grad():
+        l_seq, _ = hm.forward_full(cfg, cpu_params, torch.from_numpy(fill),
+                                   torch.arange(cfg.max_seq) < len(seq))
+    lg = l_seq[length - 1: length - 1 + n_decode].clone()
+    lg[:, hm.PAD] = -1e30
+    top2 = torch.topk(lg, 2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    tol = 2 * BF16_LOGIT_RTOL * float(l_cpu[:length].abs().max())
+    agree = agreeing_prefix(toks.tolist(), cpu_toks.tolist(), margins, tol)
+    per_call = []
+    for n in (1, 9):  # kernels of 8 decode steps: 9 tokens less 1 (the prefill's share)
+        counts = {}
+        device_split(lambda: hm.generate_tokens(cfg, m.params, tok_card, length, n), iters=2,
+                     expect="", launches=counts)
+        per_call.append(sum(counts.values()))
+    kernels_per_step = (per_call[1] - per_call[0]) / 8
+    out = {"cfg": cfg.__dict__, "prefill_max_abs_err": err, "decode_steps": steps,
+           "ms_per_token": ms / steps, "kernels_per_step": kernels_per_step,
+           "param_bytes": m.param_bytes(), "memory_allocated_delta": delta,
+           "tokens_agreeing": agree}
+    log(f"heimdall (b) default decoder (d 256, 4 heads, 4 layers, d_ff 1024, max_seq 512), "
+        f"init_params({seed}): prefill logits card vs CPU max abs {err:.4g} (bound "
+        f"{BF16_LOGIT_RTOL} of the largest); {steps} greedy tokens at {ms / steps:.4f} ms a "
+        f"token (CUDA events), ~{kernels_per_step:.1f} kernels a step (profiler), 0 B1/B2; "
+        f"first {agree} tokens equal the CPU's before a near tie; param_bytes "
+        f"{m.param_bytes()} against the memory_allocated delta {delta} ({card})")
+    return out
+
+
+def synthetic_llama(dev, cfg, seed):
+    """A seeded LLaMA-class state dict at ``cfg``'s widths (numpy, HF names),
+    drawn on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, kv = cfg.hidden_size, cfg.num_kv_heads * (cfg.hidden_size // cfg.num_heads)
+
+    def w(*shape, base=0.0):
+        return (base + 0.02 * torch.randn(*shape, generator=g, device=dev)).cpu().numpy()
+
+    sd = {"model.embed_tokens.weight": w(cfg.vocab_size, h),
+          "model.norm.weight": w(h, base=1.0), "lm_head.weight": w(cfg.vocab_size, h)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "input_layernorm.weight": w(h, base=1.0),
+            p + "post_attention_layernorm.weight": w(h, base=1.0),
+            p + "self_attn.q_proj.weight": w(h, h), p + "self_attn.k_proj.weight": w(kv, h),
+            p + "self_attn.v_proj.weight": w(kv, h), p + "self_attn.o_proj.weight": w(h, h),
+            p + "mlp.gate_proj.weight": w(cfg.intermediate_size, h),
+            p + "mlp.up_proj.weight": w(cfg.intermediate_size, h),
+            p + "mlp.down_proj.weight": w(h, cfg.intermediate_size)})
+    return sd
+
+
+def heimdall_llama(dev, card, seed, n_new):
+    """(c): a LLaMA-class decoder at TinyLlama-1.1B's widths."""
+    import torch
+
+    from nornicdb_tpu_torch.heimdall import hf_import as hi
+
+    cfg = hi.HFDecoderConfig.from_hf_config(TINYLLAMA)
+    t0 = time.perf_counter()
+    sd = synthetic_llama(dev, cfg, seed)
+    p_card = hi.import_hf_decoder_params(sd, cfg, device=dev)
+    p_cpu = hi.import_hf_decoder_params(sd, cfg, device="cpu")
+    del sd
+    load_s = time.perf_counter() - t0
+    n_params = sum(int(x.numel()) for x in hi.tree_leaves(p_card))
+    ids = np.random.default_rng(seed).integers(3, cfg.vocab_size, LLAMA_TOKENS).tolist()
+    with torch.no_grad():
+        l_card = hi.forward(cfg, p_card, torch.tensor(ids, device=dev)).cpu()
+        l_cpu = hi.forward(cfg, p_cpu, torch.tensor(ids))
+    err = logits_close(l_card, l_cpu, F32_LOGIT_RTOL, "heimdall (c) prefill logits")
+    hi.generate_ids(cfg, p_card, ids, 1)  # warm-up
+    new, ms = cuda_ms(lambda: hi.generate_ids(cfg, p_card, ids, n_new))
+    cpu_new = hi.generate_ids(cfg, p_cpu, ids, n_new)
+    margins = []
+    with torch.no_grad():
+        lg = hi.forward(cfg, p_cpu, torch.tensor(ids + cpu_new))[len(ids) - 1:]
+    for row in lg[:n_new]:
+        top2 = torch.topk(row, 2).values
+        margins.append(float(top2[0] - top2[1]))
+    agree = agreeing_prefix(new, cpu_new, margins,
+                            2 * F32_LOGIT_RTOL * float(l_cpu.abs().max()) + 2e-5)
+    del p_card, p_cpu
+    torch.cuda.empty_cache()
+    out = {"params": n_params, "load_s": load_s, "prefill_max_abs_err": err,
+           "new_tokens": len(new), "ms_per_token": ms / max(len(new), 1),
+           "tokens_agreeing": agree}
+    log(f"heimdall (c) LLaMA-class at TinyLlama-1.1B widths ({n_params:,} params, synthetic "
+        f"seeded state dict through import_hf_decoder_params, {load_s:.1f} s): "
+        f"{LLAMA_TOKENS}-token prefill logits card vs CPU (f32) max abs {err:.4g}; "
+        f"{len(new)} greedy ids at {out['ms_per_token']:.3f} ms a token (CUDA events, one "
+        f"prefill per token), first {agree} equal the CPU's ({card})")
+    return out
+
+
+def heimdall_training(dev, card, seed, heimdall_steps, mini_steps, texts):
+    """(d): both trainers on the card against their first step on the CPU;
+    the trained encoder embeds through B2; both checkpoints round-trip."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nornicdb_tpu_torch.embed.embedder import TorchEncoderEmbedder
+    from nornicdb_tpu_torch.heimdall import model as hm
+    from nornicdb_tpu_torch.heimdall import train as ht
+    from nornicdb_tpu_torch.models import checkpoint as ck
+    from nornicdb_tpu_torch.models import pretrain
+    from nornicdb_tpu_torch.models.encoder import Encoder
+    from nornicdb_tpu_torch.ops.attention import flash_attention
+
+    out = {}
+    cfg = hm.DecoderConfig.tiny()
+    losses, cpu_losses = [], []
+    t0 = time.perf_counter()
+    params, _ = ht.train(ht.DEFAULT_CORPUS, cfg, steps=heimdall_steps, seed=seed,
+                         device=dev, losses=losses)
+    torch.cuda.synchronize()
+    h_s = time.perf_counter() - t0
+    ht.train(ht.DEFAULT_CORPUS, cfg, steps=1, seed=seed, device="cpu", losses=cpu_losses)
+    if abs(losses[0] - cpu_losses[0]) > HEIMDALL_LOSS_ATOL or not losses[-1] < losses[0]:
+        raise AssertionError(f"heimdall (d) train(): losses {losses[0]:.5f} -> "
+                             f"{losses[-1]:.5f}, CPU first step {cpu_losses[0]:.5f}")
+    out["heimdall_train"] = {"steps": heimdall_steps, "first_loss": losses[0],
+                             "cpu_first_loss": cpu_losses[0], "last_loss": losses[-1],
+                             "ms_per_step": h_s * 1e3 / heimdall_steps}
+
+    m_losses, m_cpu = [], []
+    t0 = time.perf_counter()
+    pretrain.train_mini(steps=1, seed=seed, device="cpu", log_every=0, losses=m_cpu)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mcfg, state, _ = pretrain.train_mini(steps=mini_steps, seed=seed, device=dev, log_every=0,
+                                         losses=m_losses)
+    torch.cuda.synchronize()
+    m_s = time.perf_counter() - t0
+    if abs(m_losses[0] - m_cpu[0]) > MINI_LOSS_RTOL * abs(m_cpu[0]) \
+            or not np.isfinite(m_losses).all():
+        raise AssertionError(f"heimdall (d) train_mini: first loss {m_losses[0]:.6f} against "
+                             f"the CPU's {m_cpu[0]:.6f}")
+    # the step alone, on premade batches of the same corpus
+    import random
+
+    from nornicdb_tpu_torch.embed.tokenizer import HashTokenizer
+    from nornicdb_tpu_torch.models.train import contrastive_train_step, create_train_state
+
+    groups = {}
+    for g, text in pretrain.build_corpus():
+        groups.setdefault(g, []).append(text.split())
+    names = sorted(groups)
+    brng, tok = random.Random(seed), HashTokenizer(mcfg.vocab_size)
+    batches = [pretrain.make_batch(groups, names, tok, brng, min(128, len(names)), 64)
+               for _ in range(mini_steps)]
+    tm, ts = create_train_state(mcfg, seed, learning_rate=3e-4, device=dev)
+    contrastive_train_step(tm, ts, *batches[0])  # warm-up
+
+    def steps():
+        for a, p in batches:
+            contrastive_train_step(tm, ts, a, p)
+
+    _, step_ms = cuda_ms(steps)
+    del tm, ts
+    out["train_mini"] = {"steps": mini_steps, "first_loss": m_losses[0],
+                         "cpu_first_loss": m_cpu[0], "last_loss": m_losses[-1],
+                         "s_with_corpus": m_s, "cpu_one_step_s_with_corpus": cpu_s,
+                         "ms_per_step": step_ms / mini_steps, "batch": len(batches[0][0])}
+
+    # the trained weights serve through the inference encoder (B2)
+    icfg = dataclasses.replace(mcfg, use_flash_attention=True)
+    card_model, cpu_model = Encoder(icfg), Encoder(icfg)
+    card_model.load_state_dict(state)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in state.items()})
+    before = flash_attention.launches
+    card_vecs = np.asarray(TorchEncoderEmbedder(model=card_model, cfg=icfg, device=dev)
+                           .embed_batch(texts[:32]))
+    b2 = flash_attention.launches - before
+    cpu_vecs = np.asarray(TorchEncoderEmbedder(model=cpu_model, cfg=icfg, device="cpu")
+                          .embed_batch(texts[:32]))
+    cos = float((card_vecs * cpu_vecs).sum(1).min())
+    if b2 < icfg.num_layers or cos < EMBED_F32_COS_MIN:
+        raise AssertionError(f"heimdall (d): the trained encoder launched B2 {b2} times, "
+                             f"min cos card vs CPU {cos}")
+
+    root = os.path.join(HERE, "_heimdall")
+    os.makedirs(root, exist_ok=True)
+    d = tempfile.mkdtemp(dir=root)
+    try:
+        path = os.path.join(d, "slm.npz")
+        ht.save_params(path, cfg, params)
+        cfg2, tree = ht.load_params(path)
+        if cfg2 != cfg or not all(np.array_equal(a, b) for a, b in zip(
+                hm.leaves(tree), hm.leaves(hm.params_to_numpy(params)))):
+            raise AssertionError("heimdall (d): save_params did not round-trip")
+        path = os.path.join(d, "encoder.npz")
+        pretrain.save_checkpoint(path, mcfg, state)
+        cfg3, sd = ck.load_checkpoint(path)
+        if (cfg3.vocab_size, cfg3.hidden_size, cfg3.num_layers) != \
+                (mcfg.vocab_size, mcfg.hidden_size, mcfg.num_layers) or any(
+                    not torch.equal(sd[k], state[k].cpu().half().float()) for k in state):
+            raise AssertionError("heimdall (d): save_checkpoint did not round-trip")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["embed"] = {"b2_launches": b2, "min_cos": cos}
+    t = out["heimdall_train"]
+    mt = out["train_mini"]
+    log(f"heimdall (d) train(): {heimdall_steps} steps on DEFAULT_CORPUS, loss "
+        f"{t['first_loss']:.5f} (CPU {t['cpu_first_loss']:.5f}) -> {t['last_loss']:.5f}, "
+        f"{t['ms_per_step']:.3f} ms a step (host clock); train_mini at batch 128, seq 64: "
+        f"{mini_steps} steps, first loss {mt['first_loss']:.6f} (CPU {mt['cpu_first_loss']:.6f})"
+        f" -> {mt['last_loss']:.6f}, {m_s:.2f} s with the corpus build, "
+        f"{mt['ms_per_step']:.3f} ms a step (CUDA events, batches premade); the trained encoder "
+        f"embeds 32 texts through B2 ({b2} launches), min cos card vs CPU {cos:.7f}; "
+        f"save_params and save_checkpoint round-trip ({card})")
+    return out
+
+
+def synthetic_xlmr(dev, cfg, seed):
+    """A seeded XLM-R state dict at ``cfg``'s widths (numpy, HF names)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, m = cfg.hidden_size, cfg.intermediate_size
+
+    def w(*shape, base=0.0):
+        return (base + 0.02 * torch.randn(*shape, generator=g, device=dev)).cpu().numpy()
+
+    sd = {"embeddings.word_embeddings.weight": w(cfg.vocab_size, d),
+          "embeddings.position_embeddings.weight": w(cfg.max_position_embeddings, d),
+          "embeddings.token_type_embeddings.weight": w(cfg.type_vocab_size, d),
+          "embeddings.LayerNorm.weight": w(d, base=1.0), "embeddings.LayerNorm.bias": w(d)}
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}."
+        for name, shape in (("attention.self.query", (d, d)), ("attention.self.key", (d, d)),
+                            ("attention.self.value", (d, d)), ("attention.output.dense", (d, d)),
+                            ("intermediate.dense", (m, d)), ("output.dense", (d, m))):
+            sd[p + name + ".weight"] = w(*shape)
+            sd[p + name + ".bias"] = w(shape[0])
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + name + ".weight"] = w(d, base=1.0)
+            sd[p + name + ".bias"] = w(d)
+    return sd
+
+
+def heimdall_hf_encoder(dev, card, seed, iters):
+    """(e): the HF encoder at bge-m3's widths, CLS pooling."""
+    import dataclasses
+
+    import torch
+
+    from nornicdb_tpu_torch.models import hf_import as hf
+
+    cfg = dataclasses.replace(hf.HFEncoderConfig.from_hf_config(BGE_M3), pooling="cls")
+    t0 = time.perf_counter()
+    sd = synthetic_xlmr(dev, cfg, seed)
+    state = hf.import_hf_params(sd, cfg)
+    del sd
+    card_m, cpu_m = hf.build_encoder(cfg, state, dev), hf.build_encoder(cfg, state, "cpu")
+    del state
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, cfg.vocab_size, (2, 64))
+    ids[1, 40:] = cfg.pad_token_id
+    mask = ids != cfg.pad_token_id
+    with torch.inference_mode():
+        got = card_m(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)).cpu().numpy()
+        want = cpu_m(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    err = float(np.abs(got - want).max())
+    if got.shape != (2, cfg.hidden_size) or not err <= F32_EMBED_ATOL:
+        raise AssertionError(f"heimdall (e): pooled embeddings card vs CPU differ by {err}")
+    del cpu_m
+    b, s = HF_TIMED
+    tids = torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s))).to(dev)
+    tmask = torch.ones(b, s, dtype=torch.bool, device=dev)
+    with torch.inference_mode():
+        ms = time_ms(lambda: card_m(tids, tmask), iters=iters, warmup=1)
+    n_params = sum(p.numel() for p in card_m.parameters())
+    del card_m
+    torch.cuda.empty_cache()
+    out = {"params": int(n_params), "load_s": load_s, "max_abs_err": err,
+           f"ms_B{b}_S{s}": ms}
+    log(f"heimdall (e) HF encoder at bge-m3's widths (XLM-R large, {n_params:,} params, CLS "
+        f"pooling, synthetic seeded state dict, {load_s:.1f} s): pooled embeddings card vs CPU "
+        f"at B 2, S 64 max abs {err:.3g} (<= {F32_EMBED_ATOL}); B {b}, S {s}: {ms:.3f} ms a "
+        f"forward (CUDA events, f32, TF32 off; 0 B2 launches: the reference's einsum) ({card})")
+    return out
+
+
+def phase_heimdall(dev, seed, card, late=False):
+    """Phase 10 (module docstring). Returns its launches."""
+    rng = np.random.default_rng(seed + 10)
+    words = ["graph", "vector", "memory", "recall", "store", "heimdall", "node", "edge",
+             "decay", "search", "tensor", "index", "cosine", "query", "answer", "cypher"]
+    texts = [" ".join(rng.choice(words, 8)) for _ in range(64)]
+    out = REPORT["heimdall"] = {"late": late}
+    reset_counts()
+    t0 = time.perf_counter()
+    out["a"] = heimdall_serving(dev, card, texts)
+    out["b"] = heimdall_default_decoder(dev, card, seed, 64 if late else HEIMDALL_DECODE)
+    out["c"] = heimdall_llama(dev, card, seed, 4 if late else LLAMA_TOKENS)
+    out["d"] = heimdall_training(dev, card, seed, 20 if late else HEIMDALL_TRAIN_STEPS,
+                                 5 if late else MINI_TRAIN_STEPS, texts)
+    out["e"] = heimdall_hf_encoder(dev, card, seed, 2 if late else 5)
+    launches = read_counts()
+    out["launches"], out["s"] = launches, time.perf_counter() - t0
+    if launches["flash_attention"] < 1:
+        raise AssertionError(f"phase 10 never launched B2: {launches}")
+    log(f"heimdall: phase 10 in {out['s']:.1f} s{' (late run)' if late else ''}; launches "
+        f"{launches} (B2 in (a)'s card DB and (d)'s trained encoder; (a)'s recalls take the "
+        f"index's small host rung, so no B1)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5534,6 +6170,9 @@ def main() -> int:
     lap("quant_tiered")
     path_launches["memory"] = phase_memory(dev, args.seed, card)
     lap("memory")
+    path_launches["heimdall"] = phase_heimdall(
+        dev, args.seed, card, late=run_is_late(upcoming_s=HEIMDALL_PHASE_S))
+    lap("heimdall")
     REPORT["total_s"] = time.perf_counter() - t_start
 
     def path_sum(name):

@@ -169,14 +169,16 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kPStride = QR + kPad;  // floats per key of p
   constexpr int kChunks = DH / 4;      // 16-byte chunks per head row
   // P.V: each thread owns an output tile of kPvRows rows by the columns
-  // 4c + 32u..+3 (u < kQuads), at Dh 40 plus column 32 + c: 1 x 4, 2 x 5
-  // or 4 x 4 in narrow blocks, 2 x 4, 4 x 5 or 4 x 8 in 64-row ones.
+  // 4c + 32u..+3 (u < kQuads), at Dh 40 plus column 32 + c: 1 x 4, 2 x 4,
+  // 2 x 5 or 4 x 4 in narrow blocks (Dh 16, 32, 40, 64), 2 x 4, 4 x 4,
+  // 4 x 5 or 4 x 8 in 64-row ones.
   constexpr int kQuads = DH == 64 && kWarpRows == 16 ? 2 : 1;
   constexpr int kTail = DH == 40 ? 1 : 0;
-  constexpr int kCols = DH == 16 ? 4 : DH == 40 ? 8 : 16 / kQuads;  // column groups c
+  constexpr int kCols = DH == 40 ? 8 : DH / (4 * kQuads);  // column groups c
   constexpr int kPvRows = kWarpRows * kCols / 32;
   constexpr int kOut = 4 * kQuads + kTail;  // columns of a thread's output tile
-  static_assert(DH == 16 || DH == 40 || DH == 64, "head widths 16, 40, 64");
+  static_assert(DH == 16 || DH == 32 || DH == 40 || DH == 64, "head widths 16, 32, 40, 64");
+  static_assert(4 * kCols * kQuads + kTail * kCols == DH, "the output tiles cover the row once");
   static_assert(QR % kWarpRows == 0 && kPvRows * 32 == kWarpRows * kCols,
                 "a warp's output tiles cover its rows");
   static_assert(kThreads >= kTile, "a thread for each key's mask byte");
@@ -202,7 +204,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // zeros past S. A row is copied as kCopyChunks chunks (at Dh 40 the
   // last 6 lanes of each 16 stay idle), so this thread's chunk is fixed
   // and its rows step by a constant: no division per element.
-  constexpr int kCopyChunks = DH == 16 ? 4 : 16;
+  constexpr int kCopyChunks = DH == 16 ? 4 : DH == 32 ? 8 : 16;
   constexpr int kCopyStep = kThreads / kCopyChunks;
   static_assert(QR % kCopyStep == 0 && kTile % kCopyStep == 0, "whole passes");
   const int c_part = tid % kCopyChunks, c_row = tid / kCopyChunks;
@@ -677,8 +679,8 @@ extern "C" {
 
 // q, k, v, out [B, S, H, Dh] contiguous, float32 (is_bf16 = 0) or
 // bfloat16 (is_bf16 = 1), each base 16-byte aligned; mask [B, S] bool
-// (1 byte each). Dh in {16, 40, 64}: the tiny, mini and bge-m3-like
-// encoders. Launches on `stream`, does not synchronise, returns
+// (1 byte each). Dh in {16, 32, 40, 64}: the tiny encoder, MiniLM /
+// bge-small heads, the mini encoder and bge-m3-like heads. Launches on `stream`, does not synchronise, returns
 // cudaGetLastError().
 int nornic_flash_attention(const void* q, const void* k, const void* v, const void* mask,
                            void* out, int B, int S, int H, int Dh, float scale,
@@ -691,6 +693,7 @@ int nornic_flash_attention(const void* q, const void* k, const void* v, const vo
   if (is_bf16) {
     switch (Dh) {
       case 16: return launch_bf16<16>(q, k, v, m, out, B, S, H, scale, st);
+      case 32: return launch_bf16<32>(q, k, v, m, out, B, S, H, scale, st);
       case 40: return launch_bf16<40>(q, k, v, m, out, B, S, H, scale, st);
       case 64: return launch_bf16<64>(q, k, v, m, out, B, S, H, scale, st);
       default: return cudaErrorInvalidValue;
@@ -698,6 +701,7 @@ int nornic_flash_attention(const void* q, const void* k, const void* v, const vo
   }
   switch (Dh) {
     case 16: return launch_f32<16>(q, k, v, m, out, B, S, H, scale, st);
+    case 32: return launch_f32<32>(q, k, v, m, out, B, S, H, scale, st);
     case 40: return launch_f32<40>(q, k, v, m, out, B, S, H, scale, st);
     case 64: return launch_f32<64>(q, k, v, m, out, B, S, H, scale, st);
     default: return cudaErrorInvalidValue;

@@ -42,7 +42,7 @@ import uuid
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device
-from nornicdb_tpu_torch.errors import NotPortedError
+from nornicdb_tpu_torch.errors import NotPortedError, is_device_fault
 from nornicdb_tpu_torch.storage import (
     DEFAULT_DB,
     AsyncEngine,
@@ -138,8 +138,12 @@ class DB:
         ``NORNICDB_TPU_EMBEDDER=hash`` forces it. A data dir records the
         choice (``embedder.json``: kind and dims) and keeps it on reopen,
         as the reference's does, so a store keeps its embedding space. A
-        sidecar that cannot be read raises (unless hash is forced), and
-        the ``hf`` kind (imported weights) raises ``NotPortedError``."""
+        sidecar that cannot be read raises (unless hash is forced). The
+        ``hf`` kind is an imported HF encoder (``models/hf_import.py``):
+        ``NORNICDB_TPU_MODEL_DIR`` naming a model dir selects it for a new
+        store, ahead of the mini encoder. A kind that cannot be built (no
+        model dir, no ``transformers``) falls back to the hash embedder
+        with a warning, as the reference's does; a device fault raises."""
         from nornicdb_tpu_torch.embed.embedder import CachedEmbedder, HashEmbedder
         from nornicdb_tpu_torch.models.checkpoint import load_default_embedder
 
@@ -162,21 +166,34 @@ class DB:
                         "force NORNICDB_TPU_EMBEDDER=hash to open anyway") from exc
                 log.error("embedder sidecar %s is unreadable (%s); forced hash "
                           "embedder is active", sidecar, exc)
-        model_dir = os.environ.get("NORNICDB_TPU_MODEL_DIR", "")
+        from nornicdb_tpu_torch.models.hf_import import default_model_dir
+
         if env_force == "hash":
             want = "hash"  # the escape hatch always wins
-        elif model_dir and os.path.exists(os.path.join(model_dir, "config.json")):
-            want = "hf"
+        elif default_model_dir() is not None:
+            want = "hf"  # imported weights beat the mini encoder
         else:
             want = "encoder-mini"
         kind = want
         if recorded and env_force != "hash":
             kind = recorded.get("kind", want)
-        if kind == "hf":
-            raise NotPortedError(
-                "the hf embedder (imported weights) is not ported yet; this "
-                "store's embedding space needs it")
         inner = None
+        if kind == "hf":
+            try:
+                d = default_model_dir()
+                if d is None:
+                    raise FileNotFoundError(
+                        "NORNICDB_TPU_MODEL_DIR not set or not a model dir, but the "
+                        "store was created with an imported-weights embedder")
+                from nornicdb_tpu_torch.models.hf_import import HFEncoderEmbedder
+
+                inner = HFEncoderEmbedder(d, device=self.device)
+            except Exception as exc:
+                if is_device_fault(exc):
+                    raise
+                log.warning("the hf embedder is unavailable (%s); falling back to the "
+                            "hash embedder (another embedding space)", exc)
+                kind = "hash"
         if kind == "encoder-mini":
             inner = load_default_embedder(self.device)
             if inner is None:

@@ -39,6 +39,11 @@ class DeadlineExceeded(RuntimeError):
     status = 504
 
 
+class EmbedHTTPError(RuntimeError):
+    """A remote embedding or generation backend's request failed after
+    its retries (the reference's ``embed/http_providers.EmbedHTTPError``)."""
+
+
 def is_device_fault(exc: BaseException) -> bool:
     """True for an error the port never hides behind a fallback, a count
     or a fail-open (ROADMAP C29-C31): a ``RuntimeError`` — CUDA errors,

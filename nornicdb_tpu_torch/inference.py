@@ -405,8 +405,9 @@ class HeimdallQC:
     """SLM review of suggested edges before creation (reference:
     heimdall_qc.go:196 HeimdallQC.ReviewBatch — approve/reject/retype).
 
-    ``generate_fn(prompt) -> str`` is any Heimdall generator (the JAX
-    decoder, an HTTP backend, or a stub). The prompt asks for one verdict
+    ``generate_fn(prompt) -> str`` is any Heimdall generator's
+    ``generate`` (``heimdall/generators.py``: the decoder on the card, an
+    HTTP backend, or a stub). The prompt asks for one verdict
     letter per suggestion; unparseable output fails open (all approved),
     matching the reference's fail-open posture for QC outages."""
 

@@ -7,7 +7,9 @@ The committed ``encoder_mini.npz`` holds ``params``, a flax msgpack blob
 Inside the blob every array is msgpack ext type 1 carrying
 ``(shape, dtype name, raw bytes)``, in float16. Neither ``msgpack`` nor
 ``flax`` is a dependency of the port, so this module carries the small
-msgpack reader that blob needs.
+msgpack reader that blob needs, and the writer (``packb``) that makes
+the same bytes as ``flax.serialization.to_bytes`` for a tree of dicts of
+arrays (``models/pretrain.save_checkpoint``).
 """
 
 from __future__ import annotations
@@ -119,6 +121,85 @@ def unpackb(data: bytes) -> Any:
     if reader.pos != len(data):
         raise ValueError("trailing bytes after msgpack object")
     return out
+
+
+def _pack_len(out: bytearray, n: int, fix: int, fix_max: int, codes) -> None:
+    """A length header: ``fix | n`` below ``fix_max``, else the smallest
+    of ``codes`` (8/16/32-bit, ``None`` where msgpack has no such form)."""
+    if fix is not None and n < fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError("msgpack object too large")
+
+
+def _pack(out: bytearray, obj: Any, strict: bool) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj < 0x80 or -0x20 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        else:
+            for lo, hi, code, fmt in ((0, 0xFF, 0xCC, ">B"), (-0x80, -1, 0xD0, ">b"),
+                                      (0, 0xFFFF, 0xCD, ">H"), (-0x8000, -1, 0xD1, ">h"),
+                                      (0, 0xFFFFFFFF, 0xCE, ">I"),
+                                      (-0x80000000, -1, 0xD2, ">i"),
+                                      (0, (1 << 64) - 1, 0xCF, ">Q"),
+                                      (-(1 << 63), -1, 0xD3, ">q")):
+                if lo <= obj <= hi:
+                    out.append(code)
+                    out += struct.pack(fmt, obj)
+                    return
+            raise ValueError("integer out of msgpack's range")
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        raw = bytes(obj)
+        _pack_len(out, len(raw), None, 0, (0xC4, 0xC5, 0xC6))
+        out += raw
+    elif isinstance(obj, list) or (isinstance(obj, tuple) and not strict):
+        _pack_len(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for x in obj:
+            _pack(out, x, strict)
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k, strict)
+            _pack(out, v, strict)
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject:
+            raise ValueError("object arrays cannot be packed")
+        data = packb((obj.shape, obj.dtype.name, obj.tobytes("C")), strict=False)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(data))
+        if fixed is not None:
+            out.append(fixed)
+        else:
+            _pack_len(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += data
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__}")
+
+
+def packb(obj: Any, strict: bool = True) -> bytes:
+    """Encode ``obj`` (dicts, lists, strings, bytes, numbers, None, bools,
+    numpy arrays as ext type 1) as flax's ``msgpack_serialize`` does:
+    the smallest encoding of each value, floats as doubles, tuples only
+    inside an array's ext payload (``strict``)."""
+    out = bytearray()
+    _pack(out, obj, strict)
+    return bytes(out)
 
 
 def read_checkpoint(path: str) -> Tuple[list, Dict[str, Any]]:

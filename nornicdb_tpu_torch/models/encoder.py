@@ -3,9 +3,14 @@
 Matches the flax module layer for layer: LayerNorm eps 1e-6 computed in
 float32, tanh-approximated GELU, learned positions of length
 ``max_len``, masked mean pooling, then L2 normalization (eps 1e-12).
-Projections are plain ``nn.Linear`` computed in ``cfg.dtype``; attention
-goes through the port's flash-attention op
-(``ops/attention.py``, kernel ``csrc/flash_attention.cu``).
+Projections are plain ``nn.Linear`` computed in ``cfg.dtype``. Attention
+is chosen at construction by ``cfg.use_flash_attention``, as the
+reference's is: on (the default, every inference path) it goes through
+the port's flash-attention op (``ops/attention.py``, kernel
+``csrc/flash_attention.cu``), which has no backward; off (training,
+``models/train.py``) it is the reference's einsum branch: logits in
+``cfg.dtype`` masked with ``finfo(cfg.dtype).min``, a float32 softmax cast
+back, then P.V.
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ class EncoderConfig:
     mlp_dim: int = 1536
     max_len: int = 512
     dtype: torch.dtype = torch.bfloat16
+    # construction-time choice of attention: the B2 kernel (inference),
+    # or the einsum the reference trains through (no kernel has a vjp)
+    use_flash_attention: bool = True
 
     @staticmethod
     def tiny() -> "EncoderConfig":
@@ -64,6 +72,16 @@ def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         layer.bias, LN_EPS)
 
 
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The reference encoder's einsum branch (differentiable): [B, S, H, Dh]
+    in and out, mask [B, S] over keys."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (q.shape[-1] ** -0.5)
+    logits = logits.masked_fill(~mask[:, None, None, :], torch.finfo(dtype).min)
+    weights = torch.softmax(logits.float(), dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -81,7 +99,10 @@ class MultiHeadAttention(nn.Module):
         q = _dense(self.query, x, cfg.dtype).view(b, s, h, d // h)
         k = _dense(self.key, x, cfg.dtype).view(b, s, h, d // h)
         v = _dense(self.value, x, cfg.dtype).view(b, s, h, d // h)
-        out = flash_attention(q, k, v, mask)
+        if cfg.use_flash_attention:
+            out = flash_attention(q, k, v, mask)
+        else:
+            out = einsum_attention(q, k, v, mask, cfg.dtype)
         return _dense(self.out, out.reshape(b, s, d), cfg.dtype)
 
 

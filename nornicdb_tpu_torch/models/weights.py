@@ -1,7 +1,8 @@
-"""Carry flax encoder parameters across to the port's ``Encoder``.
+"""Carry flax encoder parameters across to the port's ``Encoder``, and back.
 
 ``params_from_jax`` takes the flax parameter tree as nested dicts of
-numpy arrays and returns a ``state_dict``:
+numpy arrays and returns a ``state_dict``; ``params_to_jax`` is its
+inverse (the tree ``models/pretrain.save_checkpoint`` writes):
 
 - ``DenseGeneral`` q/k/v kernel ``[d, h, hd]`` -> Linear weight ``[h*hd, d]``,
   bias ``[h, hd]`` -> ``[h*hd]``;
@@ -67,3 +68,41 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         put(f"{pre}.mlp_up", _dense(lp["mlp_up"]))
         put(f"{pre}.mlp_down", _dense(lp["mlp_down"]))
     return sd
+
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def params_to_jax(sd: Mapping[str, torch.Tensor], num_heads: int) -> Dict[str, Any]:
+    """``Encoder.state_dict()`` -> the flax ``Encoder`` tree (nested dicts
+    of float32 numpy arrays, the head axes split as flax keeps them)."""
+    def norm(pre: str) -> Dict[str, np.ndarray]:
+        return {"scale": _np(sd[pre + ".weight"]), "bias": _np(sd[pre + ".bias"])}
+
+    def dense(pre: str) -> Dict[str, np.ndarray]:
+        return {"kernel": np.ascontiguousarray(_np(sd[pre + ".weight"]).T),
+                "bias": _np(sd[pre + ".bias"])}
+
+    tree: Dict[str, Any] = {
+        "tok_embed": {"embedding": _np(sd["tok_embed.weight"])},
+        "pos_embed": {"embedding": _np(sd["pos_embed.weight"])},
+        "ln_final": norm("ln_final"),
+    }
+    n_layers = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
+    for i in range(n_layers):
+        pre = f"layers.{i}"
+        attn: Dict[str, Any] = {}
+        for name in ("query", "key", "value"):
+            p = dense(f"{pre}.attn.{name}")  # kernel [d, h*hd]
+            attn[name] = {"kernel": p["kernel"].reshape(p["kernel"].shape[0], num_heads, -1),
+                          "bias": p["bias"].reshape(num_heads, -1)}
+        p = dense(f"{pre}.attn.out")  # kernel [h*hd, d]
+        attn["out"] = {"kernel": p["kernel"].reshape(num_heads, -1, p["kernel"].shape[-1]),
+                       "bias": p["bias"]}
+        tree[f"layer_{i}"] = {
+            "ln1": norm(f"{pre}.ln1"), "ln2": norm(f"{pre}.ln2"), "attn": attn,
+            "mlp_up": dense(f"{pre}.mlp_up"), "mlp_down": dense(f"{pre}.mlp_down"),
+        }
+    return tree

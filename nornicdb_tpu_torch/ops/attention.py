@@ -6,7 +6,9 @@ launches the kernel or raises: bfloat16 inputs go to the tensor-core
 kernel, float32 inputs to the exact float32 one, which runs on the FMA
 units only. ``reference_attention`` (the materializing softmax) is its
 plain version and runs only for tensors on the CPU. Forward only, like
-the TPU kernel.
+the TPU kernel: a call on the card that would need a gradient raises,
+since the kernel's output has none (training takes the encoder's
+einsum attention, ``models/encoder.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import torch
 from nornicdb_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 40, 64)  # compiled head widths: tiny, mini, bge-m3-like encoders
+# compiled head widths: the tiny encoder, MiniLM / bge-small heads (384 / 12),
+# the mini encoder, bge-m3-like heads
+HEAD_DIMS = (16, 32, 40, 64)
 
 
 def reference_attention(q, k, v, mask=None):
@@ -70,6 +74,19 @@ def flash_attention(
         return reference_attention(q, k, v, mask)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    check_kernel_args(q, k, v, mask)
+    out = launch(_lib(), q, k, v, mask)
+    flash_attention.launches += 1
+    return out
+
+
+def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor) -> None:
+    """What the kernel takes, checked before any launch: one type (f32 or
+    bf16), a compiled head width, B*H within the grid, a bool mask,
+    contiguous inputs, and no gradient asked for (the kernel has no
+    backward, so its output would silently cut the graph)."""
+    b, s, h, d = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("q, k and v must all be float32 or all bfloat16")
@@ -82,9 +99,11 @@ def flash_attention(
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and mask.is_contiguous()):
         raise ValueError("q, k, v and mask must be contiguous")
-    out = launch(_lib(), q, k, v, mask)
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under torch.no_grad() or "
+            "torch.inference_mode(), or train through the einsum attention")
 
 
 flash_attention.launches = 0

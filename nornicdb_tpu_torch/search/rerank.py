@@ -86,8 +86,9 @@ class LocalReranker:
 
 class LLMReranker:
     """Fail-open LLM reranker (reference: llm_rerank.go) — asks a
-    Heimdall generator to order candidate ids; any failure (bad output,
-    backend error) leaves the original order untouched."""
+    Heimdall ``Manager`` (``heimdall/scheduler.py``) to order candidate
+    ids; any failure (bad output, backend error) leaves the original
+    order untouched."""
 
     def __init__(self, manager, model: Optional[str] = None):
         self.manager = manager

@@ -117,11 +117,12 @@ def _attn_inputs(dev, seed, s, h, dh, dtype):
     return q, k, v, mask
 
 
-@pytest.mark.parametrize("dh", [16, 40, 64])
+@pytest.mark.parametrize("dh", [16, 32, 40, 64])
 @pytest.mark.parametrize("s", [1, 16, 33, 64, 100, 128, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, dtype, s, dh):
-    q, k, v, mask = _attn_inputs(dev, s + dh, s, 16 if dh == 64 else 4, dh, dtype)
+    # heads: bge-m3-like at Dh 64, MiniLM / bge-small at Dh 32
+    q, k, v, mask = _attn_inputs(dev, s + dh, s, {64: 16, 32: 12}.get(dh, 4), dh, dtype)
     before = flash_attention.launches
     out = flash_attention(q, k, v, mask)
     assert flash_attention.launches == before + 1
@@ -153,6 +154,85 @@ def test_flash_attention_bf16_kernel_takes_a_misaligned_base(dev, dtype):
     qm.copy_(q)
     assert qm.data_ptr() % 16 != 0
     assert torch.equal(flash_attention(qm, k, v, mask), flash_attention(q, k, v, mask))
+
+
+def test_flash_attention_refuses_a_call_that_needs_a_gradient(dev):
+    q, k, v, mask = _attn_inputs(dev, 9, 16, 4, 40, torch.float32)
+    q.requires_grad_(True)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, v, mask)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        out = flash_attention(q, k, v, mask)
+    assert out.grad_fn is None and flash_attention.launches == before + 1
+
+
+def test_flash_attention_refuses_other_head_widths(dev):
+    q, k, v, mask = _attn_inputs(dev, 10, 16, 4, 24, torch.float32)
+    with pytest.raises(ValueError, match="head dim 24"):
+        flash_attention(q, k, v, mask)
+
+
+def test_decoder_on_the_card_matches_the_cpu(dev):
+    """The committed checkpoint's greedy text and prefill logits, card
+    against CPU (bf16 both: within 3% of the largest logit)."""
+    from nornicdb_tpu_torch.heimdall.model import DecoderModel, forward_full, PAD
+    from nornicdb_tpu_torch.heimdall.train import DEFAULT_CORPUS, default_checkpoint_path, load_params
+
+    cfg, tree = load_params(default_checkpoint_path())
+    card, cpu = DecoderModel(cfg, tree, device=dev), DecoderModel(cfg, tree, device="cpu")
+    for line in DEFAULT_CORPUS:
+        prompt = " ".join(line.split()[:3])
+        assert card.generate(prompt, 40) == cpu.generate(prompt, 40)
+    ids = np.full(cfg.max_seq, PAD, np.int64)
+    ids[:20] = np.frombuffer(DEFAULT_CORPUS[0][:20].encode(), np.uint8)
+    valid = torch.arange(cfg.max_seq) < 20
+    with torch.no_grad():
+        got, _ = forward_full(cfg, card.params, torch.from_numpy(ids).to(dev), valid.to(dev))
+        want, _ = forward_full(cfg, cpu.params, torch.from_numpy(ids), valid)
+    assert (got[:20].cpu() - want[:20]).abs().max() <= 0.03 * want[:20].abs().max()
+
+
+def test_encoder_train_step_on_the_card_matches_the_cpu(dev):
+    """One contrastive step (f32, the einsum attention) from the same
+    weights: loss within 1e-5, parameters within 1e-5 but the key bias,
+    whose gradient is zero in exact arithmetic (Adam scales its rounding
+    noise up to the rate)."""
+    import dataclasses
+
+    from nornicdb_tpu_torch.models.encoder import EncoderConfig
+    from nornicdb_tpu_torch.models.train import contrastive_train_step, create_train_state
+
+    cfg = dataclasses.replace(EncoderConfig.tiny(), dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    a, p = (rng.integers(2, cfg.vocab_size, (8, 16)) for _ in range(2))
+    a[:, 12:] = 0
+    mc, sc = create_train_state(cfg, 0, learning_rate=1e-3, device=dev)
+    mh, sh = create_train_state(cfg, 0, learning_rate=1e-3, device="cpu")
+    _, lc = contrastive_train_step(mc, sc, a, p)
+    _, lh = contrastive_train_step(mh, sh, a, p)
+    assert abs(float(lc) - float(lh)) <= 1e-5
+    host = mh.state_dict()
+    for name, t in mc.state_dict().items():
+        tol = 2.1e-3 if name.endswith("attn.key.bias") else 1e-5
+        assert (t.cpu() - host[name]).abs().max() <= tol, name
+
+
+def test_hf_encoder_on_the_card_matches_the_cpu(dev):
+    from nornicdb_tpu_torch.models import hf_import as hf
+
+    cfg = hf.HFEncoderConfig(vocab_size=500, hidden_size=64, num_layers=2, num_heads=4,
+                             intermediate_size=128, max_position_embeddings=96,
+                             type_vocab_size=1, pad_token_id=1, arch="roberta")
+    gen = torch.Generator().manual_seed(0)
+    state = {k: torch.randn(v.shape, generator=gen) * 0.05 + (1.0 if k.endswith("ln.weight") else 0.0)
+             for k, v in hf.HFEncoder(cfg).state_dict().items()}
+    ids = torch.from_numpy(np.random.default_rng(1).integers(2, 500, (3, 17)))
+    ids[1, 10:] = 1
+    got = hf.build_encoder(cfg, state, dev)(ids.to(dev)).cpu()
+    want = hf.build_encoder(cfg, state, "cpu")(ids)
+    assert (got - want).abs().max() <= 1e-5
 
 
 def _fused_pair(dev, n=3000, d=64, seed=5):

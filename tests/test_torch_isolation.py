@@ -43,6 +43,42 @@ def _sources():
                 yield os.path.join(root, f)
 
 
+_LAZY_PROBE = """
+import importlib, json, pkgutil, sys
+import nornicdb_tpu_torch
+for m in pkgutil.walk_packages(nornicdb_tpu_torch.__path__, "nornicdb_tpu_torch."):
+    importlib.import_module(m.name)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("transformers", "safetensors", "optax"))))
+"""
+
+
+def test_port_imports_transformers_safetensors_and_optax_only_when_used():
+    """The card's machine has no ``transformers``: the HF importers load it
+    (and ``safetensors``) inside the functions that need them; the port
+    never needs ``optax``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _LAZY_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        top = {id(n) for n in tree.body}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root != "optax", (path, name)
+                assert not (id(node) in top and root in ("transformers", "safetensors")), \
+                    (path, name)
+
+
 def test_port_modules_load_no_jax_in_a_fresh_process():
     # a subprocess: this test process has jax loaded by tests/conftest.py
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -62,7 +98,10 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
                  "query.strict_grammar", "storage.schema", "search.rerank",
                  "obs", "obs.metrics", "obs.tracing", "obs.events", "obs.tenant",
                  "obs.stages", "obs.dispatch", "obs.resources", "obs.cost", "obs.device",
-                 "admission", "obs.audit", "obs.slo", "obs.fleet"):
+                 "admission", "obs.audit", "obs.slo", "obs.fleet",
+                 "heimdall", "heimdall.model", "heimdall.train", "heimdall.hf_import",
+                 "heimdall.generators", "heimdall.scheduler", "heimdall.bifrost",
+                 "heimdall.tools", "models.train", "models.pretrain", "models.hf_import"):
         assert "nornicdb_tpu_torch." + name in result["imported"]
     assert result["bad"] == []
 
@@ -122,6 +161,21 @@ def test_only_obs_device_imports_torch():
     assert importers == {"device.py"}
 
 
+def _heimdall_generate():
+    from nornicdb_tpu_torch.heimdall import Manager, ModelSpec
+
+    mgr = Manager()
+    mgr.register(ModelSpec(name="slm"))
+    return mgr.generate("hi")
+
+
+def _train_encoder():
+    from nornicdb_tpu_torch.models.encoder import EncoderConfig
+    from nornicdb_tpu_torch.models.train import create_train_state
+
+    return create_train_state(EncoderConfig.tiny())
+
+
 def _apoc_pagerank(ex):
     ex.execute("CREATE (:A)-[:R]->(:B)")
     return ex.execute("CALL apoc.algo.pageRank() YIELD node, score RETURN score")
@@ -136,6 +190,8 @@ def _apoc_pagerank(ex):
     lambda: pagerank_arrays(np.zeros(1, np.int32), np.zeros(1, np.int32), 1),
     lambda: DeviceGraphPlane(None).device,
     lambda: _apoc_pagerank(CypherExecutor(nornicdb_tpu_torch.storage.MemoryEngine())),
+    lambda: _heimdall_generate(),
+    lambda: _train_encoder(),
 ])
 def test_entry_points_default_to_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
