@@ -138,7 +138,9 @@ Phases, in order; any failure exits non-zero:
    ratio is printed. ``ADMISSION_PHASE_S`` joins the late rule (a late run
    takes 16 queries per tier in (a) and 1 block in (e)).
 5. Index at deployment scale: a 1,048,576 x 1024 float32
-   ``BruteForceIndex`` filled through ``add_batch`` and searched at
+   ``BruteForceIndex`` filled in bulk (``fill_index``: the rows
+   ``add_batch`` would store, written as ``BruteForceIndex.load`` restores
+   them) and searched at
    the (B, k) of ``INDEX_TIMED``, through B1, checked against the plain
    path.
 6. Durable: phase 4's corpus stored again through ``open(data_dir,
@@ -284,6 +286,28 @@ Phases, in order; any failure exits non-zero:
    (``launches_quant``) are counted after the queries are embedded and
    the exact answers computed, and must be exactly the paths' own: B1
    for the two graph builds' k-NN, B2 for the 8 hybrid searches.
+   (c) The shard block, right after (a), over the same 100,000 documents,
+   BM25 index and embeddings (a fresh ``BruteForceIndex``), with each
+   shard knob at ``SHARDS`` (2), through a ``SearchService`` under the
+   ``cagra`` profile: the strategy's graph at ``NORNICDB_CAGRA_SHARDS=2``
+   (B1 k-NN per shard, one launch a 1,024-row chunk of each shard; its
+   build by part and device bytes against the ``memory_allocated``
+   delta); the fused tier's snapshot at ``NORNICDB_HYBRID_SHARDS`` 1 and
+   2 (bytes against the delta, within ``SHARD_MEM_SLACK``); 8 walk rides of the
+   1-shard snapshot over the 2-shard graph must step down
+   (``walk_shard_mismatch``); the exact tier (walk off) at 1 and 2 shards
+   in ``SHARD_BLOCKS`` interleaved blocks of the 64 hybrid queries (p50 /
+   p99 of each; one B1 launch a vector shard a query), the 2-shard answers
+   tie-aware the 1-shard ones with fused lists bitwise (parity 1.0); the
+   walk tier at 2 shards (every query ``hybrid_walk_f32``, lexical lists
+   tie-aware the host's, walk-parity and vector recall@10 >= 0.95); the
+   profile's vector search (64 walks of the 2-shard graph, recall@10 >=
+   0.95 against ``exact=True``); and the int8 plane at
+   ``NORNICDB_QUANT_SHARDS=2`` under a brute-strategy service over the same
+   index (64 vector queries, every one a 2-shard plane dispatch, answers
+   tie-aware a 1-shard plane's at parity 1.0). Its launches
+   (``launches_shards``): B2 for the 64 query embeds, B1 as above.
+   ``SHARDS_PHASE_S`` joins the late rule (a late run times 1 block).
 9. The memory plane, in three parts. (a) The background plane at the
    reference's size (``bench.py:_bench_background``): two identical
    engines of 100,000 nodes and 300,000 KNOWS/LIKES edges, one node in
@@ -470,11 +494,11 @@ def log(msg: str) -> None:
 def run_is_late(extra_s: float = 0.0, upcoming_s: float = None) -> bool:
     """The late rule: whether the run so far, ``extra_s`` more and the
     budgets of the phases still to come (``upcoming_s``; by default those
-    of phases 7-10) would pass ``RUN_LIMIT_S``. A late phase shortens its
-    timing, never its checks."""
+    of phases 7-10, the shard block among them) would pass ``RUN_LIMIT_S``.
+    A late phase shortens its timing, never its checks."""
     if upcoming_s is None:
         upcoming_s = (CYPHER_PHASE_S + GRAPH_PLANE_S + APOC_PHASE_S + QUANT_PHASE_S
-                      + MEMORY_PHASE_S + HEIMDALL_PHASE_S)
+                      + SHARDS_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S)
     return time.perf_counter() - T_START + extra_s + upcoming_s > RUN_LIMIT_S
 
 
@@ -1108,7 +1132,7 @@ def phase_main_path(dev, seed, n_docs):
             raise AssertionError(f"the graph build's B1 launches by B are {knn_sizes} for {n} rows")
         if graph["iters"] != cg._auto_iters(n) or cg.builds != 1:
             raise AssertionError(f"graph: iters {graph['iters']}, builds {cg.builds}")
-        walk.update(graph_rows=n, graph_capacity=graph["rows"], build_s=cg.build_s,
+        walk.update(graph_rows=n, graph_capacity=graph["rows_per_shard"], build_s=cg.build_s,
                     graph_wait_s=graph_wait_s, iters=graph["iters"], degree=cg.degree,
                     itopk=cg.itopk, width=cg.search_width,
                     graph_device_bytes=cg.device_bytes(), l2v_map_bytes=l2v_bytes,
@@ -1116,7 +1140,7 @@ def phase_main_path(dev, seed, n_docs):
         log(f"  walk graph: built in {cg.build_s['total']:.3f} s (k-NN forward "
             f"{cg.build_s['knn_forward']:.3f} s, reorder {cg.build_s['reorder']:.3f} s, device "
             f"copy {cg.build_s['device_copy']:.3f} s; waited {graph_wait_s:.3f} s), {n} rows, "
-            f"capacity {graph['rows']}, degree {cg.degree}, iters {graph['iters']}, itopk "
+            f"capacity {graph['rows_per_shard']}, degree {cg.degree}, iters {graph['iters']}, itopk "
             f"{cg.itopk}, width {cg.search_width}; B1 launches by B {knn_sizes} "
             f"(fused_cosine_topk.launch_sizes); {cg.device_bytes()} bytes of graph on the card "
             f"+ {l2v_bytes} of the exact tier's join map, memory_allocated grew {graph_alloc}")
@@ -2783,6 +2807,26 @@ def time_attention(dev, b, s, h, dh, dtype, seed, card):
 # -- phase 5 ---------------------------------------------------------------
 
 
+def fill_index(idx, n_rows, d, rng, step=65_536):
+    """Fill an empty ``BruteForceIndex`` in bulk with ``n_rows`` seeded unit
+    rows ``v0``, ``v1``, ..., the rows ``add_batch`` would store, the way
+    ``BruteForceIndex.load`` restores a saved index (set-up: the per-row
+    ``add_batch`` path spent over a minute of host time at 1M rows)."""
+    ids = [f"v{i}" for i in range(n_rows)]
+    with idx._lock:
+        idx._ensure_capacity_locked(n_rows, d)
+        for start in range(0, n_rows, step):
+            n = min(step, n_rows - start)
+            vecs = rng.random((n, d), dtype=np.float32) - 0.5
+            # the norm of each row alone, as ``add`` takes it: the same bits
+            norms = np.asarray([np.linalg.norm(v) for v in vecs], np.float32)
+            idx._matrix[start:start + n] = vecs / norms[:, None]
+        idx._valid[:n_rows] = True
+        idx._ext_ids[:n_rows] = ids
+        idx._slot_of = {e: i for i, e in enumerate(ids)}
+        idx._count = idx._n_alive = n_rows
+
+
 def phase_index(dev, seed, n_rows, card):
     import torch
 
@@ -2794,11 +2838,7 @@ def phase_index(dev, seed, n_rows, card):
     rng = np.random.default_rng(seed + 2)
     idx = BruteForceIndex(dims=d, device=dev)
     t0 = time.perf_counter()
-    step = 65_536
-    for start in range(0, n_rows, step):
-        n = min(step, n_rows - start)
-        vecs = rng.random((n, d), dtype=np.float32) - 0.5
-        idx.add_batch([(f"v{start + j}", vecs[j]) for j in range(n)])
+    fill_index(idx, n_rows, d, rng)
     fill_s = time.perf_counter() - t0
     log(f"index: filled {len(idx)} x {d} (capacity {idx._capacity}) in {fill_s:.2f} s")
     rows = []
@@ -4984,6 +5024,249 @@ def phase_quant_tiered(dev, corpus, bm25):
     return launches
 
 
+SHARDS = 2  # each shard knob's value in phase 8 (c)
+SHARDS_PHASE_S = 60.0  # phase 8 (c)'s budget in the late rule
+SHARD_BLOCKS = 3  # (c)'s interleaved timing blocks of the exact tier at 1 and 2 shards
+SHARD_MISMATCH_QUERIES = 8  # walk-tier rides of a 1-shard snapshot over the 2-shard graph
+# device bytes against the memory_allocated delta, for a snapshot or graph
+# of two columns over 1 MiB and two under: the caching allocator rounds a
+# small column to 512 B, and hands a large one a free block whole when the
+# rest would be 1 MiB or less (a full run's cache holds many such blocks)
+SHARD_MEM_SLACK = 2 * (1 << 20) + 2 * 512
+
+
+def shard_hybrid(svc, recorder, queries, qvs):
+    """The queries through ``svc.search`` in hybrid mode, one at a time
+    (explicit embeddings: the result cache is bypassed): host ms per query
+    and the fused-tier answer each rode."""
+    import torch
+
+    recorder.rows = []
+    lat = []
+    for q, qv in zip(queries, qvs):
+        t = time.perf_counter()
+        svc.search(q, limit=10, query_embedding=qv, mode="hybrid", enrich=False)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    if len(recorder.rows) != len(queries):
+        raise AssertionError(f"{len(recorder.rows)} of {len(queries)} hybrid queries rode the "
+                             "fused tier")
+    return lat, [trio for _, trio in recorder.rows]
+
+
+def phase_shards(dev, corpus, bm25, card, late=False):
+    """Phase 8 (c), the shard block: the main path's 100,000 documents,
+    BM25 index and embeddings with each shard knob at 2, through a
+    ``SearchService`` (module docstring). Returns its kernel launches
+    (counts set to 0 just before the query embeds, read after the int8
+    plane; the exact references come after)."""
+    import torch
+
+    from nornicdb_tpu_torch.models.checkpoint import load_default_embedder
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+    from nornicdb_tpu_torch.search.device_quant import QuantizedBrutePlane
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32, TIER_WALK_F32
+    from nornicdb_tpu_torch.search.rrf import rrf_fuse
+    from nornicdb_tpu_torch.search.service import SearchService
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    t_phase = time.perf_counter()
+    docs, queries, emb = corpus
+    n = len(emb)
+    blocks = 1 if late else SHARD_BLOCKS
+    brute = BruteForceIndex(device=dev)
+    brute.add_batch([(f"d{i}", emb[i]) for i in range(n)])
+    embedder = load_default_embedder(dev)
+    out = {"docs": n, "shards": SHARDS, "blocks": blocks, "card": card}
+    REPORT["shards"] = out
+    reset_counts()
+    qvs = np.asarray(embedder.embed_batch(queries), np.float32)
+    with env_scope(VECTOR_ANN_QUALITY="cagra", CAGRA_SHARDS=SHARDS, HYBRID_SHARDS=1,
+                   HYBRID_INLINE_BUILD=1):
+        svc = SearchService(device=dev, hnsw_threshold=min(10_000, n),
+                            resource_name="service:shards")
+        svc.bm25, svc.vectors = bm25, brute
+        # (a) the cagra strategy's graph at 2 shards: B1 k-NN per shard
+        mem0 = device_memory()
+        t0 = time.perf_counter()
+        with svc._lock:
+            svc._maybe_switch_strategy()
+        graph_s = time.perf_counter() - t0
+        cg = svc.cagra
+        g = cg._graph if cg is not None else None
+        if g is None or g["shards"] != SHARDS or svc.stats.strategy != "cagra":
+            raise AssertionError(f"the cagra profile did not build a {SHARDS}-shard graph: "
+                                 f"{svc.stats}")
+        graph_alloc = device_memory() - mem0
+        knn_sizes = dict(sorted(fused_cosine_topk.launch_sizes.items()))
+        base = -(-n // SHARDS)
+        spans = [min((sh + 1) * base, n) - sh * base for sh in range(SHARDS)]
+        want = {}
+        for rows in spans:
+            for lo in range(0, rows, 1024):
+                want[min(1024, rows - lo)] = want.get(min(1024, rows - lo), 0) + 1
+        out["graph"] = {"build_s": graph_s, "build_split_s": cg.build_s,
+                        "rows_per_shard": g["rows_per_shard"], "iters": g["iters"],
+                        "device_bytes": cg.device_bytes(), "memory_allocated_delta": graph_alloc,
+                        "b1_launch_sizes": knn_sizes}
+        log(f"shards (a): the cagra profile's graph at NORNICDB_CAGRA_SHARDS={SHARDS}: {n} rows "
+            f"in {SHARDS} shards of {g['rows_per_shard']}, built in {graph_s:.3f} s by part "
+            f"{json.dumps({k: round(v, 3) for k, v in cg.build_s.items()})}; B1 k-NN launches by "
+            f"B {knn_sizes}; {cg.device_bytes()} device bytes against a memory_allocated delta of "
+            f"{graph_alloc} [{card}]")
+        if knn_sizes != dict(sorted(want.items())):
+            raise AssertionError(f"the sharded k-NN launched B1 {knn_sizes}, its chunks {want}")
+        if abs(graph_alloc - cg.device_bytes()) > SHARD_MEM_SLACK:
+            raise AssertionError(f"graph bytes {cg.device_bytes()} vs memory_allocated "
+                                 f"{graph_alloc}")
+        # (b) the exact tier at 1 shard, then at 2 (NORNICDB_HYBRID_SHARDS), each
+        # snapshot built inline; the walk off for the timed blocks
+        fused = {}
+        for shards in (1, SHARDS):
+            os.environ["NORNICDB_HYBRID_SHARDS"] = str(shards)
+            with svc._lock:
+                svc._fused = None  # the knob is read when the tier is created
+            mem0 = device_memory()
+            f = svc._ensure_fused()
+            alloc = device_memory() - mem0
+            if f is None or f.lex._snap["shards"] != shards or f.cagra is not cg:
+                raise AssertionError(f"NORNICDB_HYBRID_SHARDS={shards}: no such tier")
+            fused[shards] = f
+            out[f"snapshot_{shards}"] = {"build_s": f.lex.build_s, "c_local": f.lex._snap["c_local"],
+                                         "device_bytes": f.lex.device_bytes(),
+                                         "memory_allocated_delta": alloc}
+            log(f"shards (b): the hybrid snapshot at NORNICDB_HYBRID_SHARDS={shards}: built in "
+                f"{f.lex.build_s:.3f} s, {shards} x {f.lex._snap['c_local']} rows, "
+                f"{f.lex.device_bytes()} device bytes against a memory_allocated delta of "
+                f"{alloc} [{card}]")
+            if abs(alloc - f.lex.device_bytes()) > SHARD_MEM_SLACK:
+                raise AssertionError(f"snapshot bytes {f.lex.device_bytes()} vs "
+                                     f"memory_allocated {alloc}")
+        recorder = TrioRecorder(svc)
+        # a 1-shard snapshot over the 2-shard graph: each walk batch steps
+        # down to the exact tier (walk_shard_mismatch)
+        with svc._lock:
+            svc._fused = fused[1]
+        _, mism = shard_hybrid(svc, recorder, queries[:SHARD_MISMATCH_QUERIES],
+                               qvs[:SHARD_MISMATCH_QUERIES])
+        if fused[1].counts["walk_shard_mismatch"] != SHARD_MISMATCH_QUERIES \
+                or {t["served_by"] for t in mism} != {TIER_BRUTE_F32}:
+            raise AssertionError(f"shard mismatch: {dict(fused[1].counts)}")
+        walk_min_n = fused[1].walk_min_n
+        lat = {1: [], SHARDS: []}
+        trios = {}
+        b1 = {}
+        for f in fused.values():
+            f.walk_min_n = None
+        for _ in range(blocks):
+            for shards, f in fused.items():
+                with svc._lock:
+                    svc._fused = f
+                launches0 = fused_cosine_topk.launches
+                ts, trios[shards] = shard_hybrid(svc, recorder, queries, qvs)
+                lat[shards] += ts
+                b1[shards] = fused_cosine_topk.launches - launches0
+        for shards, f in fused.items():
+            if {t["served_by"] for t in trios[shards]} != {TIER_BRUTE_F32} \
+                    or b1[shards] != shards * len(queries):
+                raise AssertionError(f"the exact tier at {shards} shards: {dict(f.counts)}, "
+                                     f"B1 {b1[shards]} a block")
+        parity = float(np.mean([trio_agrees(t2, t1["lex"], t1["vec"], 30)
+                                for t1, t2 in zip(trios[1], trios[SHARDS])]))
+        out["exact"] = {"p50_ms": {s: pctl(v, 50) for s, v in lat.items()},
+                        "p99_ms": {s: pctl(v, 99) for s, v in lat.items()},
+                        "b1_launches_per_block": b1, "parity_with_one_shard": parity,
+                        "mismatch_counts": {"walk_shard_mismatch": SHARD_MISMATCH_QUERIES}}
+        log(f"shards (b): exact tier, {blocks} interleaved blocks of {len(queries)} hybrid "
+            f"queries: p50 {out['exact']['p50_ms'][1]:.3f} ms at 1 shard, "
+            f"{out['exact']['p50_ms'][SHARDS]:.3f} ms at {SHARDS} (p99 "
+            f"{out['exact']['p99_ms'][1]:.3f} / {out['exact']['p99_ms'][SHARDS]:.3f}); B1 "
+            f"launches a block {b1}; {SHARDS}-shard answers agree with the 1-shard ones "
+            f"(tie-aware, fused bitwise) at parity {parity:.4f}; {SHARD_MISMATCH_QUERIES} walk "
+            f"rides of the 1-shard snapshot over the {SHARDS}-shard graph stepped down "
+            f"(walk_shard_mismatch) [{card}]")
+        if parity != 1.0:
+            raise AssertionError(f"the {SHARDS}-shard exact tier's parity {parity:.4f} < 1")
+        # (c) the walk tier at 2 shards, on the strategy's 2-shard graph
+        f2 = fused[SHARDS]
+        f2.walk_min_n = walk_min_n
+        with svc._lock:
+            svc._fused = f2
+        walks0 = f2.counts["walk_dispatch"]
+        lat_w, walk_trios = shard_hybrid(svc, recorder, queries, qvs)
+        if {t["served_by"] for t in walk_trios} != {TIER_WALK_F32} \
+                or f2.counts["walk_dispatch"] - walks0 != len(queries):
+            raise AssertionError(f"the {SHARDS}-shard walk tier: {dict(f2.counts)}")
+        # (d) the cagra profile's vector search at 2 shards
+        walks0 = cg.counts["walk"]
+        lat_v, vec_hits = timed_calls(
+            lambda qv: svc.search(query_embedding=qv, mode="vector", limit=10, enrich=False),
+            qvs)
+        if cg.counts["walk"] - walks0 != len(queries):
+            raise AssertionError(f"cagra profile at {SHARDS} shards: {dict(cg.counts)}")
+    # (e) the int8 plane at NORNICDB_QUANT_SHARDS=2, through a brute-strategy
+    # service over the same index, against a one-shard plane
+    # (a quick run's corpus may sit under the plane's 8,192-row floor)
+    with env_scope(VECTOR_QUANT="int8", QUANT_SHARDS=SHARDS, QUANT_INLINE_BUILD=1,
+                   QUANT_MIN_N=min(8192, n)):
+        vsvc = SearchService(device=dev, hnsw_threshold=n + 1, resource_name="service:shards-int8")
+        vsvc.vectors = brute
+        lat_q, int8_hits = timed_calls(
+            lambda qv: vsvc.search(query_embedding=qv, mode="vector", limit=10, enrich=False),
+            qvs)
+        plane = brute._quant
+        if plane is None or plane._snap["shards"] != SHARDS \
+                or plane.counts["dispatch"] != len(queries) \
+                or any(k.startswith(("degrade_", "shards_")) for k in plane.counts):
+            raise AssertionError(f"the {SHARDS}-shard int8 plane: "
+                                 f"{None if plane is None else dict(plane.counts)}")
+        # the batcher asks MAIN_K candidates of a vector search: the same pool
+        one = QuantizedBrutePlane(brute, mode="int8", build_inline=True)
+        one_hits = [one.search_batch(qv[None, :], MAIN_K)[0][:10] for qv in qvs]
+    launches = read_counts()
+    int8_parity = float(np.mean([hits_agree([(h["id"], h["score"]) for h in a], b,
+                                            QUANT_SCORE_ATOL)
+                                 for a, b in zip(int8_hits, one_hits)]))
+    # the references, after the counts were read
+    exact10 = brute.search_batch(qvs, 10, exact=True)
+    exact30 = brute.search_batch(qvs, 30, exact=True)
+    lex30 = [bm25.search(q, 30) for q in queries]
+    host = [rrf_fuse([lx, vx], limit=30) if lx else vx for lx, vx in zip(lex30, exact30)]
+    if not all(walk_trio_agrees(t, lx, 30) for t, lx in zip(walk_trios, lex30)):
+        raise AssertionError("the sharded walk tier's lexical or fused lists disagree")
+    walk_parity = float(np.mean([recall10(t["fused"], h) for t, h in zip(walk_trios, host)]))
+    walk_recall = float(np.mean([recall10(t["vec"], e) for t, e in zip(walk_trios, exact30)]))
+    vec_recall = float(np.mean([recall10([(h["id"], h["score"]) for h in got], want)
+                                for got, want in zip(vec_hits, exact10)]))
+    out.update(walk={"p50_ms": pctl(lat_w, 50), "p99_ms": pctl(lat_w, 99),
+                     "walk_parity_recall_at_10": walk_parity, "vector_recall_at_10": walk_recall},
+               cagra_profile={"p50_ms": pctl(lat_v, 50), "p99_ms": pctl(lat_v, 99),
+                              "recall_at_10": vec_recall},
+               int8={"p50_ms": pctl(lat_q, 50), "p99_ms": pctl(lat_q, 99),
+                     "parity_with_one_shard": int8_parity, "build_s": plane.build_s,
+                     "device_bytes": plane.device_bytes()},
+               launches=launches, phase_s=time.perf_counter() - t_phase)
+    log(f"shards (c): walk tier at {SHARDS} shards, {len(queries)} hybrid queries: p50 "
+        f"{out['walk']['p50_ms']:.3f} p99 {out['walk']['p99_ms']:.3f} ms, walk-parity recall@10 "
+        f"{walk_parity:.4f}, vector recall@10 {walk_recall:.4f} [{card}]")
+    log(f"shards (d): the cagra profile's vector search at {SHARDS} shards: p50 "
+        f"{out['cagra_profile']['p50_ms']:.3f} p99 {out['cagra_profile']['p99_ms']:.3f} ms, "
+        f"recall@10 {vec_recall:.4f} against exact=True [{card}]")
+    log(f"shards (e): int8 plane at NORNICDB_QUANT_SHARDS={SHARDS}: built in "
+        f"{plane.build_s['total']:.3f} s, {plane.device_bytes()} device bytes; {len(queries)} "
+        f"vector queries p50 {out['int8']['p50_ms']:.3f} p99 {out['int8']['p99_ms']:.3f} ms, "
+        f"answers tie-aware the 1-shard plane's at parity {int8_parity:.4f} [{card}]")
+    log(f"shards: launches {launches}; the block took {out['phase_s']:.2f} s")
+    if min(walk_parity, walk_recall, vec_recall) < RECALL_MIN:
+        raise AssertionError(f"sharded walks: parity {walk_parity:.4f}, vector {walk_recall:.4f},"
+                             f" profile {vec_recall:.4f} < {RECALL_MIN}")
+    if int8_parity != 1.0:
+        raise AssertionError(f"the {SHARDS}-shard int8 plane's parity {int8_parity:.4f} < 1")
+    if launches["cosine_topk"] < 1 or launches["flash_attention"] < 1:
+        raise AssertionError(f"a kernel of the shard block never launched: {launches}")
+    return launches
+
+
 def phase_quant_index(dev, idx, seed):
     """Phase 8 (b): the int8 plane over phase 5's deployment-scale index:
     build, bytes per vector, the transient peak of a B 64 batch, p50 at
@@ -6166,8 +6449,13 @@ def main() -> int:
         raise AssertionError(f"a kernel of (e)'s path never launched: {path_launches['apoc']}")
     lap("cypher")
     path_launches["quant"] = phase_quant_tiered(dev, corpus, bm25)
-    del corpus, bm25
     lap("quant_tiered")
+    path_launches["shards"] = phase_shards(
+        dev, corpus, bm25, card,
+        late=run_is_late(upcoming_s=SHARDS_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S))
+    del corpus, bm25
+    torch.cuda.empty_cache()
+    lap("shards")
     path_launches["memory"] = phase_memory(dev, args.seed, card)
     lap("memory")
     path_launches["heimdall"] = phase_heimdall(

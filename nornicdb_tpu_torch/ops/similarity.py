@@ -1,5 +1,5 @@
 """Cosine similarity + top-k, plain PyTorch (counterpart of
-``nornicdb_tpu/ops/similarity.py:27-145``).
+``nornicdb_tpu/ops/similarity.py:27-165``).
 
 These are the plain versions that the fused top-k kernel
 (``ops/topk.py``) is held against, and what its wrapper runs for tensors
@@ -14,7 +14,7 @@ planes' wide scans, where a sort of every score would cost more).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -44,6 +44,19 @@ def topk_stable(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     """Top-k along the last axis; equal scores keep the lower index first."""
     s, i = torch.sort(scores, dim=-1, descending=True, stable=True)
     return s[..., :k], i[..., :k]
+
+
+def concat_topk(
+    scores_parts: Sequence[torch.Tensor], ids_parts: Sequence[torch.Tensor], k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard top-k blocks (the reference's ``concat_topk``):
+    the [B, k_i] parts concatenated in shard order, one global top-k, the
+    ids gathered at the winning positions. Equal scores keep the lower
+    concatenated position, as ``lax.top_k`` does, not the lower id."""
+    all_s = torch.cat(list(scores_parts), dim=1)
+    all_i = torch.cat(list(ids_parts), dim=1)
+    top_s, pos = topk_stable(all_s, k)
+    return top_s, torch.gather(all_i, 1, pos)
 
 
 _LOW32 = 0xFFFFFFFF

@@ -68,7 +68,9 @@ PROFILES = {
 
 
 def cagra_shards_from_env(default: int = 1) -> int:
-    """NORNICDB_CAGRA_SHARDS: row-shard count for the cagra tier."""
+    """NORNICDB_CAGRA_SHARDS: row-shard count for the cagra tier, read by
+    the service when it builds the strategy's graph; one card serves the
+    shards through ``CagraIndex._walk_shards_single_device``."""
     return max(1, env_int("CAGRA_SHARDS", default))
 
 

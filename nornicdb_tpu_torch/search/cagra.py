@@ -1,5 +1,5 @@
 """Device graph ANN: a CAGRA-style fixed-out-degree index (counterpart
-of ``nornicdb_tpu/search/cagra.py``, one device, float32).
+of ``nornicdb_tpu/search/cagra.py``, one device).
 
 - **Build.** A k-NN graph from B1, the fused cosine top-k
   (``ops/topk.py:fused_cosine_topk``), in chunks of 1,024 queries at
@@ -45,7 +45,18 @@ for the batch leader (``audit.note_batch_tier``: ``vector_walk_f32`` or
 degrade-ledger record, and the walk steps down while the shadow-parity
 auditor quarantines its tier or the admission posture is ``degrade`` or
 worse (reasons ``quarantine``, ``admission``). A background rebuild runs on
-the background admission lane. The sharded walks wait for a later slice.
+the background admission lane.
+
+With ``n_shards`` > 1 (``NORNICDB_CAGRA_SHARDS`` on the ``cagra`` profile,
+``NORNICDB_HYBRID_SHARDS`` on the fused tier's own graph) the build takes
+the reference's layout: live row ``i`` goes to shard ``i // ceil(n / s)``,
+each shard padded to ``rows_per_shard = pad_dim(ceil(n / s))`` rows with a
+graph over its own rows (B1 k-NN and the reorder per shard), sliced once
+(``shard_slices``). A walk then runs each shard apart and merges them in
+shard order (``_walk_shards_single_device``, ``ops/similarity.py:concat_topk``),
+the reference's loop for more shards than devices. A sharded graph keeps
+float32 under quant (the quantized walks are one-shard), counted as
+``quant_shards``.
 """
 
 from __future__ import annotations
@@ -65,7 +76,13 @@ from nornicdb_tpu_torch.config import env_int
 from nornicdb_tpu_torch.obs import REGISTRY, declare_kind, record_dispatch
 from nornicdb_tpu_torch.obs import audit as _audit
 from nornicdb_tpu_torch.obs import cost as _cost
-from nornicdb_tpu_torch.ops.similarity import NEG_INF, l2_normalize, pad_dim, topk_stable
+from nornicdb_tpu_torch.ops.similarity import (
+    NEG_INF,
+    concat_topk,
+    l2_normalize,
+    pad_dim,
+    topk_stable,
+)
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
 from nornicdb_tpu_torch.search.ann_quality import CAGRA_ITOPK, CAGRA_WIDTH
 from nornicdb_tpu_torch.search.device_quant import (
@@ -288,7 +305,8 @@ class CagraIndex:
     that merged post-build writes, ``fallback_<reason>`` per batch the
     brute index answered at a named step (``itopk_exceeded``,
     ``changelog_overrun``, ``underfill``), ``background_rebuild`` per
-    rebuild started off the search path. ``build_s`` splits the latest
+    rebuild started off the search path, ``quant_shards`` per build that
+    kept float32 under quant because it is sharded. ``build_s`` splits the latest
     build into ``device_copy``, ``knn_forward``, ``reorder``, ``quantize``
     and ``total`` host seconds."""
 
@@ -302,6 +320,7 @@ class CagraIndex:
         hash_bits: int = 16,
         n_seeds: int = 1024,
         min_n: int = 4096,
+        n_shards: int = 1,
         rebuild_stale_frac: float = 0.1,
         build_inline: bool = True,
         brute: Optional[BruteForceIndex] = None,
@@ -316,6 +335,7 @@ class CagraIndex:
         self.hash_bits = hash_bits
         self.n_seeds = n_seeds
         self.min_n = min_n
+        self.n_shards = max(1, n_shards)
         self.rebuild_stale_frac = rebuild_stale_frac
         # False defers even the first build to a background thread (the
         # brute index answers until it lands); True blocks once
@@ -384,40 +404,63 @@ class CagraIndex:
         if n < self.min_n:
             self._graph = None
             return False
-        r = pad_dim(n)
-        mat = np.zeros((r, matrix.shape[1]), dtype=np.float32)
-        mat[:n] = matrix[live]
+        # shard sh holds live rows [sh * base, (sh + 1) * base) at sh * r; a
+        # last shard may be empty
+        s_n = self.n_shards
+        base = -(-n // s_n)
+        r = pad_dim(base)
+        spans = [(sh, sh * base, min((sh + 1) * base, n)) for sh in range(s_n)]
+        spans = [(sh, lo, hi) for sh, lo, hi in spans if lo < hi]
+        mat = np.zeros((s_n * r, matrix.shape[1]), dtype=np.float32)
+        validf = np.zeros((s_n * r,), dtype=np.float32)
+        row_ids: List[Optional[str]] = [None] * (s_n * r)
+        for sh, lo, hi in spans:
+            at = slice(sh * r, sh * r + hi - lo)
+            mat[at] = matrix[live[lo:hi]]
+            validf[at] = 1.0
+            row_ids[at] = [ext_ids[i] for i in live[lo:hi]]
         t1 = time.perf_counter()
         mat_dev = torch.from_numpy(mat).to(self.device)
         t2 = time.perf_counter()
-        fwd = knn_forward(mat_dev[:n], self.degree)
+        # each shard's graph over its own rows: B1 k-NN, then the reorder
+        fwds = [knn_forward(mat_dev[sh * r:sh * r + hi - lo], self.degree)
+                for sh, lo, hi in spans]
         t3 = time.perf_counter()
-        adj = np.zeros((r, self.degree), dtype=np.int32)
-        adj[:n] = rank_reorder(fwd, self.degree)
-        validf = np.zeros((r,), dtype=np.float32)
-        validf[:n] = 1.0
+        adj = np.zeros((s_n * r, self.degree), dtype=np.int32)
+        for (sh, lo, hi), fwd in zip(spans, fwds):
+            adj[sh * r:sh * r + hi - lo] = rank_reorder(fwd, self.degree)
         t4 = time.perf_counter()
         quant = None
         if quant_mode() != "off":
-            # None: a PQ gap (indivisible dims, too few rows), the f32 base serves
-            quant = quantize_graph_base(mat, self.device)
-            if quant is not None and quant["mode"] == "int8":
-                quant["keep"] = max(8, env_int(
-                    "QUANT_WALK_KEEP", (3 * self.search_width * self.degree) // 4))
+            if s_n == 1:
+                # None: a PQ gap (indivisible dims, too few rows), the f32 base serves
+                quant = quantize_graph_base(mat, self.device)
+                if quant is not None and quant["mode"] == "int8":
+                    quant["keep"] = max(8, env_int(
+                        "QUANT_WALK_KEEP", (3 * self.search_width * self.degree) // 4))
+            else:
+                # the quantized walks are one-shard: a sharded graph keeps float32
+                self.counts["quant_shards"] += 1
         t_q = time.perf_counter()
         graph = {
             "n": n,
-            "rows": r,
+            "shards": s_n,
+            "rows_per_shard": r,
             # under quant the float32 rows stay on the host (the rerank's)
             "matrix": mat if quant is not None else mat_dev,
             "quant": quant,
             "adj": torch.from_numpy(adj).to(self.device),
             "validf": torch.from_numpy(validf).to(self.device),
-            "row_ids": [ext_ids[i] for i in live] + [None] * (r - n),
+            "row_ids": row_ids,
             "iters": self.iters if self.iters is not None else self._auto_iters(n),
             "built_mutations": mutations,
             "build_seq": next(_BUILD_SEQ),
         }
+        if s_n > 1:
+            # cut once: each walk reads its shard's rows, adjacency and flags
+            graph["shard_slices"] = [
+                tuple(graph[key][sh * r:(sh + 1) * r] for key in ("matrix", "adj", "validf"))
+                for sh in range(s_n)]
         t5 = time.perf_counter()
         self._graph = graph
         self.builds += 1
@@ -516,7 +559,7 @@ class CagraIndex:
         return {
             **stats,
             "rows": g["n"] if g is not None else 0,
-            "capacity": g["rows"] if g is not None else 0,
+            "capacity": (g["shards"] * g["rows_per_shard"]) if g is not None else 0,
             "device_bytes": self.device_bytes(),
             "host_bytes": (8 * len(g["row_ids"]) + host_extra) if g is not None else 0,
             "mutation_gap": (self._brute.mutations - g["built_mutations"]) if g is not None else 0,
@@ -532,6 +575,7 @@ class CagraIndex:
             "n_alive": len(self._brute),
             "graph_built": g is not None,
             "graph_n": g["n"] if g else 0,
+            "shards": g["shards"] if g else 0,
             "degree": self.degree,
             "itopk": self.itopk,
             "iters": g["iters"] if g else None,
@@ -595,8 +639,11 @@ class CagraIndex:
         w = width or self.search_width
         t0 = time.time()
         if quant is None:
-            s, i = walk_body(qn, g["matrix"], g["adj"], g["validf"], kb, n_iters, w, p,
-                             self.hash_bits, self.n_seeds)
+            if g["shards"] == 1:
+                s, i = walk_body(qn, g["matrix"], g["adj"], g["validf"], kb, n_iters, w, p,
+                                 self.hash_bits, self.n_seeds)
+            else:
+                s, i = self._walk_shards_single_device(g, qn, kb, n_iters, w, p)
             s, i = s.cpu().numpy(), i.cpu().numpy()
         else:
             s, i = self._walk_quant(g, qn, kb, n_iters, w, p)
@@ -636,6 +683,21 @@ class CagraIndex:
             return self._fallback("underfill", queries, k, tier, g)
         _audit.note_batch_tier(tier)
         return out
+
+    def _walk_shards_single_device(self, g, qn, kb, n_iters, w, p):
+        """The sharded graph on one device (the reference's
+        ``_walk_shards_single_device``): a walk of each shard's own rows,
+        rows made global at ``sh * rows_per_shard``, merged in shard order
+        by ``concat_topk``. Each shard is walked apart, so the answer need
+        not equal one walk of all rows: it is held by recall."""
+        r = g["rows_per_shard"]
+        parts_s, parts_i = [], []
+        for sh, (m_sh, a_sh, v_sh) in enumerate(g["shard_slices"]):
+            s, i = walk_body(qn, m_sh, a_sh, v_sh, kb, n_iters, w, p, self.hash_bits,
+                             self.n_seeds)
+            parts_s.append(s)
+            parts_i.append(i.to(torch.int64) + sh * r)
+        return concat_topk(parts_s, parts_i, kb)
 
     def _walk_quant(self, g, qn, kb, n_iters, w, p):
         """The walk over the quantized base, then the whole pool re-scored

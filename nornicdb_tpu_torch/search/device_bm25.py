@@ -1,6 +1,6 @@
 """Device BM25: batched Okapi scoring over CSR postings on the card
-(counterpart of ``nornicdb_tpu/search/device_bm25.py:DeviceBM25``, one
-shard).
+(counterpart of ``nornicdb_tpu/search/device_bm25.py:DeviceBM25``, its
+one-shard program and its sharded layout's single-device loop).
 
 - **Layout.** The live postings flatten into CSR columns on the device
   (per-term offset ranges, kept on the host, over ``(doc_row, tf)``
@@ -20,6 +20,13 @@ shard).
   entry columns are not padded to powers of two (that bounds XLA's
   compile cache), so no overflow row is needed; the int32 rule of
   ``PlanOverflow`` still holds, so the same batches degrade.
+- **Shards.** With ``n_shards`` > 1 (``NORNICDB_HYBRID_SHARDS`` through
+  the fused tier) the snapshot takes the reference's row-sharded layout
+  (``shard_layout``) and a batch is scored shard by shard, each shard's
+  top-k made global and merged in shard order (``topk_shards``, through
+  ``ops/similarity.py:concat_topk``): the reference's loop for more
+  shards than devices, which its mesh path matches bitwise. One card
+  holds every shard.
 - **Freshness.** The snapshot records the index's mutation generation.
   Tombstones are filtered per slot (``refresh_alive``; df comes from the
   live counters), adds and updates ride the index's capped changelog
@@ -50,7 +57,7 @@ from nornicdb_tpu_torch import admission as _adm
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device
 from nornicdb_tpu_torch.obs import REGISTRY, declare_kind, record_dispatch
 from nornicdb_tpu_torch.obs import cost as _cost
-from nornicdb_tpu_torch.ops.similarity import NEG_INF, pad_dim, topk_stable
+from nornicdb_tpu_torch.ops.similarity import NEG_INF, concat_topk, pad_dim, topk_stable
 from nornicdb_tpu_torch.search.bm25 import B, K1, BM25Index, tokenize
 from nornicdb_tpu_torch.search.microbatch import pow2_bucket
 
@@ -117,21 +124,111 @@ def bm25_dense_scores(
                        torch.full_like(dense, NEG_INF))
 
 
+def shard_layout(base: Dict[str, Any], s_n: int) -> Dict[str, Any]:
+    """The host arrays of a snapshot of ``s_n`` row shards over a
+    ``csr_snapshot`` (the reference's layout, ``device_bm25.py:251-310``):
+    shard ``sh`` holds rows ``[sh * base_rows, (sh + 1) * base_rows)`` with
+    ``base_rows = ceil(n / s_n)``, at ``sh * c_local`` with ``c_local =
+    pad_dim(base_rows)``; every term's (ascending-row) posting range is
+    split at the shard edges, its rows made shard-local, and each shard's
+    postings padded to one ``p_cap``. A last shard may be empty. One shard
+    keeps its postings unpadded."""
+    n = len(base["row_ids"])
+    offsets, post_doc, post_tf = base["offsets"], base["post_doc"], base["post_tf"]
+    base_rows = -(-n // s_n)
+    c_local = pad_dim(base_rows)
+    if s_n == 1:
+        off_sh = offsets[None, :]
+        p_cap = len(post_doc)
+        pd_all = post_doc.astype(np.int32)
+        pt_all = post_tf
+    else:
+        n_terms = len(offsets) - 1
+        off_sh = np.zeros((s_n, n_terms + 1), dtype=np.int64)
+        doc_lists: List[List[np.ndarray]] = [[] for _ in range(s_n)]
+        tf_lists: List[List[np.ndarray]] = [[] for _ in range(s_n)]
+        edges = np.arange(s_n + 1, dtype=np.int64) * base_rows
+        for ti in range(n_terms):
+            lo, hi = offsets[ti], offsets[ti + 1]
+            docs = post_doc[lo:hi]
+            bounds = np.searchsorted(docs, edges)
+            for sh in range(s_n):
+                a, b = bounds[sh], bounds[sh + 1]
+                doc_lists[sh].append(docs[a:b] - sh * base_rows)
+                tf_lists[sh].append(post_tf[lo + a:lo + b])
+                off_sh[sh, ti + 1] = off_sh[sh, ti] + (b - a)
+        doc_parts = [np.concatenate(d) if d else np.zeros(0, np.int32) for d in doc_lists]
+        tf_parts = [np.concatenate(t) if t else np.zeros(0, np.float32) for t in tf_lists]
+        p_cap = pad_dim(max(max(len(d) for d in doc_parts), 1))
+        pd_all = np.zeros((s_n, p_cap), dtype=np.int32)
+        pt_all = np.zeros((s_n, p_cap), dtype=np.float32)
+        for sh in range(s_n):
+            pd_all[sh, :len(doc_parts[sh])] = doc_parts[sh]
+            pt_all[sh, :len(tf_parts[sh])] = tf_parts[sh]
+        pd_all, pt_all = pd_all.reshape(-1), pt_all.reshape(-1)
+    c = s_n * c_local
+    doc_len = np.zeros(c, dtype=np.float32)
+    alive = np.zeros(c, dtype=bool)
+    slots = np.full(c, -1, dtype=np.int64)
+    row_ids: List[Optional[str]] = [None] * c
+    for sh in range(s_n):
+        lo, hi = sh * base_rows, min((sh + 1) * base_rows, n)
+        if lo >= hi:
+            continue
+        at = slice(sh * c_local, sh * c_local + hi - lo)
+        doc_len[at] = base["doc_len"][lo:hi]
+        alive[at] = True
+        slots[at] = base["slots"][lo:hi]
+        row_ids[at] = base["row_ids"][lo:hi]
+    return {"shards": s_n, "c_local": c_local, "c": c, "p_cap": p_cap, "off_sh": off_sh,
+            "post_doc": pd_all, "post_tf": pt_all, "doc_len": doc_len, "alive_np": alive,
+            "slots": slots, "row_ids": row_ids}
+
+
+def shard_args(snap: Dict[str, Any], args: Sequence, sh: int) -> Tuple:
+    """Shard ``sh``'s part of ``DeviceBM25.device_args``'s columns, in the
+    argument order of ``bm25_dense_scores``: its planned entries and its
+    postings, doc lengths and alive flags, all shard-local."""
+    ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl = args
+    posts = slice(sh * snap["p_cap"], (sh + 1) * snap["p_cap"])
+    rows = slice(sh * snap["c_local"], (sh + 1) * snap["c_local"])
+    return (ptr[sh], urow[sh], sel, post_doc[posts], post_tf[posts], doc_len[rows],
+            alive[rows], avgdl)
+
+
+def topk_shards(snap: Dict[str, Any], args: Sequence, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sharded layout's loop on one device (the reference's
+    ``_topk_shards_single_device``): each shard's top ``min(k, c_local)``
+    of its own rows, made global at ``sh * c_local``, merged in shard
+    order by ``concat_topk``."""
+    c_local = snap["c_local"]
+    parts_s, parts_i = [], []
+    for sh in range(snap["shards"]):
+        s, i = topk_stable(bm25_dense_scores(*shard_args(snap, args, sh)), min(k, c_local))
+        parts_s.append(s)
+        parts_i.append(i + sh * c_local)
+    return concat_topk(parts_s, parts_i, k)
+
+
 class DeviceBM25:
     """Batched device BM25 over a wrapped host :class:`BM25Index`, which
     stays the mutable source of truth. Below ``min_n`` live docs, or
     while the first build runs in the background, the host index serves.
+    ``n_shards`` > 1 lays the snapshot out in row shards (``shard_layout``),
+    scored shard by shard and merged (``topk_shards``).
     """
 
     def __init__(
         self,
         bm25: BM25Index,
+        n_shards: int = 1,
         min_n: int = 256,
         rebuild_stale_frac: float = 0.1,
         build_inline: bool = True,
         device: DeviceLike = None,
     ):
         self.bm25 = bm25
+        self.n_shards = max(1, n_shards)
         self.min_n = min_n
         self.rebuild_stale_frac = rebuild_stale_frac
         # False defers even the first build to a background thread (the
@@ -167,32 +264,21 @@ class DeviceBM25:
             if n < self.min_n:
                 self._snap = None
                 return False
-            c = pad_dim(n)
-            doc_len = np.zeros(c, dtype=np.float32)
-            doc_len[:n] = base["doc_len"]
-            alive = np.zeros(c, dtype=bool)
-            alive[:n] = True
-            slots = np.full(c, -1, dtype=np.int64)
-            slots[:n] = base["slots"]
+            snap = shard_layout(base, self.n_shards)
             dev = self.device
-            snap = {
-                "n": n,
-                "c": c,
-                "built_gen": base["gen"],
-                "built_compactions": base["compactions"],
-                "vocab": base["vocab"],
-                "offsets": base["offsets"],
-                "post_doc": torch.from_numpy(
-                    base["post_doc"].astype(np.int32)).to(dev),
-                "post_tf": torch.from_numpy(_counts16(base["post_tf"])).to(dev),
-                "doc_len": torch.from_numpy(_counts16(doc_len)).to(dev),
-                "alive_np": alive,
-                "alive": torch.from_numpy(alive).to(dev),
-                "alive_tombstones": base["tombstones"],
-                "row_ids": base["row_ids"] + [None] * (c - n),
-                "row_of": {e: r for r, e in enumerate(base["row_ids"])},
-                "slots": slots,
-            }
+            row_ids = snap["row_ids"]
+            snap.update(
+                n=n,
+                built_gen=base["gen"],
+                built_compactions=base["compactions"],
+                vocab=base["vocab"],
+                post_doc=torch.from_numpy(snap["post_doc"]).to(dev),
+                post_tf=torch.from_numpy(_counts16(snap["post_tf"])).to(dev),
+                doc_len=torch.from_numpy(_counts16(snap["doc_len"])).to(dev),
+                alive=torch.from_numpy(snap["alive_np"]).to(dev),
+                alive_tombstones=base["tombstones"],
+                row_of={e: r for r, e in enumerate(row_ids) if e is not None},
+            )
             if snap["post_tf"].dtype == torch.int16 or snap["doc_len"].dtype == torch.int16:
                 _LEX_C.labels("quant_cols").inc()
             self._snap = snap
@@ -263,7 +349,7 @@ class DeviceBM25:
             "rows": snap["n"] if snap is not None else 0,
             "capacity": snap["c"] if snap is not None else 0,
             "device_bytes": self.device_bytes(),
-            "host_bytes": ((snap["offsets"].nbytes + snap["slots"].nbytes
+            "host_bytes": ((snap["off_sh"].nbytes + snap["slots"].nbytes
                             + 8 * len(snap["row_ids"])) if snap is not None else 0),
             "mutation_gap": (self.bm25.mut_gen - snap["built_gen"]) if snap is not None else 0,
             "rebuild_in_flight": 1.0 if self._rebuilding else 0.0,
@@ -344,16 +430,16 @@ class DeviceBM25:
 
     # -- planning (host side of a batch) ----------------------------------
 
-    def plan(
-        self, snap: Dict[str, Any], token_rows: Sequence[Sequence[str]],
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.float32]:
+    def plan(self, snap: Dict[str, Any], token_rows: Sequence[Sequence[str]]) -> Tuple:
         """Entry columns (posting, term row), the [B, U] idf-weighted
         selection matrix and the current avgdl for a tokenized batch.
         Terms are deduped across the batch and kept in sorted order (the
         host's accumulation order); idf comes from the live df counters,
-        so deletes correct df without a rebuild."""
+        so deletes correct df without a rebuild. A sharded snapshot gets
+        one (posting, term row) pair of columns per shard, in lists, its
+        postings shard-local."""
         vocab = snap["vocab"]
-        offsets = snap["offsets"]
+        off_sh = snap["off_sh"]
         uniq_all = sorted({t for row in token_rows for t in row})
         dfs, n_alive, avgdl = self.bm25.term_stats(uniq_all)
         self._plan_cost.stats = (float(sum(dfs.values())), len(uniq_all))
@@ -367,7 +453,8 @@ class DeviceBM25:
                 u_of[t] = len(terms)
                 terms.append(t)
                 idfs.append(np.float32(math.log(1.0 + (n - df + 0.5) / (df + 0.5))))
-        if (pow2_bucket(max(len(terms), 1)) + 1) * snap["c"] > 2**31 - 1:
+        # the reference's id space is one shard's: (U + 1) * c_local
+        if (pow2_bucket(max(len(terms), 1)) + 1) * (snap["c"] // snap["shards"]) > 2**31 - 1:
             raise PlanOverflow
         sel = np.zeros((len(token_rows), len(terms)), dtype=np.float32)
         for qi, row in enumerate(token_rows):
@@ -375,23 +462,33 @@ class DeviceBM25:
                 ui = u_of.get(t)
                 if ui is not None:
                     sel[qi, ui] = idfs[ui]
-        ptr_parts: List[np.ndarray] = []
-        counts: List[int] = []
-        for t in terms:
-            ti = vocab[t]
-            a, b = int(offsets[ti]), int(offsets[ti + 1])
-            ptr_parts.append(np.arange(a, b, dtype=np.int64))
-            counts.append(b - a)
-        ptr = np.concatenate(ptr_parts) if ptr_parts else np.zeros(0, np.int64)
-        urow = np.repeat(np.arange(len(terms), dtype=np.int64), counts)
-        return ptr, urow, sel, np.float32(avgdl)
+        ptrs, urows = [], []
+        for sh in range(snap["shards"]):
+            ptr_parts: List[np.ndarray] = []
+            counts: List[int] = []
+            for t in terms:
+                ti = vocab[t]
+                a, b = int(off_sh[sh, ti]), int(off_sh[sh, ti + 1])
+                ptr_parts.append(np.arange(a, b, dtype=np.int64))
+                counts.append(b - a)
+            ptrs.append(np.concatenate(ptr_parts) if ptr_parts else np.zeros(0, np.int64))
+            urows.append(np.repeat(np.arange(len(terms), dtype=np.int64), counts))
+        if snap["shards"] == 1:
+            return ptrs[0], urows[0], sel, np.float32(avgdl)
+        return ptrs, urows, sel, np.float32(avgdl)
 
-    def device_args(self, snap, ptr, urow, sel, avgdl) -> Tuple[torch.Tensor, ...]:
+    def device_args(self, snap, ptr, urow, sel, avgdl) -> Tuple:
         """A plan's columns on the device, with the snapshot's, in the
-        argument order of ``bm25_dense_scores``."""
+        argument order of ``bm25_dense_scores`` (a sharded plan's entry
+        columns stay lists, one tensor a shard: ``shard_args``)."""
         dev = self.device
-        return (torch.from_numpy(ptr).to(dev), torch.from_numpy(urow).to(dev),
-                torch.from_numpy(sel).to(dev), snap["post_doc"],
+
+        def put(x):
+            if isinstance(x, list):
+                return [torch.from_numpy(a).to(dev) for a in x]
+            return torch.from_numpy(x).to(dev)
+
+        return (put(ptr), put(urow), torch.from_numpy(sel).to(dev), snap["post_doc"],
                 snap["post_tf"], snap["doc_len"], snap["alive"],
                 torch.tensor(avgdl, dtype=torch.float32, device=dev))
 
@@ -431,7 +528,10 @@ class DeviceBM25:
             self.events["host_overflow"] += 1
             _LEX_C.labels("host_fallback_overflow").inc()
             return self.bm25.search_batch(queries, k)
-        s, i = topk_stable(bm25_dense_scores(*args), kb)
+        if snap["shards"] == 1:
+            s, i = topk_stable(bm25_dense_scores(*args), kb)
+        else:
+            s, i = topk_shards(snap, args, kb)
         s, i = s.cpu().numpy(), i.cpu().numpy()  # to the host inside the timed window
         record_dispatch("bm25_score", pow2_bucket(b), kb, time.time() - t0)
         # the batch's unique-term posting mass (each scattered once) plus

@@ -40,8 +40,14 @@ one degrade-ledger record per step down, and the serving tier noted for
 the batch leader (``vector_int8``, ``vector_pq``). The plane steps down
 while the shadow-parity auditor quarantines its tier or the admission
 posture is ``degrade`` or worse; its rebuild runs on the background
-admission lane. The sharded int8 plane waits for the multi-device slice
-(ROADMAP §A10).
+admission lane.
+
+``NORNICDB_QUANT_SHARDS`` > 1 splits the int8 plane's columns into equal
+row shards, scored and cut apart and merged in shard order
+(``int8_topk_shards``, the reference's loop for more shards than devices,
+which answers the one-shard coarse pool). A capacity that does not split
+evenly keeps one shard, as the reference's does, and so does PQ, whose ADC
+scan the reference runs as one shard; each is counted.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from nornicdb_tpu_torch.obs import cost as _cost
 from nornicdb_tpu_torch.ops.kmeans import kmeans_fit, train_subspace_codebooks
 from nornicdb_tpu_torch.ops.similarity import (
     NEG_INF,
+    concat_topk,
     keys_topk,
     l2_normalize,
     order_keys,
@@ -186,6 +193,22 @@ def _int8_topk_impl(qn, codes_t, scale, valid, k):
     d, c = codes_t.shape
     return _chunked_topk(lambda lo, hi: _int8_scores(qn, codes_t, scale, lo, hi),
                          valid, c, _int8_chunks(d, c), min(k, c))
+
+
+def int8_topk_shards(qn, codes_t, scale, valid, k, n_shards):
+    """The sharded int8 coarse top-k on one device (the reference's
+    ``int8_topk_shard_reference``): each of ``n_shards`` equal column
+    slices of the codes scored and cut to its top ``min(k, C / n_shards)``,
+    rows made global, merged in shard order by ``concat_topk``."""
+    c_local = codes_t.shape[1] // n_shards
+    parts_s, parts_i = [], []
+    for sh in range(n_shards):
+        cols = slice(sh * c_local, (sh + 1) * c_local)
+        s, i = _int8_topk_impl(qn, codes_t[:, cols], scale[cols], valid[cols],
+                               min(k, c_local))
+        parts_s.append(s)
+        parts_i.append(i + sh * c_local)
+    return concat_topk(parts_s, parts_i, k)
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +512,10 @@ class QuantizedBrutePlane:
     ``counts``: ``build``, ``background_rebuild``, ``dispatch`` and
     ``delta_merge`` per event; ``degrade_<reason>`` per batch handed to the
     float32 tier at a named gap (``pending_build``, ``compaction``,
-    ``changelog_overrun``, ``rerank_race``, ``underfill``). ``build_s``
+    ``changelog_overrun``, ``rerank_race``, ``underfill``);
+    ``shards_unshardable`` per int8 build whose capacity does not split
+    into ``n_shards`` equal shards and ``shards_pq`` per PQ build (the ADC
+    scan is one-shard), each built as one shard. ``build_s``
     splits the latest build by part (``snapshot``, ``kmeans`` and
     ``codebooks`` for PQ, ``encode``, ``total``)."""
 
@@ -497,6 +523,7 @@ class QuantizedBrutePlane:
         self,
         brute,
         mode: Optional[str] = None,
+        n_shards: int = 1,
         rebuild_stale_frac: float = 0.1,
         build_inline: bool = False,
         pq_m: Optional[int] = None,
@@ -507,6 +534,7 @@ class QuantizedBrutePlane:
         self.brute = brute
         self.device = brute.device
         self._mode = mode
+        self.n_shards = max(1, n_shards)
         self.rebuild_stale_frac = rebuild_stale_frac
         self.build_inline = build_inline
         self.pq_m = pq_m
@@ -568,7 +596,14 @@ class QuantizedBrutePlane:
             return False
         cap, d = matrix.shape
         dev = self.device
-        snap = {"mode": mode, "capacity": cap, "dims": d, "rows": n_alive,
+        s_n = self.n_shards
+        if s_n > 1 and mode == "pq":
+            self.counts["shards_pq"] += 1
+            s_n = 1
+        elif cap % s_n:
+            self.counts["shards_unshardable"] += 1
+            s_n = 1
+        snap = {"mode": mode, "capacity": cap, "dims": d, "rows": n_alive, "shards": s_n,
                 "built_mutations": mutations, "built_compactions": brute.compactions,
                 "build_seq": next(_BUILD_SEQ)}
         t1 = time.perf_counter()
@@ -655,7 +690,11 @@ class QuantizedBrutePlane:
         b = int(qn.shape[0])
         t0 = time.time()
         if snap["mode"] == "int8":
-            s, i = _int8_topk_impl(qn, snap["codes_t"], snap["scale"], snap["valid"], pool)
+            if snap["shards"] == 1:
+                s, i = _int8_topk_impl(qn, snap["codes_t"], snap["scale"], snap["valid"], pool)
+            else:
+                s, i = int8_topk_shards(qn, snap["codes_t"], snap["scale"], snap["valid"],
+                                        pool, snap["shards"])
             kind = "int8_coarse"
             flops, byts = _cost.price_int8_coarse(b, snap["capacity"], snap["dims"])
         else:

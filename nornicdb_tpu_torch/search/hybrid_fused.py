@@ -1,8 +1,9 @@
 """Fused hybrid search: BM25 + vector + RRF in one device dispatch
 (counterpart of ``nornicdb_tpu/search/hybrid_fused.py:FusedHybrid``, one
 device: its exact tier ``hybrid_brute_f32``, its walk tier
-``hybrid_walk_f32``, and their quantized forms ``hybrid_brute_int8`` /
-``hybrid_brute_pq`` and ``hybrid_walk_quant``).
+``hybrid_walk_f32``, their quantized forms ``hybrid_brute_int8`` /
+``hybrid_brute_pq`` and ``hybrid_walk_quant``, and the sharded layout's
+single-device loops).
 
 One dispatch takes a coalesced batch's query embeddings and its planned
 lexical entries and returns the RRF-fused ranking with both candidate
@@ -61,8 +62,23 @@ steps down to the float32 tier (never to the host), counted as
 ``quant_<reason>``: the plane not built yet (``pending_build``), a
 compaction, a changelog overrun, a write racing the join map
 (``vec_race``), a compaction during the rerank (``rerank_race``), an
-under-filled row (``underfill``). The sharded tiers wait for a later
-slice.
+under-filled row (``underfill``).
+
+**Shards.** ``n_shards`` > 1 (``NORNICDB_HYBRID_SHARDS``) lays the lexical
+snapshot out in row shards (``device_bm25.shard_layout``) and the tier's own
+graph in as many (``cagra.py``). Each float32 tier then runs the
+reference's loop for more shards than devices: every shard's lexical
+top-k and vector top-k (B1 over an equal slice of the brute matrix on
+the exact tier, ``_shard_loop``; a walk of the graph shard's own rows on
+the walk tier, ``_walk_shard_loop``), rows made global, merged in shard
+order (``merge_parts``) and fused once. The exact tier answers the
+one-shard lists, tie-aware; the sharded walk is held by recall. The
+reference's named gaps step down, each counted: a brute capacity that
+does not split into equal shards hands the batch to the host
+(``handoff_unshardable``), a graph of another shard count than the
+snapshot's sends the walk batch to the exact tier (``walk_shard_mismatch``),
+and a sharded snapshot keeps the float32 tiers under quant
+(``quant_shards``: the quantized programs are one-shard).
 
 **Observability.** The float32 tiers record what the reference's record:
 ``nornicdb_hybrid_fused_events_total`` by event (dispatches, host
@@ -107,6 +123,7 @@ from nornicdb_tpu_torch.search.device_bm25 import (
     PlanOverflow,
     SnapshotStale,
     bm25_dense_scores,
+    shard_args,
 )
 from nornicdb_tpu_torch.search.device_quant import (
     _int8_topk_impl,
@@ -131,10 +148,11 @@ declare_kind("hybrid_walk_fused_quant")
 
 TIER_BRUTE_F32 = "hybrid_brute_f32"
 # hand-offs to the host path the reference counts as host_fallback_<reason>
-_HOST_FALLBACK_EVENTS = ("changelog", "compaction", "overflow", "vec_race")
+_HOST_FALLBACK_EVENTS = ("changelog", "compaction", "overflow", "vec_race", "unshardable")
 # their degrade-ledger reasons
 _LEDGER_REASONS = {"changelog": "changelog_overrun", "compaction": "compaction",
-                   "overflow": "overflow", "vec_race": "vec_race"}
+                   "overflow": "overflow", "vec_race": "vec_race",
+                   "unshardable": "unshardable"}
 TIER_WALK_F32 = "hybrid_walk_f32"
 TIER_WALK_QUANT = "hybrid_walk_quant"
 
@@ -211,6 +229,33 @@ def _fuse(ls, lid, lgrow, vs, vi, n_cand, w_lex, w_vec, kq, c_vec):
     fs, fpos = rrf_fuse_device(ls, lid, lgrow, vs, vi, n_cand, w_lex, w_vec,
                                DEFAULT_RRF_K, c_vec)
     return ls, lgrow, vs, vi, fs, fpos
+
+
+def merge_parts(parts, kq):
+    """Per-shard (scores, aux...) blocks concatenated in shard order, one
+    top-k (ties to the lower concatenated position), every aux column
+    gathered at the winners; padded to ``kq`` columns (the reference's
+    ``_merge_parts``)."""
+    all_s = torch.cat([p[0] for p in parts], dim=1)
+    top_s, pos = topk_stable(all_s, min(kq, all_s.shape[1]))
+    out = [_pad_cols(top_s, kq, NEG_INF)]
+    for j in range(1, len(parts[0])):
+        aux = torch.cat([p[j] for p in parts], dim=1)
+        out.append(_pad_cols(torch.gather(aux, 1, pos), kq, 0))
+    return out
+
+
+def lex_parts_shards(snap, lex_args, l2map, kq):
+    """The lexical half of a sharded snapshot: each shard's ``lex_parts``
+    over its rows (joined through its slice of ``l2map``), rows made
+    global at ``sh * c_local``, merged in shard order."""
+    c_local = snap["c_local"]
+    parts = []
+    for sh in range(snap["shards"]):
+        rows = slice(sh * c_local, (sh + 1) * c_local)
+        ls, lid, lgrow = lex_parts(*shard_args(snap, lex_args, sh), l2map[rows], kq)
+        parts.append((ls, lid, lgrow + sh * c_local))
+    return merge_parts(parts, kq)
 
 
 def fused_single(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
@@ -292,7 +337,8 @@ class FusedHybrid:
     ``hybrid_brute_int8``, ``hybrid_brute_pq``, ``hybrid_walk_f32``,
     ``hybrid_walk_quant``, or ``host`` for a row re-fused on the host
     after a post-build write on a float32 tier); ``walk_<reason>`` and
-    ``quant_<reason>`` per batch handed to a lower tier;
+    ``quant_<reason>`` per batch handed to a lower tier (``walk_shard_mismatch``,
+    ``quant_shards`` among them);
     ``handoff_<reason>`` per batch handed to the host path; ``join_full``
     and ``join_patch`` per derivation of the row -> slot map."""
 
@@ -300,6 +346,7 @@ class FusedHybrid:
         self,
         bm25: BM25Index,
         brute: BruteForceIndex,
+        n_shards: int = 1,
         min_n: int = 256,
         rebuild_stale_frac: float = 0.1,
         build_inline: bool = True,
@@ -307,7 +354,8 @@ class FusedHybrid:
     ):
         self.bm25 = bm25
         self.brute = brute
-        self.lex = DeviceBM25(bm25, min_n=min_n,
+        self.n_shards = max(1, n_shards)
+        self.lex = DeviceBM25(bm25, n_shards=self.n_shards, min_n=min_n,
                               rebuild_stale_frac=rebuild_stale_frac,
                               build_inline=build_inline, device=brute.device)
         self.counts: Counter = Counter()
@@ -319,7 +367,7 @@ class FusedHybrid:
             p = current_profile()
             self.cagra = CagraIndex(brute=brute, degree=p.cagra_degree, itopk=p.cagra_itopk,
                                     search_width=p.cagra_width, min_n=walk_min_n,
-                                    build_inline=build_inline)
+                                    n_shards=self.n_shards, build_inline=build_inline)
         self._grow_cache: Optional[Tuple[int, Dict[str, int]]] = None
 
     def build(self) -> bool:
@@ -499,8 +547,14 @@ class FusedHybrid:
         l2v = self._ensure_map(snap, mutations)
         if l2v is None:
             return self._handoff("vec_race", b, snap)
+        if m.shape[0] % snap["shards"]:
+            # the brute capacity does not split into equal vector shards
+            return self._handoff("unshardable", b, snap)
         t0 = time.time()
-        out = fused_single(*lex_args, l2v, qn, m, valid, *tail, kq=kq)
+        if snap["shards"] == 1:
+            out = fused_single(*lex_args, l2v, qn, m, valid, *tail, kq=kq)
+        else:
+            out = self._shard_loop(snap, lex_args, l2v, qn, m, valid, tail, kq)
         ls, lgrow, vs, vi, fs, fpos = (x.cpu().numpy() for x in out)
         t1 = time.time()
         record_dispatch("hybrid_fused", pow2_bucket(b), kq, t1 - t0)
@@ -520,6 +574,40 @@ class FusedHybrid:
             row["times"] = times
         return rows
 
+    def _shard_loop(self, snap, lex_args, l2v, qn, m, valid, tail, kq):
+        """The exact tier over a sharded snapshot on one device (the
+        reference's ``_shard_loop``): each lexical shard's top-k, and B1
+        over each of ``shards`` equal slices of the brute matrix, made
+        global, merged in shard order (``merge_parts``), fused once over
+        the whole capacity. Returns what ``fused_single`` returns."""
+        s_n = snap["shards"]
+        ls, lid, lgrow = lex_parts_shards(snap, lex_args, l2v, kq)
+        c_vec = m.shape[0] // s_n
+        vec_parts = []
+        for sh in range(s_n):
+            rows = slice(sh * c_vec, (sh + 1) * c_vec)
+            vs, vi = fused_cosine_topk(qn, m[rows], valid[rows], kq)
+            vec_parts.append((vs, vi + sh * c_vec))
+        vs, vi = merge_parts(vec_parts, kq)
+        return _fuse(ls, lid, lgrow, vs, vi, *tail, kq, m.shape[0])
+
+    def _walk_shard_loop(self, snap, g, lex_args, l2g, qn, tail, kq, wctx):
+        """The walk tier over a sharded snapshot and graph on one device
+        (the reference's ``_walk_shard_loop``): each lexical shard's top-k
+        and a walk of each graph shard's own rows (``shard_slices``) at
+        ``min(kq, itopk)``, rows made global at ``sh * rows_per_shard``,
+        merged in shard order, fused once over the graph's capacity."""
+        ls, lid, lgrow = lex_parts_shards(snap, lex_args, l2g, kq)
+        r = g["rows_per_shard"]
+        kw = min(kq, wctx["itopk"])
+        vec_parts = []
+        for sh, (m_sh, a_sh, v_sh) in enumerate(g["shard_slices"]):
+            ws, wi = walk_body(qn, m_sh, a_sh, v_sh, kw, wctx["iters"], wctx["width"],
+                               wctx["itopk"], wctx["hash_bits"], wctx["n_seeds"])
+            vec_parts.append((ws, wi.to(torch.int64) + sh * r))
+        vs, vi = merge_parts(vec_parts, kq)
+        return _fuse(ls, lid, lgrow, vs, vi, *tail, kq, g["shards"] * r)
+
     # -- quantized brute tier ---------------------------------------------
 
     def _quant_context(self, snap) -> Optional[Dict[str, Any]]:
@@ -528,6 +616,11 @@ class FusedHybrid:
         counted, and ledgered as the reference does)."""
         mode = quant_mode()
         if mode == "off":
+            return None
+        if snap["shards"] != 1:
+            # the quantized programs are one-shard: a sharded snapshot
+            # keeps the float32 tier, as the reference's does
+            self.counts["quant_shards"] += 1
             return None
         hold = None
         if not _audit.tier_allowed(quant_tier(mode)):
@@ -657,7 +750,8 @@ class FusedHybrid:
             self.counts["walk_pending_build"] += 1
             _HYB_C.labels("walk_pending_build").inc()
             return None
-        tier = TIER_WALK_F32 if g["quant"] is None else TIER_WALK_QUANT
+        tier = (TIER_WALK_QUANT if snap["shards"] == 1 and g["quant"] is not None
+                else TIER_WALK_F32)
         hold = None
         if not _audit.tier_allowed(tier):
             hold = "quarantine"  # the shadow-parity auditor's breach
@@ -673,6 +767,12 @@ class FusedHybrid:
             self.counts["walk_itopk_exceeded"] += 1
             _HYB_C.labels("walk_fallback_itopk").inc()
             self._ledger(tier, TIER_BRUTE_F32, "itopk_exceeded", snap, g)
+            return None
+        if g["shards"] != snap["shards"]:
+            # the snapshot and the graph must share one shard layout
+            self.counts["walk_shard_mismatch"] += 1
+            _HYB_C.labels("walk_fallback_shards").inc()
+            self._ledger(tier, TIER_BRUTE_F32, "shard_mismatch", snap, g)
             return None
         delta_ids, delta_vecs = cagra.delta_block(g)
         if delta_ids is None:
@@ -697,7 +797,7 @@ class FusedHybrid:
         filter (or a walk miss) left a row short of the candidates the
         corpus has, and the exact tier must serve the batch."""
         g = wctx["g"]
-        quant = g["quant"]
+        quant = g["quant"]  # None on a sharded graph (whose snapshot _walk_context matched)
         # both sources at the pool's width, not kq: the fuse masks depth by
         # n_cand, and the spare columns give the live filter slack
         kp = wctx["itopk"]
@@ -705,8 +805,11 @@ class FusedHybrid:
                        hash_bits=wctx["hash_bits"], n_seeds=wctx["n_seeds"])
         t0 = time.time()
         if quant is None:
-            out = walk_fused_single(*lex_args, wctx["l2g"], qn, g["matrix"], g["adj"],
-                                    g["validf"], *tail, kq=kp, **statics)
+            if snap["shards"] == 1:
+                out = walk_fused_single(*lex_args, wctx["l2g"], qn, g["matrix"], g["adj"],
+                                        g["validf"], *tail, kq=kp, **statics)
+            else:
+                out = self._walk_shard_loop(snap, g, lex_args, wctx["l2g"], qn, tail, kp, wctx)
             ls, lgrow, vs, vi, fs, fpos = (x.cpu().numpy() for x in out)
         else:
             if quant["mode"] == "pq":

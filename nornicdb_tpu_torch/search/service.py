@@ -35,6 +35,14 @@ live vectors and the CAGRA walk at and above it, once its graph is built
 (``NORNICDB_HYBRID_WALK=0`` keeps it exact); the walk shares the
 ``cagra`` strategy's graph when there is one. Unlike the reference, an
 error on the fused path raises instead of falling back to the host.
+Three knobs lay the device tiers out in row shards, served on this one
+card by the reference's single-device loops: ``NORNICDB_HYBRID_SHARDS``
+(the fused tier's snapshot and its own graph), ``NORNICDB_CAGRA_SHARDS``
+(the ``cagra`` strategy's graph) and ``NORNICDB_QUANT_SHARDS`` (the int8
+plane, ``vector_index.py``); each is read where the reference reads it,
+when its tier is created, and a value below 1 or not a number reads as 1.
+A walk tier whose graph has another shard count than the snapshot steps
+down to the exact tier (``walk_shard_mismatch``).
 With a ``reranker`` (``rerank.py``) the whole fused overfetch is reranked
 and then cut to ``limit``, uncached; a ``RuntimeError`` from it raises
 (ROADMAP C29), any other error keeps the fused order. ``similar`` finds
@@ -54,8 +62,8 @@ shadow-parity auditor with an exact reference closure (host BM25, exact
 brute force, ``rrf_fuse``); a device fault the auditor raises passes
 through the sampling wrappers (ROADMAP C31). A deadline miss in the fused
 ride raises ``DeadlineExceeded`` (C7: the fused path fails closed), where
-the reference serves the host path. The sharded hybrid tiers and the IVF
-backends wait for later slices.
+the reference serves the host path. The IVF backends wait for a later
+slice.
 """
 
 from __future__ import annotations
@@ -79,7 +87,7 @@ from nornicdb_tpu_torch.errors import is_device_fault
 from nornicdb_tpu_torch.obs import REGISTRY, attach_span, register_resource
 from nornicdb_tpu_torch.obs import audit as _audit
 from nornicdb_tpu_torch.obs import tenant as _tenant
-from nornicdb_tpu_torch.search.ann_quality import current_profile
+from nornicdb_tpu_torch.search.ann_quality import cagra_shards_from_env, current_profile
 from nornicdb_tpu_torch.search.bm25 import BM25Index, tokenize
 from nornicdb_tpu_torch.search.cagra import CagraIndex
 from nornicdb_tpu_torch.search.hnsw import HNSWIndex
@@ -272,8 +280,9 @@ class SearchService:
         background unless NORNICDB_HYBRID_INLINE_BUILD (off) asks for a
         blocking first build. Its walk tier is switched by
         NORNICDB_HYBRID_WALK (on) and floored at NORNICDB_HYBRID_WALK_MIN_N
-        live vectors (100,000), both read when the tier is created; a
-        graph the strategy machine builds later is rebound in place."""
+        live vectors (100,000), and laid out in NORNICDB_HYBRID_SHARDS row
+        shards (1), all read when the tier is created; a graph the
+        strategy machine builds later is rebound in place."""
         with self._lock:
             f = self._ensure_fused_locked()
         if f is None or not f.ensure():
@@ -294,7 +303,8 @@ class SearchService:
             walk_min_n = (env_int("HYBRID_WALK_MIN_N", 100_000)
                           if env_bool("HYBRID_WALK", True) else None)
             f = self._fused = FusedHybrid(
-                self.bm25, self.vectors, min_n=min_n,
+                self.bm25, self.vectors, n_shards=max(1, env_int("HYBRID_SHARDS", 1)),
+                min_n=min_n,
                 build_inline=env_bool("HYBRID_INLINE_BUILD", False),
                 walk_min_n=walk_min_n)
             register_resource("device_bm25", self.resource_name, f.lex)
@@ -716,6 +726,7 @@ class SearchService:
         idx = CagraIndex(brute=self.vectors, degree=p.cagra_degree, itopk=p.cagra_itopk,
                          search_width=p.cagra_width,
                          min_n=min(p.cagra_min_n, self.hnsw_threshold),
+                         n_shards=cagra_shards_from_env(p.cagra_shards),
                          build_inline=False)
         if not idx.build():
             return

@@ -550,13 +550,16 @@ class BruteForceIndex:
     def quant_plane(self) -> Optional[QuantizedBrutePlane]:
         """The quantized plane when NORNICDB_VECTOR_QUANT is int8 or pq and
         the index holds at least ``quant_min_n()`` live rows, else None;
-        one per index, shared by direct search and the fused tier."""
+        one per index, shared by direct search and the fused tier, its
+        knobs (``NORNICDB_QUANT_SHARDS`` row shards among them) read here,
+        once."""
         if quant_mode() == "off" or self._n_alive < quant_min_n():
             return None
         with self._lock:
             if self._quant is None:
                 self._quant = QuantizedBrutePlane(
-                    self, build_inline=env_bool("QUANT_INLINE_BUILD", False),
+                    self, n_shards=max(1, env_int("QUANT_SHARDS", 1)),
+                    build_inline=env_bool("QUANT_INLINE_BUILD", False),
                     overfetch=max(1, env_int("QUANT_OVERFETCH", 8)),
                     min_pool=max(1, env_int("QUANT_MIN_POOL", 128)))
             return self._quant

@@ -218,7 +218,7 @@ def test_index_matches_jax_across_writes(same_edges, itopk, width):
     assert j.build() and t.build()
     np.testing.assert_array_equal(t._graph["adj"].numpy(), np.asarray(j._graph["adj"]))
     assert t._graph["iters"] == j._graph["iters"] and t._graph["row_ids"] == j._graph["row_ids"]
-    assert t.stats() == {k: v for k, v in j.stats().items() if k != "shards"}
+    assert t.stats() == j.stats()
     qs = _queries(x, 12)
     for k in (1, 10, 30):
         _assert_same_answers(j, t, qs, k)

@@ -235,9 +235,10 @@ def test_hf_encoder_on_the_card_matches_the_cpu(dev):
     assert (got - want).abs().max() <= 1e-5
 
 
-def _fused_pair(dev, n=3000, d=64, seed=5):
-    """The same corpus in a fused hybrid tier on the card and on the CPU,
-    with exact vector duplicates (cosine ties) and queries on them."""
+def _fused_pair(dev, n=3000, d=64, seed=5, **kw):
+    """The same corpus in a fused hybrid tier (``kw`` its options) on the
+    card and on the CPU, with exact vector duplicates (cosine ties) and
+    queries on them."""
     from nornicdb_tpu_torch.search.bm25 import BM25Index
     from nornicdb_tpu_torch.search.hybrid_fused import FusedHybrid
     from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
@@ -253,7 +254,7 @@ def _fused_pair(dev, n=3000, d=64, seed=5):
         for i, text in enumerate(texts):
             bm25.index(f"d{i}", text)
         brute.add_batch([(f"d{i}", vecs[i]) for i in range(n)])
-        tier = FusedHybrid(bm25, brute, min_n=1)
+        tier = FusedHybrid(bm25, brute, min_n=1, **kw)
         assert tier.build()
         tiers.append(tier)
     queries = [" ".join(rng.choice(vocab, size=int(rng.integers(1, 6)))) for _ in range(24)]
@@ -968,3 +969,185 @@ def test_admission_degrade_steps_the_walk_down_on_the_card(dev, monkeypatch):
     recs = audit.LEDGER.snapshot(limit=audit.LEDGER.recorded - n0)
     assert [(r["from_tier"], r["reason"]) for r in recs] == [("hybrid_walk_f32", "admission")]
     assert walk.counts["walk_admission"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the single-device shard layouts (NORNICDB_*_SHARDS) on the card
+# ---------------------------------------------------------------------------
+
+
+def _cpu_copy(x):
+    """A snapshot, graph or argument tuple with every tensor on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _cpu_copy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cpu_copy(v) for v in x)
+    return x
+
+
+@pytest.mark.parametrize("s", [2, 4])
+def test_sharded_device_bm25_on_the_card_matches_the_cpu(dev, s):
+    from nornicdb_tpu_torch.search.bm25 import BM25Index, tokenize
+    from nornicdb_tpu_torch.search.device_bm25 import DeviceBM25, topk_shards
+
+    rng = np.random.default_rng(s)
+    vocab = [f"term{i}" for i in range(64)]
+    bm25 = BM25Index()
+    for i in range(5000):
+        bm25.index(f"d{i}", " ".join(rng.choice(vocab, size=int(rng.integers(3, 12)))))
+    card = DeviceBM25(bm25, n_shards=s, min_n=1, device=dev)
+    assert card.build() and card._snap["shards"] == s
+    queries = [" ".join(rng.choice(vocab, size=int(rng.integers(1, 6)))) for _ in range(16)]
+    args = card.device_args(card._snap, *card.plan(card._snap, [tokenize(q) for q in queries]))
+    s_g, i_g = topk_shards(card._snap, args, 32)
+    s_c, i_c = topk_shards(_cpu_copy(card._snap), _cpu_copy(args), 32)
+    top = float(s_c[s_c > -1e29].abs().max())
+    assert topk_agree(i_g.cpu().numpy(), s_g.cpu().numpy(), i_c.numpy(), s_c.numpy(),
+                      1e-5 * max(top, 1.0))
+    cpu = DeviceBM25(bm25, n_shards=s, min_n=1, device="cpu")
+    assert cpu.build()
+    for got, want in zip(card.search_batch(queries, 20), cpu.search_batch(queries, 20)):
+        top = max([abs(x) for _, x in want] or [1.0])
+        assert _lists_agree(got, want, 1e-5 * max(top, 1.0))
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("b", [1, 24])
+def test_sharded_exact_tier_on_the_card_matches_the_cpu(dev, s, b):
+    """One B1 launch a vector shard a dispatch; lists as the one-shard
+    card test holds them."""
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32
+    from nornicdb_tpu_torch.search.rrf import rrf_fuse
+
+    (card, cpu), embs, extras = _fused_pair(dev, n_shards=s)
+    assert card.lex._snap["shards"] == s
+    before = fused_cosine_topk.launches
+    rows = card.search_batch(embs[:b], 32, extras[:b])
+    assert fused_cosine_topk.launches == before + s
+    for got, want in zip(rows, cpu.search_batch(embs[:b], 32, extras[:b])):
+        assert got["served_by"] == TIER_BRUTE_F32
+        top = max([abs(x) for _, x in want["lex"]] or [1.0])
+        assert _lists_agree(got["lex"], want["lex"], 1e-5 * max(top, 1.0))
+        assert _lists_agree(got["vec"], want["vec"], SCORE_ATOL)
+        assert got["fused"] == rrf_fuse([got["lex"], got["vec"]], limit=30)
+
+
+def test_sharded_walks_on_the_card_match_the_cpu(dev):
+    """A 2-shard graph built on the card (B1 k-NN per shard, one launch a
+    1,024-row chunk), walked by ``_walk_shards_single_device`` and by the
+    fused tier's ``_walk_shard_loop``, against the same graph on the CPU:
+    ids tie-aware, scores within 1e-5."""
+    from nornicdb_tpu_torch.ops.similarity import l2_normalize
+    from nornicdb_tpu_torch.search.bm25 import tokenize
+    from nornicdb_tpu_torch.search.cagra import CagraIndex
+    from nornicdb_tpu_torch.search.hybrid_fused import FusedHybrid
+
+    (tier, _), embs, extras = _fused_pair(dev, n=6000, n_shards=2, walk_min_n=1000)
+    before = fused_cosine_topk.launches
+    g = tier.cagra.ensure_graph()
+    assert g["shards"] == 2 and fused_cosine_topk.launches == before + 2 * 3
+    cg = tier.cagra
+    qn = l2_normalize(torch.from_numpy(embs).to(dev))
+    args = (32, g["iters"], cg.search_width, cg.itopk)
+    s_g, i_g = cg._walk_shards_single_device(g, qn, *args)
+    s_c, i_c = CagraIndex._walk_shards_single_device(cg, _cpu_copy(g), qn.cpu(), *args)
+    assert topk_agree(i_g.cpu().numpy(), s_g.cpu().numpy(), i_c.numpy(), s_c.numpy(),
+                      SCORE_ATOL)
+    snap = tier.lex._snap
+    lex_args = tier.lex.device_args(snap, *tier.lex.plan(snap, [e["tokens"] for e in extras]))
+    tail = (torch.full((24,), 30, device=dev), torch.ones(24, device=dev),
+            torch.ones(24, device=dev))
+    wctx = {"iters": g["iters"], "width": cg.search_width, "itopk": cg.itopk,
+            "hash_bits": cg.hash_bits, "n_seeds": cg.n_seeds}
+    l2g = tier._ensure_walk_map(snap, g)
+    out_g = tier._walk_shard_loop(snap, g, lex_args, l2g, qn, tail, cg.itopk, wctx)
+    out_c = FusedHybrid._walk_shard_loop(tier, _cpu_copy(snap), _cpu_copy(g), _cpu_copy(lex_args),
+                                         l2g.cpu(), qn.cpu(), _cpu_copy(tail), cg.itopk, wctx)
+    ls_g, lg_g, vs_g, vi_g = (x.cpu().numpy() for x in out_g[:4])
+    ls_c, lg_c, vs_c, vi_c = (x.numpy() for x in out_c[:4])
+    top = float(np.abs(ls_c[ls_c > -1e29]).max())
+    assert topk_agree(lg_g, ls_g, lg_c, ls_c, 1e-5 * max(top, 1.0))
+    assert topk_agree(vi_g, vs_g, vi_c, vs_c, SCORE_ATOL)
+    rows = tier.search_batch(embs, cg.itopk, extras)
+    assert all(r["served_by"] == "hybrid_walk_f32" for r in rows)
+    assert tier.counts["walk_dispatch"] == 1
+
+
+@pytest.mark.parametrize("s", [2, 4])
+def test_sharded_int8_plane_on_the_card_matches_the_cpu(dev, s):
+    from nornicdb_tpu_torch.search.device_quant import QuantizedBrutePlane, int8_topk_shards
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    x, q = _quant_corpus()
+    planes = []
+    for device in (dev, "cpu"):
+        idx = BruteForceIndex(device=device)
+        idx.add_batch([(f"e{i}", v) for i, v in enumerate(x)])
+        plane = QuantizedBrutePlane(idx, mode="int8", n_shards=s, build_inline=True)
+        assert plane.build() and plane._snap["shards"] == s
+        planes.append(plane)
+    card, cpu = planes
+    snap = cpu._snap
+    qn = torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True))
+    cols = (snap["codes_t"], snap["scale"], snap["valid"])
+    s_c, i_c = int8_topk_shards(qn, *cols, 128, s)
+    s_g, i_g = int8_topk_shards(qn.to(dev), *(t.to(dev) for t in cols), 128, s)
+    assert topk_agree(i_g.cpu().numpy(), s_g.cpu().numpy(), i_c.numpy(), s_c.numpy(), SCORE_ATOL)
+    for got, want in zip(card.search_batch(q, 10), cpu.search_batch(q, 10)):
+        assert _lists_agree(got, want, SCORE_ATOL)
+    assert card.counts["dispatch"] == 1 and card.brute._dev_matrix is None
+
+
+_SHARD_FAULT_PROBE = """
+import numpy as np, torch
+from nornicdb_tpu_torch.search import hybrid_fused
+from nornicdb_tpu_torch.search.bm25 import BM25Index
+from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+dev = torch.device("cuda")
+rng = np.random.default_rng(3)
+vocab = [f"term{i}" for i in range(64)]
+bm25, brute = BM25Index(), BruteForceIndex(device=dev)
+for i in range(3000):
+    bm25.index(f"d{i}", " ".join(rng.choice(vocab, size=6)))
+brute.add_batch([(f"d{i}", rng.standard_normal(64).astype(np.float32)) for i in range(3000)])
+tier = hybrid_fused.FusedHybrid(bm25, brute, n_shards=2, min_n=1)
+assert tier.build()
+real, calls = hybrid_fused.fused_cosine_topk, []
+
+def faulting(q, m, valid, k):
+    calls.append(1)
+    if len(calls) == 2:  # the second shard's launch reads out of bounds
+        bad = torch.full((4,), 10**9, dtype=torch.int64, device=q.device)
+        m.index_select(0, bad)
+    return real(q, m, valid, k)
+
+hybrid_fused.fused_cosine_topk = faulting
+extras = [{"tokens": ("term1", "term2"), "n_cand": 10, "w": (1.0, 1.0)}]
+try:
+    rows = tier.search_batch(rng.standard_normal((1, 64)).astype(np.float32), 16, extras)
+    torch.cuda.synchronize()
+except Exception as exc:  # the fault must reach the caller
+    served = sorted(k for k in tier.counts if k != "join_full")  # the join map's derivation
+    print("RAISED", len(calls), served, str(exc).splitlines()[0])
+else:
+    print("SWALLOWED", rows)
+"""
+
+
+def test_a_cuda_fault_inside_a_sharded_dispatch_propagates(dev):
+    """A device-side fault in the second vector shard of the exact tier's
+    loop reaches the caller of ``search_batch``: no hand-off, no step down,
+    nothing served (the only count is the join map's derivation).
+    Run in a subprocess: a device-side fault poisons its CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _SHARD_FAULT_PROBE], cwd=repo,
+                         env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else out.stderr[-2000:]
+    assert last.startswith("RAISED 2 []"), last
+    assert "CUDA" in last or "device-side" in last, last
