@@ -164,9 +164,9 @@ Phases, in order; any failure exits non-zero:
    prints the time to recover by part (segment scan, BM25, vector read,
    device upload, HNSW load, resume scan, first query per mode, snapshot
    and graph waits), close times and bytes on disk per file, and the
-   record codec's MB/s. Then the same nodes through
-   ``engine="python"`` (WAL + snapshots, no search): store, close,
-   reopen, every id read back; and for each engine a child process that
+   record codec's MB/s. Then the first ``DURABLE_PYTHON_NODES`` (25,000)
+   of those nodes through ``engine="python"`` (WAL + snapshots, no
+   search): store, close, reopen, every id read back; and for each engine a child process that
    writes with ``sync_every_write=True`` until it has acknowledged 1,000
    writes and is SIGKILLed: the reopen must find every acknowledged id.
 7. Cypher, in four parts. (a) The reference's Cypher benchmark graph
@@ -308,6 +308,29 @@ Phases, in order; any failure exits non-zero:
    tie-aware a 1-shard plane's at parity 1.0). Its launches
    (``launches_shards``): B2 for the 64 query embeds, B1 as above.
    ``SHARDS_PHASE_S`` joins the late rule (a late run times 1 block).
+   (d) The mesh block, right after (c), over (c)'s corpus, indexes and
+   loops, with each knob at 2 and the member list set to two members
+   (``parallel/mesh.py:member_devices``): the one card twice, or two
+   cards where there are. It re-embeds the 64 queries (bitwise (c)'s),
+   then builds under the mesh layout, through a second ``SearchService``:
+   the ``cagra`` profile's graph (each shard's k-NN on its member; the
+   same adjacency as (c)'s), the fused tier's snapshot and the int8 plane
+   (each shard's codes encoded on its member), printing bytes per member
+   against the ``memory_allocated`` delta (within ``SHARD_MEM_SLACK``).
+   After one warm ride per tier, ``MESH_BLOCKS`` interleaved blocks, mesh
+   then (c)'s loop, of the 64 queries on the exact tier, the walk tier,
+   the profile's vector search and the int8 plane: every mesh-tier
+   dispatch must be a mesh dispatch (``parallel.mesh.counts``), B1 two
+   launches an exact dispatch (one a member), answers bitwise the loop's,
+   the exact tier tie-aware (c)'s 1-shard answers and int8 its 1-shard
+   plane's at parity 1.0, walk-parity and recall@10 >= 0.95, and
+   ``memory_allocated`` across the timed batches within 1 MB (nothing
+   re-shipped). Its launches (``launches_mesh``): B2 for the embeds, B1
+   for the graph's k-NN and the exact blocks. After the counts are read,
+   ``sharded_cosine_topk`` alone on the 131,072 x 160 matrix at B in
+   ``MESH_TOPK_B``, k 32, against one B1 call (ids tie-aware, scores within
+   1e-5), both timed. ``MESH_PHASE_S`` joins the late rule (a late run
+   times 1 block).
 9. The memory plane, in three parts. (a) The background plane at the
    reference's size (``bench.py:_bench_background``): two identical
    engines of 100,000 nodes and 300,000 KNOWS/LIKES edges, one node in
@@ -494,11 +517,12 @@ def log(msg: str) -> None:
 def run_is_late(extra_s: float = 0.0, upcoming_s: float = None) -> bool:
     """The late rule: whether the run so far, ``extra_s`` more and the
     budgets of the phases still to come (``upcoming_s``; by default those
-    of phases 7-10, the shard block among them) would pass ``RUN_LIMIT_S``.
+    of phases 7-10, the shard and mesh blocks among them) would pass
+    ``RUN_LIMIT_S``.
     A late phase shortens its timing, never its checks."""
     if upcoming_s is None:
         upcoming_s = (CYPHER_PHASE_S + GRAPH_PLANE_S + APOC_PHASE_S + QUANT_PHASE_S
-                      + SHARDS_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S)
+                      + SHARDS_PHASE_S + MESH_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S)
     return time.perf_counter() - T_START + extra_s + upcoming_s > RUN_LIMIT_S
 
 
@@ -2877,6 +2901,9 @@ DURABLE_FORGET = 64
 DURABLE_KILL_WRITES = 1000
 DURABLE_CODEC_RECORDS = 10_000
 DURABLE_MEM_SLACK = 1 << 20  # memory_allocated after the close, against before
+# the Python engine's nodes: a quarter of the corpus, which leaves room for
+# phase 8 (d) on a slow host (its per-node checks unchanged)
+DURABLE_PYTHON_NODES = 25_000
 # a child process that writes until it is killed, printing each id once
 # its store returned (the write is acknowledged)
 _KILL_CHILD = """
@@ -3332,7 +3359,8 @@ def phase_durable(dev, corpus):
         if min(path.values()) < 1:
             raise AssertionError(f"a kernel of the durable path never launched: {path}")
 
-        out["python_engine"] = durable_python(dev, docs, emb, root)
+        out["python_engine"] = durable_python(dev, docs[:DURABLE_PYTHON_NODES],
+                                              emb[:DURABLE_PYTHON_NODES], root)
         out["kill"] = {e: durable_kill(dev, e, root) for e in ("native", "python")}
         return path
     finally:
@@ -5059,7 +5087,8 @@ def phase_shards(dev, corpus, bm25, card, late=False):
     BM25 index and embeddings with each shard knob at 2, through a
     ``SearchService`` (module docstring). Returns its kernel launches
     (counts set to 0 just before the query embeds, read after the int8
-    plane; the exact references come after)."""
+    plane; the exact references come after) and what (d) reuses: the
+    services, indexes, loops, queries and references."""
     import torch
 
     from nornicdb_tpu_torch.models.checkpoint import load_default_embedder
@@ -5264,6 +5293,263 @@ def phase_shards(dev, corpus, bm25, card, late=False):
         raise AssertionError(f"the {SHARDS}-shard int8 plane's parity {int8_parity:.4f} < 1")
     if launches["cosine_topk"] < 1 or launches["flash_attention"] < 1:
         raise AssertionError(f"a kernel of the shard block never launched: {launches}")
+    ctx = {"svc": svc, "recorder": recorder, "loop": f2, "graph": cg, "walk_min_n": walk_min_n,
+           "brute": brute, "bm25": bm25, "vsvc": vsvc, "plane": plane, "embedder": embedder,
+           "queries": queries, "qvs": qvs, "one_shard_trios": trios[1],
+           "one_shard_int8": one_hits, "exact10": exact10, "exact30": exact30, "lex30": lex30,
+           "host": host}
+    return launches, ctx
+
+
+MESH_MEMBERS = 2  # phase 8 (d)'s members: two on the one card, or two cards
+MESH_PHASE_S = 45.0  # phase 8 (d)'s budget in the late rule
+MESH_BLOCKS = 3  # (d)'s interleaved blocks, mesh and loop, of each tier's 64 queries
+MESH_TOPK_B = (1, 64)  # sharded_cosine_topk alone, at k MAIN_K
+MESH_MEM_SLACK = 1 << 20  # memory_allocated across the timed batches
+
+
+def mesh_member_list(dev):
+    """Two members: two distinct cards where there are, else the one card
+    twice."""
+    import torch
+
+    if dev.type == "cuda":
+        if torch.cuda.device_count() >= MESH_MEMBERS:
+            return [torch.device("cuda", i) for i in range(MESH_MEMBERS)]
+        return [torch.device("cuda", torch.cuda.current_device())] * MESH_MEMBERS
+    return [dev] * MESH_MEMBERS
+
+
+def members_memory(members):
+    """``device_memory`` summed over the members' distinct devices."""
+    import torch
+
+    total = device_memory()
+    for d in dict.fromkeys(members):
+        if d.type == "cuda" and d.index != torch.cuda.current_device():
+            total += torch.cuda.memory_allocated(d)
+    return total
+
+
+def part_bytes(parts):
+    return [sum(t.numel() * t.element_size() for t in part) for part in parts]
+
+
+def phase_mesh(dev, ctx, card, late=False):
+    """Phase 8 (d), the mesh block (module docstring): (c)'s corpus, BM25
+    index and embeddings with each shard knob at 2 on a two-member mesh,
+    in interleaved blocks against (c)'s loops. Returns its kernel launches
+    (counts set to 0 before the query embeds, read after the int8 blocks;
+    the references and the ``sharded_cosine_topk`` check come after)."""
+    import torch
+
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk, topk_agree
+    from nornicdb_tpu_torch.parallel import mesh
+    from nornicdb_tpu_torch.search.device_quant import QuantizedBrutePlane
+    from nornicdb_tpu_torch.search.hybrid_fused import TIER_BRUTE_F32, TIER_WALK_F32
+    from nornicdb_tpu_torch.search.service import SearchService
+
+    t_phase = time.perf_counter()
+    members = mesh_member_list(dev)
+    blocks = 1 if late else MESH_BLOCKS
+    svc, brute, bm25, queries = ctx["svc"], ctx["brute"], ctx["bm25"], ctx["queries"]
+    loop, cg, vsvc, lplane = ctx["loop"], ctx["graph"], ctx["vsvc"], ctx["plane"]
+    n = len(brute)
+    out = {"members": [str(m) for m in members], "blocks": blocks, "card": card}
+    REPORT["mesh"] = out
+    reset_counts()
+    runs0 = dict(mesh.member_runs)
+    qvs = np.asarray(ctx["embedder"].embed_batch(queries), np.float32)
+    if not np.array_equal(qvs, ctx["qvs"]):
+        raise AssertionError("the query embeds differ from (c)'s")
+    quant_env = dict(VECTOR_QUANT="int8", QUANT_SHARDS=SHARDS, QUANT_INLINE_BUILD=1,
+                     QUANT_MIN_N=min(8192, n))
+    with mesh.member_devices(members), env_scope(
+            VECTOR_ANN_QUALITY="cagra", CAGRA_SHARDS=SHARDS, HYBRID_SHARDS=SHARDS,
+            HYBRID_INLINE_BUILD=1):
+        msvc = SearchService(device=dev, hnsw_threshold=min(10_000, n),
+                             resource_name="service:mesh")
+        msvc.bm25, msvc.vectors = bm25, brute
+        # (a) the cagra profile's graph, the fused tier's snapshot and the
+        # int8 plane, each placed one shard a member at its build
+        built = {}
+        mem0 = members_memory(members)
+        t0 = time.perf_counter()
+        with msvc._lock:
+            msvc._maybe_switch_strategy()
+        mg = msvc.cagra
+        g = mg._graph if mg is not None else None
+        if g is None or g.get("members") != members:
+            raise AssertionError(f"the cagra profile did not place a {SHARDS}-member graph")
+        built["graph"] = (time.perf_counter() - t0, part_bytes(g["shard_slices"]),
+                          members_memory(members) - mem0, mg.device_bytes())
+        for a, b in zip(g["shard_slices"], cg._graph["shard_slices"]):
+            if not all(torch.equal(x.to(y.device), y) for x, y in zip(a, b)):
+                raise AssertionError("the placed graph differs from (c)'s loop graph")
+        mem0 = members_memory(members)
+        t0 = time.perf_counter()
+        mf = msvc._ensure_fused()
+        snap = mf.lex._snap if mf is not None else None
+        if snap is None or snap.get("members") != members or mf.cagra is not mg:
+            raise AssertionError(f"NORNICDB_HYBRID_SHARDS={SHARDS}: no placed snapshot")
+        cols = [[snap[key][m] for key in ("post_doc", "post_tf", "doc_len", "alive")]
+                for m in range(len(members))]
+        built["snapshot"] = (time.perf_counter() - t0, part_bytes(cols),
+                             members_memory(members) - mem0, mf.lex.device_bytes())
+        with env_scope(**quant_env):
+            mem0 = members_memory(members)
+            t0 = time.perf_counter()
+            mplane = QuantizedBrutePlane(brute, mode="int8", n_shards=SHARDS, build_inline=True)
+            if not mplane.build() or mplane._snap.get("members") != members:
+                raise AssertionError("the int8 plane was not placed on the members")
+            qs = mplane._snap
+            built["int8"] = (time.perf_counter() - t0,
+                             part_bytes(zip(qs["codes_t"], qs["scale"], qs["valid"])),
+                             members_memory(members) - mem0, mplane.device_bytes())
+        out["built"] = {k: {"build_s": v[0], "bytes_per_member": v[1],
+                            "memory_allocated_delta": v[2], "device_bytes": v[3]}
+                        for k, v in built.items()}
+        for what, (secs, per_member, alloc, total) in built.items():
+            log(f"mesh (a): the {what} on {len(members)} members {out['members']}: built in "
+                f"{secs:.3f} s, bytes per member {per_member} (sum {sum(per_member)}, "
+                f"device_bytes {total}) against a memory_allocated delta of {alloc} [{card}]")
+            if sum(per_member) != total or abs(alloc - total) > SHARD_MEM_SLACK:
+                raise AssertionError(f"the placed {what}: {per_member} vs {alloc}")
+        mrec = TrioRecorder(msvc)
+        lrec, walk_min_n = ctx["recorder"], ctx["walk_min_n"]
+        arms = {"mesh": (msvc, mf, mrec, mplane), "loop": (svc, loop, lrec, lplane)}
+
+        def vector(s_):
+            return timed_calls(lambda qv: s_.search(query_embedding=qv, mode="vector", limit=10,
+                                                    enrich=False), qvs)
+
+        def int8(plane):
+            brute._quant = plane
+            with env_scope(**quant_env):
+                return timed_calls(lambda qv: vsvc.search(query_embedding=qv, mode="vector",
+                                                          limit=10, enrich=False), qvs)
+
+        # one warm ride a tier and arm: the row maps and the brute matrix's
+        # blocks are placed at the first batch, as the reference derives them
+        for arm, (s_, f_, rec, plane) in arms.items():
+            f_.walk_min_n = None
+            shard_hybrid(s_, rec, queries[:1], qvs[:1])
+            f_.walk_min_n = walk_min_n
+            shard_hybrid(s_, rec, queries[:1], qvs[:1])
+        mem_timed = members_memory(members)
+        tiers = ("exact", "walk", "vector", "int8")
+        lat = {t: {"mesh": [], "loop": []} for t in tiers}
+        got = {t: {} for t in tiers}
+        b1 = {"mesh": 0, "loop": 0}
+        c0 = (dict(mesh.counts), mf.counts["dispatch"], mf.counts["walk_dispatch"],
+              mg.counts["walk"], mplane.counts["dispatch"])
+        for _ in range(blocks):
+            for arm, (s_, f_, rec, plane) in arms.items():
+                f_.walk_min_n = None
+                launches0 = fused_cosine_topk.launches
+                ts, got["exact"][arm] = shard_hybrid(s_, rec, queries, qvs)
+                b1[arm] += fused_cosine_topk.launches - launches0
+                lat["exact"][arm] += ts
+                f_.walk_min_n = walk_min_n
+                ts, got["walk"][arm] = shard_hybrid(s_, rec, queries, qvs)
+                lat["walk"][arm] += ts
+                ts, got["vector"][arm] = vector(s_)
+                lat["vector"][arm] += ts
+                ts, got["int8"][arm] = int8(plane)
+                lat["int8"][arm] += ts
+        brute._quant = lplane
+        mem_delta = members_memory(members) - mem_timed
+    launches = read_counts()
+    runs = {m: mesh.member_runs[m] - runs0.get(m, 0) for m in range(len(members))}
+    grew = {k: mesh.counts[k] - c0[0].get(k, 0)
+            for k in ("hybrid_fused", "hybrid_walk", "cagra_walk", "int8", "bm25")}
+    want = blocks * len(queries)
+    served = (mf.counts["dispatch"] - c0[1], mf.counts["walk_dispatch"] - c0[2],
+              mg.counts["walk"] - c0[3], mplane.counts["dispatch"] - c0[4])
+    if grew != {"hybrid_fused": want, "hybrid_walk": want, "cagra_walk": want, "int8": want,
+                "bm25": 0} or served != (want,) * 4:
+        raise AssertionError(f"not every mesh-tier dispatch was a mesh dispatch: mesh counts "
+                             f"{grew}, tier counts {served}, {want} each")
+    if b1 != {"mesh": want * len(members), "loop": want * SHARDS}:
+        raise AssertionError(f"B1 launches in the exact blocks {b1}")
+    # the references, after the counts were read
+    checks = {}
+    for t in ("exact", "walk"):
+        served_by = TIER_BRUTE_F32 if t == "exact" else TIER_WALK_F32
+        tiers_served = {r["served_by"] for r in got[t]["mesh"]}
+        if tiers_served != {served_by}:
+            raise AssertionError(f"the mesh {t} tier served {tiers_served}")
+        checks[f"{t}_bitwise_loop"] = float(np.mean(
+            [(a["lex"], a["vec"], a["fused"]) == (b["lex"], b["vec"], b["fused"])
+             for a, b in zip(got[t]["mesh"], got[t]["loop"])]))
+    checks["exact_parity_with_one_shard"] = float(np.mean(
+        [trio_agrees(t2, t1["lex"], t1["vec"], 30)
+         for t1, t2 in zip(ctx["one_shard_trios"], got["exact"]["mesh"])]))
+    if not all(walk_trio_agrees(t, lx, 30) for t, lx in zip(got["walk"]["mesh"], ctx["lex30"])):
+        raise AssertionError("the mesh walk tier's lexical or fused lists disagree")
+    checks["walk_parity_recall_at_10"] = float(np.mean(
+        [recall10(t["fused"], h) for t, h in zip(got["walk"]["mesh"], ctx["host"])]))
+    checks["walk_vector_recall_at_10"] = float(np.mean(
+        [recall10(t["vec"], e) for t, e in zip(got["walk"]["mesh"], ctx["exact30"])]))
+    hits = {t: {arm: [[(h["id"], h["score"]) for h in r] for r in got[t][arm]]
+                for arm in ("mesh", "loop")} for t in ("vector", "int8")}
+    for t in ("vector", "int8"):
+        checks[f"{t}_bitwise_loop"] = float(np.mean(
+            [a == b for a, b in zip(hits[t]["mesh"], hits[t]["loop"])]))
+    checks["vector_recall_at_10"] = float(np.mean(
+        [recall10(a, e) for a, e in zip(hits["vector"]["mesh"], ctx["exact10"])]))
+    checks["int8_parity_with_one_shard"] = float(np.mean(
+        [hits_agree(a, b, QUANT_SCORE_ATOL)
+         for a, b in zip(hits["int8"]["mesh"], ctx["one_shard_int8"])]))
+    # sharded_cosine_topk alone on the 131,072 x 160 matrix, against one B1 call
+    m, valid = brute.device_view()[:2]
+    topk = []
+    for b in MESH_TOPK_B:
+        qn = torch.nn.functional.normalize(torch.from_numpy(qvs[:b]).to(dev), dim=1)
+        with mesh.member_devices(members):
+            s_m, i_m = mesh.sharded_cosine_topk(qn, m, valid, MAIN_K)
+            mesh_ms = time_ms(lambda: mesh.sharded_cosine_topk(qn, m, valid, MAIN_K), iters=10)
+        s_1, i_1 = fused_cosine_topk(qn, m, valid, MAIN_K)
+        one_ms = time_ms(lambda: fused_cosine_topk(qn, m, valid, MAIN_K), iters=10)
+        ok = topk_agree(i_m.cpu().numpy(), s_m.cpu().numpy(), i_1.cpu().numpy(),
+                        s_1.cpu().numpy(), TOPK_SCORE_ATOL)
+        err = float((s_m - s_1).abs().max())
+        topk.append({"b": b, "rows": int(m.shape[0]), "dims": int(m.shape[1]), "k": MAIN_K,
+                     "agrees": ok, "max_abs_err": err, "mesh_ms": mesh_ms, "one_b1_ms": one_ms})
+        if not ok:
+            raise AssertionError(f"sharded_cosine_topk at B {b} disagrees with one B1 call")
+    out.update(
+        p50_ms={t: {arm: pctl(v, 50) for arm, v in lat[t].items()} for t in tiers},
+        p99_ms={t: {arm: pctl(v, 99) for arm, v in lat[t].items()} for t in tiers},
+        checks=checks, sharded_cosine_topk=topk, mesh_dispatches=grew, member_runs=runs,
+        b1_exact_blocks=b1, memory_allocated_across_timed=mem_delta, launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+    for t in tiers:
+        log(f"mesh (b): {t}, {blocks} interleaved block(s) of {len(queries)} queries: p50 "
+            f"{out['p50_ms'][t]['mesh']:.3f} ms on the mesh, {out['p50_ms'][t]['loop']:.3f} on "
+            f"the loop (p99 {out['p99_ms'][t]['mesh']:.3f} / {out['p99_ms'][t]['loop']:.3f}) "
+            f"[{card}]")
+    log(f"mesh (c): checks {json.dumps({k: round(v, 4) for k, v in checks.items()})}; mesh "
+        f"dispatches {grew}; member works {runs}; B1 in the exact blocks {b1} "
+        f"({b1['mesh'] // len(members)} a member); memory_allocated across the timed batches "
+        f"{mem_delta:+d} B")
+    for row in topk:
+        log(f"mesh (d): sharded_cosine_topk {row['rows']} x {row['dims']}, B {row['b']}, k "
+            f"{row['k']}: {row['mesh_ms']:.4f} ms on {len(members)} members against one B1 "
+            f"call's {row['one_b1_ms']:.4f}, ids tie-aware, max |err| {row['max_abs_err']:.2e} "
+            f"[{card}]")
+    log(f"mesh: launches {launches}; the block took {out['phase_s']:.2f} s")
+    if min(checks[k] for k in ("exact_bitwise_loop", "walk_bitwise_loop", "vector_bitwise_loop",
+                               "int8_bitwise_loop", "exact_parity_with_one_shard",
+                               "int8_parity_with_one_shard")) != 1.0:
+        raise AssertionError(f"the mesh answers differ from the loops': {checks}")
+    if min(checks["walk_parity_recall_at_10"], checks["walk_vector_recall_at_10"],
+           checks["vector_recall_at_10"]) < RECALL_MIN:
+        raise AssertionError(f"mesh walks below recall {RECALL_MIN}: {checks}")
+    if abs(mem_delta) > MESH_MEM_SLACK:
+        raise AssertionError(f"memory_allocated moved {mem_delta} B across the timed batches")
+    if launches["cosine_topk"] < 1 or launches["flash_attention"] < 1:
+        raise AssertionError(f"a kernel of the mesh block never launched: {launches}")
     return launches
 
 
@@ -6450,12 +6736,18 @@ def main() -> int:
     lap("cypher")
     path_launches["quant"] = phase_quant_tiered(dev, corpus, bm25)
     lap("quant_tiered")
-    path_launches["shards"] = phase_shards(
+    path_launches["shards"], shard_ctx = phase_shards(
         dev, corpus, bm25, card,
-        late=run_is_late(upcoming_s=SHARDS_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S))
+        late=run_is_late(upcoming_s=SHARDS_PHASE_S + MESH_PHASE_S + MEMORY_PHASE_S
+                         + HEIMDALL_PHASE_S))
     del corpus, bm25
-    torch.cuda.empty_cache()
     lap("shards")
+    path_launches["mesh"] = phase_mesh(
+        dev, shard_ctx, card,
+        late=run_is_late(upcoming_s=MESH_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S))
+    del shard_ctx
+    torch.cuda.empty_cache()
+    lap("mesh")
     path_launches["memory"] = phase_memory(dev, args.seed, card)
     lap("memory")
     path_launches["heimdall"] = phase_heimdall(

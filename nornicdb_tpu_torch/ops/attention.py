@@ -117,9 +117,12 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # both kernels load 16 bytes at a time
     q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
-    err = lib.nornic_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, s, h, d, float(d ** -0.5), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_attention kernel")
+    # the library raises its shared-memory limit and launches on the
+    # current device: make that the tensors' own, whichever is current
+    with torch.cuda.device(q.device):
+        err = lib.nornic_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            b, s, h, d, float(d ** -0.5), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, err, "flash_attention kernel")
     return out

@@ -1,5 +1,5 @@
 """Cosine similarity + top-k, plain PyTorch (counterpart of
-``nornicdb_tpu/ops/similarity.py:27-165``).
+``nornicdb_tpu/ops/similarity.py``).
 
 These are the plain versions that the fused top-k kernel
 (``ops/topk.py``) is held against, and what its wrapper runs for tensors
@@ -148,3 +148,35 @@ def cosine_topk_auto(
     if matrix.shape[0] > CHUNKED_THRESHOLD:
         return cosine_topk_chunked(queries, matrix, valid, k)
     return cosine_topk(queries, matrix, valid, k)
+
+
+def euclidean_topk(
+    queries: torch.Tensor, matrix: torch.Tensor, valid: torch.Tensor, k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k by squared euclidean distance, nearest first (the reference's
+    ``euclidean_topk``, after the Metal ``euclidean_distance`` kernel):
+    (distances [B, k], indices [B, k]); masked rows rank last at -NEG_INF,
+    equal distances keep the lower index."""
+    q2 = torch.sum(queries * queries, dim=1, keepdim=True)
+    m2 = torch.sum(matrix * matrix, dim=1)
+    d2 = q2 + m2[None, :] - 2.0 * (queries @ matrix.T)
+    d2 = torch.where(valid[None, :], -d2, torch.full_like(d2, NEG_INF))
+    neg_d, idx = topk_stable(d2, k)
+    return -neg_d, idx
+
+
+def batch_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise dot products (the reference's ``batch_dot``)."""
+    return torch.sum(a * b, dim=-1)
+
+
+def filter_by_similarity(
+    query: torch.Tensor, matrix: torch.Tensor, valid: torch.Tensor, threshold: float,
+    threshold_is_min: bool = True,
+) -> torch.Tensor:
+    """Bool mask [C] of valid rows whose dot with ``query`` [D] is at least
+    ``threshold`` (at most, with ``threshold_is_min=False``): the
+    reference's ``filter_by_similarity``."""
+    scores = matrix @ query
+    ok = scores >= threshold if threshold_is_min else scores <= threshold
+    return ok & valid

@@ -110,25 +110,28 @@ def launch(
     c = matrix.shape[0]
     dev = queries.device
     args = (queries.data_ptr(), matrix.data_ptr())
-    # the grid depends on the shapes, the bases' 16-byte alignment and the card
-    grid_key = (dev.index, b, c, d, k, (args[0] | args[1]) % 16 == 0)
-    g = grids.get(grid_key)
-    if g is None:
-        g = lib.nornic_cosine_topk_grid(*args, b, c, d, k)
-        if g < 0:
-            _build.check(lib, -g, "cosine_topk grid")
-        grids[grid_key] = g
-    # one allocation, in int32 words: indices [B, k] int64, scores [B, k],
-    # then the scratch: partial scores and indices [G, B, k] each and one
-    # u32 key per query
-    n = b * k
-    buf = torch.empty(3 * n + 2 * g * n + b, dtype=torch.int32, device=dev)
-    out_i = buf[:2 * n].view(torch.int64).view(b, k)
-    out_s = buf[2 * n:3 * n].view(torch.float32).view(b, k)
-    err = lib.nornic_cosine_topk(
-        *args, valid.data_ptr(), buf.data_ptr() + 12 * n, out_s.data_ptr(), out_i.data_ptr(),
-        b, c, d, k, g, torch._C._cuda_getCurrentRawStream(dev.index))
-    _build.check(lib, err, "cosine_topk kernel")
+    # the library sizes the grid, sets its attributes and launches on the
+    # current device: make that the tensors' own, whichever is current
+    with torch.cuda.device(dev):
+        # the grid depends on the shapes, the bases' 16-byte alignment and the card
+        grid_key = (dev.index, b, c, d, k, (args[0] | args[1]) % 16 == 0)
+        g = grids.get(grid_key)
+        if g is None:
+            g = lib.nornic_cosine_topk_grid(*args, b, c, d, k)
+            if g < 0:
+                _build.check(lib, -g, "cosine_topk grid")
+            grids[grid_key] = g
+        # one allocation, in int32 words: indices [B, k] int64, scores [B, k],
+        # then the scratch: partial scores and indices [G, B, k] each and one
+        # u32 key per query
+        n = b * k
+        buf = torch.empty(3 * n + 2 * g * n + b, dtype=torch.int32, device=dev)
+        out_i = buf[:2 * n].view(torch.int64).view(b, k)
+        out_s = buf[2 * n:3 * n].view(torch.float32).view(b, k)
+        err = lib.nornic_cosine_topk(
+            *args, valid.data_ptr(), buf.data_ptr() + 12 * n, out_s.data_ptr(),
+            out_i.data_ptr(), b, c, d, k, g, torch._C._cuda_getCurrentRawStream(dev.index))
+        _build.check(lib, err, "cosine_topk kernel")
     return out_s, out_i
 
 

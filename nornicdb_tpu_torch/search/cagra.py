@@ -54,8 +54,13 @@ each shard padded to ``rows_per_shard = pad_dim(ceil(n / s))`` rows with a
 graph over its own rows (B1 k-NN and the reorder per shard), sliced once
 (``shard_slices``). A walk then runs each shard apart and merges them in
 shard order (``_walk_shards_single_device``, ``ops/similarity.py:concat_topk``),
-the reference's loop for more shards than devices. A sharded graph keeps
-float32 under quant (the quantized walks are one-shard), counted as
+the reference's loop for more shards than devices. With at least as many
+devices as shards (``parallel/mesh.py:mesh_members``) each shard's rows go
+to its member device at build, its k-NN runs there, and its graph stays
+there (``members``; the full arrays are not kept): a walk then runs one
+shard a member and merges on member 0 (``_walk_mesh``, the reference's
+``sharded_cagra_walk``), bitwise the loop's. A sharded graph keeps float32
+under quant (the quantized walks are one-shard), counted as
 ``quant_shards``.
 """
 
@@ -84,6 +89,15 @@ from nornicdb_tpu_torch.ops.similarity import (
     topk_stable,
 )
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+from nornicdb_tpu_torch.parallel.mesh import (
+    layout_members,
+    merge_members,
+    mesh_members,
+    place_rows,
+    run_members,
+    sync_members,
+    to_member,
+)
 from nornicdb_tpu_torch.search.ann_quality import CAGRA_ITOPK, CAGRA_WIDTH
 from nornicdb_tpu_torch.search.device_quant import (
     _walk_body_pq,
@@ -420,11 +434,17 @@ class CagraIndex:
             validf[at] = 1.0
             row_ids[at] = [ext_ids[i] for i in live[lo:hi]]
         t1 = time.perf_counter()
-        mat_dev = torch.from_numpy(mat).to(self.device)
+        members = mesh_members(s_n, self.device)
+        if members is None:
+            mat_dev = torch.from_numpy(mat).to(self.device)
+            mat_parts = [mat_dev[sh * r:(sh + 1) * r] for sh in range(s_n)]
+        else:
+            # placed once: shard i's rows on member i, where its k-NN runs
+            mat_dev = None
+            mat_parts = place_rows(mat, members)
         t2 = time.perf_counter()
         # each shard's graph over its own rows: B1 k-NN, then the reorder
-        fwds = [knn_forward(mat_dev[sh * r:sh * r + hi - lo], self.degree)
-                for sh, lo, hi in spans]
+        fwds = [knn_forward(mat_parts[sh][:hi - lo], self.degree) for sh, lo, hi in spans]
         t3 = time.perf_counter()
         adj = np.zeros((s_n * r, self.degree), dtype=np.int32)
         for (sh, lo, hi), fwd in zip(spans, fwds):
@@ -446,21 +466,30 @@ class CagraIndex:
             "n": n,
             "shards": s_n,
             "rows_per_shard": r,
-            # under quant the float32 rows stay on the host (the rerank's)
-            "matrix": mat if quant is not None else mat_dev,
+            "degree": self.degree,
             "quant": quant,
-            "adj": torch.from_numpy(adj).to(self.device),
-            "validf": torch.from_numpy(validf).to(self.device),
             "row_ids": row_ids,
             "iters": self.iters if self.iters is not None else self._auto_iters(n),
             "built_mutations": mutations,
             "build_seq": next(_BUILD_SEQ),
         }
-        if s_n > 1:
-            # cut once: each walk reads its shard's rows, adjacency and flags
-            graph["shard_slices"] = [
-                tuple(graph[key][sh * r:(sh + 1) * r] for key in ("matrix", "adj", "validf"))
-                for sh in range(s_n)]
+        if members is None:
+            graph.update(
+                # under quant the float32 rows stay on the host (the rerank's)
+                matrix=mat if quant is not None else mat_dev,
+                adj=torch.from_numpy(adj).to(self.device),
+                validf=torch.from_numpy(validf).to(self.device))
+            if s_n > 1:
+                # cut once: each walk reads its shard's rows, adjacency and flags
+                graph["shard_slices"] = [
+                    tuple(graph[key][sh * r:(sh + 1) * r] for key in ("matrix", "adj", "validf"))
+                    for sh in range(s_n)]
+        else:
+            # each member holds its shard only
+            graph.update(matrix=None, adj=None, validf=None, members=members,
+                         shard_slices=list(zip(mat_parts, place_rows(adj, members),
+                                               place_rows(validf, members))))
+            sync_members(members)
         t5 = time.perf_counter()
         self._graph = graph
         self.builds += 1
@@ -529,6 +558,8 @@ class CagraIndex:
         if g is None:
             return 0
         quant = g["quant"]
+        if "members" in g:
+            return sum(a.numel() * a.element_size() for part in g["shard_slices"] for a in part)
         if quant is None:
             arrays = [g["matrix"]]
         elif quant["mode"] == "pq":
@@ -642,6 +673,8 @@ class CagraIndex:
             if g["shards"] == 1:
                 s, i = walk_body(qn, g["matrix"], g["adj"], g["validf"], kb, n_iters, w, p,
                                  self.hash_bits, self.n_seeds)
+            elif layout_members(g, self.device) is not None:
+                s, i = self._walk_mesh(g, qn, kb, n_iters, w, p)
             else:
                 s, i = self._walk_shards_single_device(g, qn, kb, n_iters, w, p)
             s, i = s.cpu().numpy(), i.cpu().numpy()
@@ -692,12 +725,28 @@ class CagraIndex:
         not equal one walk of all rows: it is held by recall."""
         r = g["rows_per_shard"]
         parts_s, parts_i = [], []
-        for sh, (m_sh, a_sh, v_sh) in enumerate(g["shard_slices"]):
+        for sh, slices in enumerate(g["shard_slices"]):
+            # a graph placed on a mesh is read on this device
+            m_sh, a_sh, v_sh = (x.to(qn.device) for x in slices)
             s, i = walk_body(qn, m_sh, a_sh, v_sh, kb, n_iters, w, p, self.hash_bits,
                              self.n_seeds)
             parts_s.append(s)
             parts_i.append(i.to(torch.int64) + sh * r)
         return concat_topk(parts_s, parts_i, kb)
+
+    def _walk_mesh(self, g, qn, kb, n_iters, w, p):
+        """The graph on its mesh (the reference's ``sharded_cagra_walk``):
+        a walk of each member's own rows and shard-local adjacency, rows
+        made global at ``m * rows_per_shard``, merged on member 0 in member
+        order; ``_walk_shards_single_device``'s operations."""
+        r = g["rows_per_shard"]
+
+        def local(m, dev):
+            s, i = walk_body(*(to_member(x, dev) for x in (qn, *g["shard_slices"][m])), kb,
+                             n_iters, w, p, self.hash_bits, self.n_seeds)
+            return s, i.to(torch.int64) + m * r
+
+        return merge_members(run_members("cagra_walk", g["members"], local), kb)
 
     def _walk_quant(self, g, qn, kb, n_iters, w, p):
         """The walk over the quantized base, then the whole pool re-scored

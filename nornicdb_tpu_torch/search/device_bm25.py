@@ -25,8 +25,12 @@ one-shard program and its sharded layout's single-device loop).
   (``shard_layout``) and a batch is scored shard by shard, each shard's
   top-k made global and merged in shard order (``topk_shards``, through
   ``ops/similarity.py:concat_topk``): the reference's loop for more
-  shards than devices, which its mesh path matches bitwise. One card
-  holds every shard.
+  shards than devices, which its mesh path matches bitwise. With at least
+  as many devices as shards (``parallel/mesh.py:mesh_members``) the build
+  places shard ``i``'s columns on member device ``i`` once, and a batch is
+  scored one shard a member (``topk_mesh``, the reference's
+  ``_sharded_bm25_impl``): only the plan goes in and the ``[B, k]`` blocks
+  come out.
 - **Freshness.** The snapshot records the index's mutation generation.
   Tombstones are filtered per slot (``refresh_alive``; df comes from the
   live counters), adds and updates ride the index's capped changelog
@@ -58,6 +62,15 @@ from nornicdb_tpu_torch._device import DeviceLike, resolve_device
 from nornicdb_tpu_torch.obs import REGISTRY, declare_kind, record_dispatch
 from nornicdb_tpu_torch.obs import cost as _cost
 from nornicdb_tpu_torch.ops.similarity import NEG_INF, concat_topk, pad_dim, topk_stable
+from nornicdb_tpu_torch.parallel.mesh import (
+    layout_members,
+    merge_members,
+    mesh_members,
+    place_rows,
+    run_members,
+    sync_members,
+    to_member,
+)
 from nornicdb_tpu_torch.search.bm25 import B, K1, BM25Index, tokenize
 from nornicdb_tpu_torch.search.microbatch import pow2_bucket
 
@@ -188,12 +201,50 @@ def shard_layout(base: Dict[str, Any], s_n: int) -> Dict[str, Any]:
 def shard_args(snap: Dict[str, Any], args: Sequence, sh: int) -> Tuple:
     """Shard ``sh``'s part of ``DeviceBM25.device_args``'s columns, in the
     argument order of ``bm25_dense_scores``: its planned entries and its
-    postings, doc lengths and alive flags, all shard-local."""
+    postings, doc lengths and alive flags, all shard-local. A snapshot
+    placed on a mesh holds one block a shard on its member; the loop reads
+    it on its own device."""
     ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl = args
+    if "members" in snap:
+        cols = (post_doc[sh], post_tf[sh], doc_len[sh], alive[sh])
+        return (ptr[sh], urow[sh], sel, *(x.to(sel.device) for x in cols), avgdl)
     posts = slice(sh * snap["p_cap"], (sh + 1) * snap["p_cap"])
     rows = slice(sh * snap["c_local"], (sh + 1) * snap["c_local"])
     return (ptr[sh], urow[sh], sel, post_doc[posts], post_tf[posts], doc_len[rows],
             alive[rows], avgdl)
+
+
+def member_args(snap: Dict[str, Any], plan: Tuple, m: int, dev: torch.device) -> Tuple:
+    """Member ``m``'s arguments of ``bm25_dense_scores`` on its device
+    ``dev``: the host plan's entry columns for its shard, the batch's
+    selection matrix and avgdl, uploaded on the member's stream, and its
+    placed columns."""
+    ptr, urow, sel, avgdl = plan
+    cols = (to_member(snap[key][m], dev) for key in ("post_doc", "post_tf", "doc_len", "alive"))
+    return (torch.from_numpy(ptr[m]).to(dev), torch.from_numpy(urow[m]).to(dev),
+            torch.from_numpy(sel).to(dev), *cols,
+            torch.tensor(avgdl, dtype=torch.float32, device=dev))
+
+
+def topk_mesh(snap: Dict[str, Any], plan: Tuple, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sharded layout on its mesh (the reference's
+    ``_sharded_bm25_impl``): each member's top ``min(k, c_local)`` of its
+    own rows, made global at ``m * c_local``, merged in member order; the
+    same operations as ``topk_shards``, so the same bits."""
+    c_local = snap["c_local"]
+    k_local = min(k, c_local)
+
+    def local(m, dev):
+        s, i = topk_stable(bm25_dense_scores(*member_args(snap, plan, m, dev)), k_local)
+        return s, i + m * c_local
+
+    return merge_members(run_members("bm25", snap["members"], local), k)
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, list):
+        return sum(_nbytes(t) for t in x)
+    return x.numel() * x.element_size()
 
 
 def topk_shards(snap: Dict[str, Any], args: Sequence, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -215,7 +266,8 @@ class DeviceBM25:
     stays the mutable source of truth. Below ``min_n`` live docs, or
     while the first build runs in the background, the host index serves.
     ``n_shards`` > 1 lays the snapshot out in row shards (``shard_layout``),
-    scored shard by shard and merged (``topk_shards``).
+    scored shard by shard and merged (``topk_shards``), or one shard a
+    member device when there are as many (``topk_mesh``).
     """
 
     def __init__(
@@ -267,20 +319,27 @@ class DeviceBM25:
             snap = shard_layout(base, self.n_shards)
             dev = self.device
             row_ids = snap["row_ids"]
+            cols = {"post_doc": snap["post_doc"], "post_tf": _counts16(snap["post_tf"]),
+                    "doc_len": _counts16(snap["doc_len"]), "alive": snap["alive_np"]}
+            if cols["post_tf"].dtype == np.int16 or cols["doc_len"].dtype == np.int16:
+                _LEX_C.labels("quant_cols").inc()
+            members = mesh_members(self.n_shards, dev)
+            if members is not None:
+                # placed once: shard i's columns on member i
+                cols = {key: place_rows(col, members) for key, col in cols.items()}
+                sync_members(members)
+                snap["members"] = members
+            else:
+                cols = {key: torch.from_numpy(col).to(dev) for key, col in cols.items()}
             snap.update(
+                cols,
                 n=n,
                 built_gen=base["gen"],
                 built_compactions=base["compactions"],
                 vocab=base["vocab"],
-                post_doc=torch.from_numpy(snap["post_doc"]).to(dev),
-                post_tf=torch.from_numpy(_counts16(snap["post_tf"])).to(dev),
-                doc_len=torch.from_numpy(_counts16(snap["doc_len"])).to(dev),
-                alive=torch.from_numpy(snap["alive_np"]).to(dev),
                 alive_tombstones=base["tombstones"],
                 row_of={e: r for r, e in enumerate(row_ids) if e is not None},
             )
-            if snap["post_tf"].dtype == torch.int16 or snap["doc_len"].dtype == torch.int16:
-                _LEX_C.labels("quant_cols").inc()
             self._snap = snap
             self.builds += 1
             self.build_s = time.perf_counter() - t0
@@ -331,12 +390,11 @@ class DeviceBM25:
         return self._snap is not None
 
     def device_bytes(self) -> int:
-        """Bytes of the snapshot's device columns."""
+        """Bytes of the snapshot's device columns (on every member)."""
         snap = self._snap
         if snap is None:
             return 0
-        return sum(snap[key].numel() * snap[key].element_size()
-                   for key in ("post_doc", "post_tf", "doc_len", "alive"))
+        return sum(_nbytes(snap[key]) for key in ("post_doc", "post_tf", "doc_len", "alive"))
 
     def resource_stats(self) -> Dict[str, Any]:
         """Memory and freshness accounting for obs/resources.py: the CSR
@@ -389,6 +447,19 @@ class DeviceBM25:
                 maps[name] = (token, dev)
             return dev
 
+    def placed_map(self, snap: Dict[str, Any], name: str, full: torch.Tensor) -> List[torch.Tensor]:
+        """The row map ``full`` of a placed snapshot split into its members'
+        row blocks, placed once per published map (the reference places
+        its maps on the mesh when it derives them)."""
+        with self._map_lock:
+            cur = snap.setdefault("placed_maps", {}).get(name)
+            if cur is not None and cur[0] is full:
+                return cur[1]
+        parts = place_rows(full, snap["members"])
+        with self._map_lock:
+            snap["placed_maps"][name] = (full, parts)
+        return parts
+
     # -- freshness --------------------------------------------------------
 
     def refresh_alive(self, snap: Dict[str, Any]) -> None:
@@ -413,7 +484,10 @@ class DeviceBM25:
                 if live is None:
                     raise SnapshotStale
                 alive[rows] = live
-            snap["alive"] = torch.from_numpy(alive).to(self.device)
+            if "members" in snap:
+                snap["alive"] = place_rows(alive, snap["members"])
+            else:
+                snap["alive"] = torch.from_numpy(alive).to(self.device)
             snap["alive_tombstones"] = tomb
 
     def delta_block(self, snap: Dict[str, Any]) -> Optional[List[str]]:
@@ -518,7 +592,7 @@ class DeviceBM25:
         t0 = time.time()
         try:
             self.refresh_alive(snap)
-            args = self.device_args(snap, *self.plan(snap, token_rows))
+            plan = self.plan(snap, token_rows)
         except SnapshotStale:
             self.events["host_compaction"] += 1
             _LEX_C.labels("host_fallback_compaction").inc()
@@ -529,9 +603,11 @@ class DeviceBM25:
             _LEX_C.labels("host_fallback_overflow").inc()
             return self.bm25.search_batch(queries, k)
         if snap["shards"] == 1:
-            s, i = topk_stable(bm25_dense_scores(*args), kb)
+            s, i = topk_stable(bm25_dense_scores(*self.device_args(snap, *plan)), kb)
+        elif layout_members(snap, self.device) is not None:
+            s, i = topk_mesh(snap, plan, kb)
         else:
-            s, i = topk_shards(snap, args, kb)
+            s, i = topk_shards(snap, self.device_args(snap, *plan), kb)
         s, i = s.cpu().numpy(), i.cpu().numpy()  # to the host inside the timed window
         record_dispatch("bm25_score", pow2_bucket(b), kb, time.time() - t0)
         # the batch's unique-term posting mass (each scattered once) plus

@@ -47,7 +47,12 @@ row shards, scored and cut apart and merged in shard order
 (``int8_topk_shards``, the reference's loop for more shards than devices,
 which answers the one-shard coarse pool). A capacity that does not split
 evenly keeps one shard, as the reference's does, and so does PQ, whose ADC
-scan the reference runs as one shard; each is counted.
+scan the reference runs as one shard; each is counted. With at least as
+many devices as shards (``parallel/mesh.py:mesh_members``) each member's
+rows are encoded on it at build, a contiguous ``[D, C / s]`` block of the
+codes (the reference splits ``codes_t`` along its column axis), and a batch
+scans one shard a member (``int8_topk_mesh``, the reference's
+``_int8_sharded_impl``), bitwise the loop's.
 """
 
 from __future__ import annotations
@@ -76,6 +81,15 @@ from nornicdb_tpu_torch.ops.similarity import (
     order_keys,
     topk_stable,
     unpack_keys,
+)
+from nornicdb_tpu_torch.parallel.mesh import (
+    layout_members,
+    merge_members,
+    mesh_members,
+    place_rows,
+    run_members,
+    sync_members,
+    to_member,
 )
 from nornicdb_tpu_torch.search.microbatch import pow2_bucket
 
@@ -209,6 +223,39 @@ def int8_topk_shards(qn, codes_t, scale, valid, k, n_shards):
         parts_s.append(s)
         parts_i.append(i + sh * c_local)
     return concat_topk(parts_s, parts_i, k)
+
+
+def int8_topk_mesh(qn, codes_t, scale, valid, k, members):
+    """The sharded int8 coarse top-k on its mesh (the reference's
+    ``_int8_sharded_impl``): ``codes_t``, ``scale`` and ``valid`` are lists
+    of the members' blocks; each member's top ``min(k, C / n)`` of its
+    columns, made global, merged on member 0 in member order;
+    ``int8_topk_shards``'s operations."""
+    c_local = codes_t[0].shape[1]
+
+    def local(m, dev):
+        s, i = _int8_topk_impl(*(to_member(x, dev) for x in (qn, codes_t[m], scale[m], valid[m])),
+                               min(k, c_local))
+        return s, i + m * c_local
+
+    return merge_members(run_members("int8", members, local), k)
+
+
+def int8_coarse_topk(snap: Dict[str, Any], qn: torch.Tensor, k: int):
+    """An int8 plane's coarse top-k by its layout: one shard, the shard
+    loop, or the mesh while the devices cover its members (the reference's
+    dispatch in ``_coarse``)."""
+    if snap["shards"] == 1:
+        return _int8_topk_impl(qn, snap["codes_t"], snap["scale"], snap["valid"], k)
+    members = layout_members(snap, qn.device)
+    if members is not None:
+        return int8_topk_mesh(qn, snap["codes_t"], snap["scale"], snap["valid"], k, members)
+    if "members" in snap:  # placed, read by the loop on this device
+        codes_t, scale, valid = (torch.cat([p.to(qn.device) for p in snap[key]], dim=-1)
+                                 for key in ("codes_t", "scale", "valid"))
+    else:
+        codes_t, scale, valid = snap["codes_t"], snap["scale"], snap["valid"]
+    return int8_topk_shards(qn, codes_t, scale, valid, k, snap["shards"])
 
 
 # ---------------------------------------------------------------------------
@@ -608,9 +655,18 @@ class QuantizedBrutePlane:
                 "build_seq": next(_BUILD_SEQ)}
         t1 = time.perf_counter()
         split = {"snapshot": t1 - t0}
+        members = mesh_members(s_n, dev) if mode == "int8" else None
         if mode == "int8":
-            # column-major: the coarse product streams code columns
-            snap["codes_t"], snap["scale"] = int8_encode_t(matrix, dev)
+            if members is not None:
+                # each member's rows encoded on it: a contiguous [D, C / s] block
+                c_local = cap // s_n
+                enc = [int8_encode_t(matrix[m * c_local:(m + 1) * c_local], mdev)
+                       for m, mdev in enumerate(members)]
+                snap["codes_t"] = [c for c, _ in enc]
+                snap["scale"] = [sc for _, sc in enc]
+            else:
+                # column-major: the coarse product streams code columns
+                snap["codes_t"], snap["scale"] = int8_encode_t(matrix, dev)
             snap["device_bytes"] = cap * d + cap * 4 + cap
         else:
             m = self._pq_m_for(d)
@@ -624,7 +680,12 @@ class QuantizedBrutePlane:
             snap["codebooks"] = torch.from_numpy(codebooks).to(dev)
             snap["codes_t"] = encode_pq_t(matrix, snap["codebooks"])
             snap["device_bytes"] = m * cap + codebooks.nbytes + cap
-        snap["valid"] = torch.from_numpy(valid).to(dev)
+        if members is not None:
+            snap["valid"] = place_rows(valid, members)
+            snap["members"] = members
+            sync_members(members)
+        else:
+            snap["valid"] = torch.from_numpy(valid).to(dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
@@ -690,11 +751,7 @@ class QuantizedBrutePlane:
         b = int(qn.shape[0])
         t0 = time.time()
         if snap["mode"] == "int8":
-            if snap["shards"] == 1:
-                s, i = _int8_topk_impl(qn, snap["codes_t"], snap["scale"], snap["valid"], pool)
-            else:
-                s, i = int8_topk_shards(qn, snap["codes_t"], snap["scale"], snap["valid"],
-                                        pool, snap["shards"])
+            s, i = int8_coarse_topk(snap, qn, pool)
             kind = "int8_coarse"
             flops, byts = _cost.price_int8_coarse(b, snap["capacity"], snap["dims"])
         else:

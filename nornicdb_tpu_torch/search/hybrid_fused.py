@@ -72,8 +72,15 @@ top-k and vector top-k (B1 over an equal slice of the brute matrix on
 the exact tier, ``_shard_loop``; a walk of the graph shard's own rows on
 the walk tier, ``_walk_shard_loop``), rows made global, merged in shard
 order (``merge_parts``) and fused once. The exact tier answers the
-one-shard lists, tie-aware; the sharded walk is held by recall. The
-reference's named gaps step down, each counted: a brute capacity that
+one-shard lists, tie-aware; the sharded walk is held by recall. With at
+least as many devices as shards, the snapshot and the graph are placed one
+shard a member device at build (``parallel/mesh.py``) and each tier runs
+the reference's mesh body instead (``_mesh``, ``_fused_sharded_impl``;
+``_walk_mesh``, ``_walk_fused_sharded_impl``): each member's lexical top-k
+and its vector top-k (B1 over the brute matrix's row block, placed on the
+member once per brute generation) or its walk, merged on member 0 in
+member order and fused there, bitwise the loop's answer. The reference's
+named gaps step down, each counted: a brute capacity that
 does not split into equal shards hands the batch to the host
 (``handoff_unshardable``), a graph of another shard count than the
 snapshot's sends the walk batch to the exact tier (``walk_shard_mismatch``),
@@ -115,6 +122,7 @@ from nornicdb_tpu_torch.obs import audit as _audit
 from nornicdb_tpu_torch.obs import cost as _cost
 from nornicdb_tpu_torch.ops.similarity import NEG_INF, l2_normalize, topk_stable
 from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+from nornicdb_tpu_torch.parallel.mesh import layout_members, place_rows, run_members, to_member
 from nornicdb_tpu_torch.search.ann_quality import current_profile
 from nornicdb_tpu_torch.search.bm25 import BM25Index
 from nornicdb_tpu_torch.search.cagra import CagraIndex, merge_delta_hits, rerank_pool, walk_body
@@ -123,6 +131,7 @@ from nornicdb_tpu_torch.search.device_bm25 import (
     PlanOverflow,
     SnapshotStale,
     bm25_dense_scores,
+    member_args,
     shard_args,
 )
 from nornicdb_tpu_torch.search.device_quant import (
@@ -130,6 +139,7 @@ from nornicdb_tpu_torch.search.device_quant import (
     _pq_topk_impl,
     _walk_body_pq,
     _walk_body_quant,
+    int8_coarse_topk,
     quant_mode,
 )
 from nornicdb_tpu_torch.search.microbatch import pow2_bucket
@@ -285,15 +295,19 @@ def walk_fused_single(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
 
 
 def fused_single_quant(ptr, urow, sel, post_doc, post_tf, doc_len, alive, avgdl,
-                       l2v, qn, codes_t, aux, vvalid, kq, pool, mode):
+                       l2v, qn, codes_t, aux, vvalid, kq, pool, mode, placed=None):
     """The quantized brute tier's device half (the reference's
     ``_fused_single_quant``): the lexical top-k and the coarse vector
     top-``pool`` (``aux``: the int8 scales or the PQ codebooks); no device
-    fuse, since the decode re-fuses over the exact rerank."""
+    fuse, since the decode re-fuses over the exact rerank. ``placed``: an
+    int8 plane placed on a mesh, whose members scan it."""
     ls, _, lgrow = lex_parts(ptr, urow, sel, post_doc, post_tf, doc_len,
                              alive, avgdl, l2v, kq)
-    topk = _int8_topk_impl if mode == "int8" else _pq_topk_impl
-    vs, vi = topk(qn, codes_t, aux, vvalid, pool)
+    if placed is not None:
+        vs, vi = int8_coarse_topk(placed, qn, pool)
+    else:
+        topk = _int8_topk_impl if mode == "int8" else _pq_topk_impl
+        vs, vi = topk(qn, codes_t, aux, vvalid, pool)
     return (_pad_cols(ls, kq, NEG_INF), _pad_cols(lgrow, kq, 0),
             _pad_cols(vs, pool, NEG_INF), _pad_cols(vi, pool, 0))
 
@@ -369,6 +383,9 @@ class FusedHybrid:
                                     search_width=p.cagra_width, min_n=walk_min_n,
                                     n_shards=self.n_shards, build_inline=build_inline)
         self._grow_cache: Optional[Tuple[int, Dict[str, int]]] = None
+        # (brute matrix, members, its row blocks on them): the exact mesh
+        # body's vector shards, placed again only when the matrix changes
+        self._vec_placed: Optional[Tuple] = None
 
     def build(self) -> bool:
         return self.lex.build()
@@ -515,7 +532,10 @@ class FusedHybrid:
         except PlanOverflow:
             return self._handoff("overflow", b, snap)
         dev = self.lex.device
-        lex_args = self.lex.device_args(snap, *plan)
+        # a snapshot placed on a mesh is read by its members; the loops and
+        # the one-shard programs read the plan on the service device
+        members = layout_members(snap, dev)
+        lex_args = None if members is not None else self.lex.device_args(snap, *plan)
         qn = l2_normalize(torch.as_tensor(
             np.asarray(queries_emb, np.float32)).to(dev)).contiguous()
         tail = (torch.tensor([int(e["n_cand"]) for e in extras], device=dev),
@@ -525,7 +545,7 @@ class FusedHybrid:
         # the exact tier, never to the host
         wctx = self._walk_context(snap, kq)
         if wctx is not None:
-            rows = self._dispatch_walk(snap, wctx, lex_args, qn, tail, delta,
+            rows = self._dispatch_walk(snap, wctx, plan, lex_args, qn, tail, delta,
                                        token_rows, extras, t_plan0)
             if rows is not None:
                 return rows
@@ -553,6 +573,8 @@ class FusedHybrid:
         t0 = time.time()
         if snap["shards"] == 1:
             out = fused_single(*lex_args, l2v, qn, m, valid, *tail, kq=kq)
+        elif members is not None:
+            out = self._mesh(snap, members, plan, l2v, qn, m, valid, tail, kq)
         else:
             out = self._shard_loop(snap, lex_args, l2v, qn, m, valid, tail, kq)
         ls, lgrow, vs, vi, fs, fpos = (x.cpu().numpy() for x in out)
@@ -591,6 +613,63 @@ class FusedHybrid:
         vs, vi = merge_parts(vec_parts, kq)
         return _fuse(ls, lid, lgrow, vs, vi, *tail, kq, m.shape[0])
 
+    def _mesh(self, snap, members, plan, l2v, qn, m, valid, tail, kq):
+        """The exact tier on the snapshot's mesh (the reference's
+        ``_fused_sharded_impl``): each member's lexical top-k over its
+        placed rows and B1 over its block of the brute matrix, made global,
+        merged on member 0 in member order and fused there. The same
+        operations as ``_shard_loop``, so the same bits."""
+        c_local = snap["c_local"]
+        c_vec = m.shape[0] // snap["shards"]
+        maps = self.lex.placed_map(snap, "l2v", l2v)
+        vparts = self._vec_parts(m, valid, members)
+
+        def local(sh, dev):
+            ls, lid, lgrow = lex_parts(*member_args(snap, plan, sh, dev),
+                                       to_member(maps[sh], dev), kq)
+            vs, vi = fused_cosine_topk(*(to_member(x, dev) for x in (qn, *vparts[sh])), kq)
+            return ls, lid, lgrow + sh * c_local, vs, vi + sh * c_vec
+
+        return self._merge_fuse(run_members("hybrid_fused", members, local), members, tail, kq,
+                                m.shape[0])
+
+    @staticmethod
+    def _merge_fuse(outs, members, tail, kq, c_vec):
+        ls, lid, lgrow = merge_parts([o[:3] for o in outs], kq)
+        vs, vi = merge_parts([o[3:] for o in outs], kq)
+        return _fuse(ls, lid, lgrow, vs, vi, *(t.to(members[0]) for t in tail), kq, c_vec)
+
+    def _vec_parts(self, m, valid, members):
+        """The brute matrix's row blocks on the members, placed once per
+        brute generation (the reference's ``_vec_arrays``)."""
+        cached = self._vec_placed
+        if cached is not None and cached[0] is m and cached[1] == members:
+            return cached[2]
+        parts = list(zip(place_rows(m, members), place_rows(valid, members)))
+        self._vec_placed = (m, members, parts)
+        return parts
+
+    def _walk_mesh(self, snap, g, members, plan, l2g, qn, tail, kq, wctx):
+        """The walk tier on the mesh (the reference's
+        ``_walk_fused_sharded_impl``): each member's lexical top-k and a
+        walk of its graph shard, made global, merged on member 0 in member
+        order and fused there; ``_walk_shard_loop``'s operations."""
+        c_local = snap["c_local"]
+        r = g["rows_per_shard"]
+        kw = min(kq, wctx["itopk"])
+        maps = self.lex.placed_map(snap, "l2g", l2g)
+
+        def local(sh, dev):
+            ls, lid, lgrow = lex_parts(*member_args(snap, plan, sh, dev),
+                                       to_member(maps[sh], dev), kq)
+            ws, wi = walk_body(*(to_member(x, dev) for x in (qn, *g["shard_slices"][sh])), kw,
+                               wctx["iters"], wctx["width"], wctx["itopk"], wctx["hash_bits"],
+                               wctx["n_seeds"])
+            return ls, lid, lgrow + sh * c_local, ws, wi.to(torch.int64) + sh * r
+
+        return self._merge_fuse(run_members("hybrid_walk", members, local), members, tail, kq,
+                                g["shards"] * r)
+
     def _walk_shard_loop(self, snap, g, lex_args, l2g, qn, tail, kq, wctx):
         """The walk tier over a sharded snapshot and graph on one device
         (the reference's ``_walk_shard_loop``): each lexical shard's top-k
@@ -601,7 +680,9 @@ class FusedHybrid:
         r = g["rows_per_shard"]
         kw = min(kq, wctx["itopk"])
         vec_parts = []
-        for sh, (m_sh, a_sh, v_sh) in enumerate(g["shard_slices"]):
+        for sh, slices in enumerate(g["shard_slices"]):
+            # a graph placed on a mesh is read on this device
+            m_sh, a_sh, v_sh = (x.to(qn.device) for x in slices)
             ws, wi = walk_body(qn, m_sh, a_sh, v_sh, kw, wctx["iters"], wctx["width"],
                                wctx["itopk"], wctx["hash_bits"], wctx["n_seeds"])
             vec_parts.append((ws, wi.to(torch.int64) + sh * r))
@@ -686,7 +767,8 @@ class FusedHybrid:
                                            qsnap["pq_codes"], qsnap["dims"] // qsnap["pq_m"])
         t0 = time.time()
         out = fused_single_quant(*lex_args, l2v, qn, qsnap["codes_t"], aux, qsnap["valid"],
-                                 kq=kq, pool=pool, mode=qsnap["mode"])
+                                 kq=kq, pool=pool, mode=qsnap["mode"],
+                                 placed=qsnap if "members" in qsnap else None)
         ls, lgrow, vs, vi = (x.cpu().numpy() for x in out)
         t1 = time.time()
         record_dispatch("hybrid_fused_quant", pow2_bucket(b), kq, t1 - t0)
@@ -791,7 +873,7 @@ class FusedHybrid:
                 "itopk": cagra.itopk, "hash_bits": cagra.hash_bits,
                 "n_seeds": cagra.n_seeds, "tier": tier}
 
-    def _dispatch_walk(self, snap, wctx, lex_args, qn, tail, delta, token_rows, extras,
+    def _dispatch_walk(self, snap, wctx, plan, lex_args, qn, tail, delta, token_rows, extras,
                        t_plan0):
         """One walk-tier dispatch: the decoded rows, or None when the live
         filter (or a walk miss) left a row short of the candidates the
@@ -805,10 +887,15 @@ class FusedHybrid:
                        hash_bits=wctx["hash_bits"], n_seeds=wctx["n_seeds"])
         t0 = time.time()
         if quant is None:
+            members = layout_members(snap, self.lex.device)
             if snap["shards"] == 1:
                 out = walk_fused_single(*lex_args, wctx["l2g"], qn, g["matrix"], g["adj"],
                                         g["validf"], *tail, kq=kp, **statics)
+            elif members is not None and layout_members(g, self.lex.device) == members:
+                out = self._walk_mesh(snap, g, members, plan, wctx["l2g"], qn, tail, kp, wctx)
             else:
+                if lex_args is None:  # a placed snapshot over a graph that is not
+                    lex_args = self.lex.device_args(snap, *plan)
                 out = self._walk_shard_loop(snap, g, lex_args, wctx["l2g"], qn, tail, kp, wctx)
             ls, lgrow, vs, vi, fs, fpos = (x.cpu().numpy() for x in out)
         else:
@@ -834,7 +921,7 @@ class FusedHybrid:
         record_dispatch(kind, pow2_bucket(b), kp, t1 - t0)
         self.counts["walk_dispatch"] += 1
         _HYB_C.labels("walk_dispatch").inc()
-        d_model, degree = int(qn.shape[1]), int(g["adj"].shape[1])
+        d_model, degree = int(qn.shape[1]), g["degree"]
         if quant is None:
             vec_price = _cost.price_walk(b, d_model, wctx["iters"], wctx["width"], degree,
                                          wctx["itopk"], n_seeds=wctx["n_seeds"])

@@ -1151,3 +1151,214 @@ def test_a_cuda_fault_inside_a_sharded_dispatch_propagates(dev):
     last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else out.stderr[-2000:]
     assert last.startswith("RAISED 2 []"), last
     assert "CUDA" in last or "device-side" in last, last
+
+
+# ---------------------------------------------------------------------------
+# the serving mesh: two members on the one card, and the wrappers' streams
+# ---------------------------------------------------------------------------
+
+
+def _corpus_indexes(dev, n, d=64, seed=5):
+    """A BM25 index and a brute index on ``dev`` over one seeded corpus,
+    with exact vector duplicates (cosine ties)."""
+    from nornicdb_tpu_torch.search.bm25 import BM25Index
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    rng = np.random.default_rng(seed)
+    vocab = [f"term{i}" for i in range(64)]
+    bm25, brute = BM25Index(), BruteForceIndex(device=dev)
+    for i in range(n):
+        bm25.index(f"d{i}", " ".join(rng.choice(vocab, size=int(rng.integers(3, 12)))))
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs[n // 2: n // 2 + 50] = vecs[:50]
+    brute.add_batch([(f"d{i}", vecs[i]) for i in range(n)])
+    queries = [" ".join(rng.choice(vocab, size=int(rng.integers(1, 6)))) for _ in range(24)]
+    embs = rng.standard_normal((24, d)).astype(np.float32)
+    embs[:4] = vecs[:4]
+    extras = [{"tokens": tuple(q.split()), "n_cand": 30, "w": (1.0, 1.0)} for q in queries]
+    return bm25, brute, queries, embs, extras
+
+
+def _fused_tier(bm25, brute, **kw):
+    """A 2-shard fused tier with its snapshot (and its graph, with
+    ``walk_min_n``) built."""
+    from nornicdb_tpu_torch.search.hybrid_fused import FusedHybrid
+
+    tier = FusedHybrid(bm25, brute, n_shards=2, min_n=1, **kw)
+    assert tier.build() and (tier.cagra is None or tier.cagra.build())
+    return tier
+
+
+@pytest.mark.parametrize("tier", ["cosine_topk", "bm25", "exact", "walk", "cagra", "int8"])
+def test_mesh_of_two_members_on_one_card_is_bitwise_the_loop(dev, tier):
+    """Each mesh body with both members on the card (two streams) against
+    the single-device loop over the same layout: ids and scores bitwise,
+    one mesh dispatch a batch, one B1 launch a member where B1 runs."""
+    from nornicdb_tpu_torch.parallel import mesh
+    from nornicdb_tpu_torch.search.cagra import CagraIndex
+    from nornicdb_tpu_torch.search.device_bm25 import DeviceBM25, topk_mesh, topk_shards
+    from nornicdb_tpu_torch.search.device_quant import (
+        QuantizedBrutePlane,
+        int8_topk_mesh,
+        int8_topk_shards,
+    )
+
+    n = 6000 if tier in ("walk", "cagra") else 3000
+    bm25, brute, queries, embs, extras = _corpus_indexes(dev, n)
+    members = [torch.device("cuda", torch.cuda.current_device())] * 2
+    kinds = {"cosine_topk": "cosine_topk", "bm25": "bm25", "exact": "hybrid_fused",
+             "walk": "hybrid_walk", "cagra": "cagra_walk", "int8": "int8"}
+    before = mesh.counts[kinds[tier]]
+    if tier == "cosine_topk":
+        m, valid = brute.device_view()[:2]
+        qn = torch.nn.functional.normalize(torch.from_numpy(embs).to(dev), dim=1)
+        launches = fused_cosine_topk.launches
+        with mesh.member_devices(members):
+            got = mesh.sharded_cosine_topk(qn, m, valid, 32)
+        assert fused_cosine_topk.launches == launches + 2
+        rows = m.shape[0] // 2
+        parts = [fused_cosine_topk(qn, m[sh * rows:(sh + 1) * rows],
+                                   valid[sh * rows:(sh + 1) * rows], 32) for sh in range(2)]
+        from nornicdb_tpu_torch.ops.similarity import concat_topk
+
+        want = concat_topk([p[0] for p in parts], [p[1] + sh * rows for sh, p in enumerate(parts)],
+                           32)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    elif tier == "bm25":
+        loop = DeviceBM25(bm25, n_shards=2, min_n=1, device=dev)
+        assert loop.build()
+        with mesh.member_devices(members):
+            placed = DeviceBM25(bm25, n_shards=2, min_n=1, device=dev)
+            assert placed.build() and placed._snap["members"] == members
+            assert placed.search_batch(queries, 20) == loop.search_batch(queries, 20)
+            plan = placed.plan(placed._snap, [tuple(q.split()) for q in queries])
+            got = topk_mesh(placed._snap, plan, 32)
+        want = topk_shards(loop._snap, loop.device_args(loop._snap, *plan), 32)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    elif tier in ("exact", "walk"):
+        kw = {"walk_min_n": 1000} if tier == "walk" else {}
+        loop = _fused_tier(bm25, brute, **kw)
+        with mesh.member_devices(members):
+            placed = _fused_tier(bm25, brute, **kw)
+            assert placed.lex._snap["members"] == members
+            launches = fused_cosine_topk.launches
+            got = placed.search_batch(embs, 32, extras)
+            assert fused_cosine_topk.launches == launches + (2 if tier == "exact" else 0)
+        want = loop.search_batch(embs, 32, extras)
+        served = "hybrid_brute_f32" if tier == "exact" else "hybrid_walk_f32"
+        assert all(r["served_by"] == served for r in got)
+        assert [(r["lex"], r["vec"], r["fused"]) for r in got] == \
+            [(r["lex"], r["vec"], r["fused"]) for r in want]
+    elif tier == "cagra":
+        loop = CagraIndex(brute=brute, n_shards=2, min_n=1000)
+        assert loop.build()
+        with mesh.member_devices(members):
+            placed = CagraIndex(brute=brute, n_shards=2, min_n=1000)
+            assert placed.build() and placed._graph["members"] == members
+            for a, b in zip(placed._graph["shard_slices"], loop._graph["shard_slices"]):
+                assert all(torch.equal(x, y) for x, y in zip(a, b))  # the same graphs
+            assert placed.search_batch(embs, 10) == loop.search_batch(embs, 10)
+    else:
+        loop = QuantizedBrutePlane(brute, mode="int8", n_shards=2, build_inline=True)
+        assert loop.build()
+        with mesh.member_devices(members):
+            placed = QuantizedBrutePlane(brute, mode="int8", n_shards=2, build_inline=True)
+            assert placed.build() and placed._snap["members"] == members
+            assert placed.search_batch(embs, 10) == loop.search_batch(embs, 10)
+            qn = torch.nn.functional.normalize(torch.from_numpy(embs).to(dev), dim=1)
+            snap, lsnap = placed._snap, loop._snap
+            got = int8_topk_mesh(qn, snap["codes_t"], snap["scale"], snap["valid"], 128, members)
+        want = int8_topk_shards(qn, lsnap["codes_t"], lsnap["scale"], lsnap["valid"], 128, 2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert mesh.counts[kinds[tier]] > before
+
+
+_MESH_FAULT_PROBE = """
+import numpy as np, torch
+from nornicdb_tpu_torch.parallel import mesh
+from nornicdb_tpu_torch.search import hybrid_fused
+from nornicdb_tpu_torch.search.bm25 import BM25Index
+from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+dev = torch.device("cuda", 0)
+rng = np.random.default_rng(3)
+vocab = [f"term{i}" for i in range(64)]
+bm25, brute = BM25Index(), BruteForceIndex(device=dev)
+for i in range(3000):
+    bm25.index(f"d{i}", " ".join(rng.choice(vocab, size=6)))
+brute.add_batch([(f"d{i}", rng.standard_normal(64).astype(np.float32)) for i in range(3000)])
+with mesh.member_devices([dev, dev]):
+    tier = hybrid_fused.FusedHybrid(bm25, brute, n_shards=2, min_n=1)
+    assert tier.build() and "members" in tier.lex._snap
+    real, calls = hybrid_fused.fused_cosine_topk, []
+
+    def faulting(q, m, valid, k):
+        calls.append(1)
+        if len(calls) == 2:  # the second member's launch reads out of bounds
+            bad = torch.full((4,), 10**9, dtype=torch.int64, device=q.device)
+            m.index_select(0, bad)
+        return real(q, m, valid, k)
+
+    hybrid_fused.fused_cosine_topk = faulting
+    extras = [{"tokens": ("term1", "term2"), "n_cand": 10, "w": (1.0, 1.0)}]
+    try:
+        rows = tier.search_batch(rng.standard_normal((1, 64)).astype(np.float32), 16, extras)
+        torch.cuda.synchronize()
+    except Exception as exc:  # the fault must reach the caller
+        served = sorted(k for k in tier.counts if k != "join_full")  # the join map's derivation
+        print("RAISED", len(calls), mesh.counts["hybrid_fused"], served,
+              str(exc).splitlines()[0])
+    else:
+        print("SWALLOWED", rows)
+"""
+
+
+def test_a_cuda_fault_inside_one_members_dispatch_propagates(dev):
+    """A device-side fault in the second member's B1 call of the exact
+    tier's mesh body reaches the caller of ``search_batch``: no hand-off,
+    no step down, nothing served. Run in a subprocess: a device-side fault
+    poisons its CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _MESH_FAULT_PROBE], cwd=repo,
+                         env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else out.stderr[-2000:]
+    assert last.startswith("RAISED 2 1 []"), last
+    assert "CUDA" in last or "device-side" in last, last
+
+
+@pytest.mark.parametrize("kernel", ["cosine_topk", "flash_attention"])
+def test_mesh_kernel_launches_order_with_the_callers_stream(dev, kernel):
+    """B1 and B2 launched inside ``torch.cuda.stream(side)`` while another
+    stream was current run on ``side``: after a long sleep on ``side`` that
+    is followed by the write of their inputs there, they read the written
+    inputs (a launch on any other stream would read the zeros)."""
+    rng = np.random.default_rng(9)
+    other, side = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    if kernel == "cosine_topk":
+        m = torch.nn.functional.normalize(
+            torch.from_numpy(rng.standard_normal((20000, 64)).astype(np.float32)).to(dev), dim=1)
+        valid = torch.ones(20000, dtype=torch.bool, device=dev)
+        real = m[:8].clone()
+        want = cosine_topk(real, m, valid, 16)
+    else:
+        real = torch.from_numpy(rng.standard_normal((2, 64, 4, 40)).astype(np.float32)).to(dev)
+        mask = torch.ones((2, 64), dtype=torch.bool, device=dev)
+        want = reference_attention(real, real, real, mask)
+    x = torch.zeros_like(real)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(other):
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the side stream's clock
+            x.copy_(real)
+            with torch.no_grad():
+                got = (fused_cosine_topk(x, m, valid, 16) if kernel == "cosine_topk"
+                       else flash_attention(x, x, x, mask))
+    torch.cuda.synchronize()
+    if kernel == "cosine_topk":
+        assert topk_agree(got[1].cpu().numpy(), got[0].cpu().numpy(), want[1].cpu().numpy(),
+                          want[0].cpu().numpy(), SCORE_ATOL)
+    else:
+        assert float((got - want).abs().max()) <= ATTN_ATOL
