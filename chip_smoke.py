@@ -383,7 +383,8 @@ Phases, in order; any failure exits non-zero:
    profiler), tokens equal to the CPU's up to the first near tie, and
    ``param_bytes`` against the ``memory_allocated`` delta (512 B a
    tensor). (c) A LLaMA-class decoder at TinyLlama-1.1B's published
-   widths from a seeded synthetic state dict through
+   widths, ``TINYLLAMA_LAYERS`` (6) of its 22 layers, from a seeded
+   synthetic state dict through
    ``import_hf_decoder_params``: a 16-token prefill card vs CPU in f32
    (``F32_LOGIT_RTOL``), then 16 greedy ids (one prefill per token, as the
    reference generates), ms a token. (d) ``heimdall.train.train`` for 50
@@ -399,6 +400,35 @@ Phases, in order; any failure exits non-zero:
    ``HEIMDALL_PHASE_S`` joins the late rule; a late run decodes 64 tokens
    in (b) and 4 in (c), and trains 20 and 5 steps in (d). Its launches
    are the kernels line's ``launches_heimdall``.
+11. The training mesh (``train mesh (a)``-``(e)`` lines), one process over
+   eight members: eight cards where there are, else the one card eight
+   times. (a) ``ring_attention`` at bge-m3's heads and length (B 1, S
+   8,192, H 16, Dh 64, f32) over 8 ``sp`` members against
+   ``_dense_attention`` on one device, with 80% of the keys valid and with
+   only the first block valid: max abs within ``RING_ATOL``; the median ms
+   of each. (b) ``make_sharded_train_step`` at the mini encoder's widths
+   (f32) on a (dp 2, tp 2, sp 2) mesh, one of phase 10 (d)'s batches
+   (128 x 64): the first loss within ``SHARDED_LOSS_RTOL`` of the
+   single-device step's on the same parameters, every gradient within
+   ``SHARDED_GRAD_ATOL``; each member's shard and moment bytes equal to
+   what ``param_sharding_rules`` implies, their sum the ``memory_allocated``
+   delta (within ``TRAIN_MEM_SLACK``); then 10 steps (the loss falls), ms a
+   step against the single-device step's. (c) One step at bge-m3's widths
+   (bf16, 24 layers, vocab 250,002; drawn on the card) on the same mesh,
+   B 8, S 512, the single-device step first and freed: losses within ``BGE_LOSS_RTOL``,
+   peak ``max_memory_allocated``. (d) ``make_pp_ep_mesh(8)`` (pp 2, ep 4),
+   width 1,024, hidden 4,096, B 256 in 4 microbatches: the pipeline within
+   ``PP_EP_ATOL`` of the stages in sequence and the MoE, at a capacity
+   that drops nothing, of a dense MoE on one device; 10 SGD steps, the
+   loss falls. (e) The reference's data-parallel step over
+   ``hybrid_mesh({"tp": 2, "sp": 2})`` (dcn 2), x 4,096 x 1,024: two steps,
+   the loss falls; then inside a one-process NCCL group
+   (``init_distributed``), where the process-axis reductions call
+   ``all_reduce`` on the card: losses and weights bitwise the same.
+   ``TRAIN_MESH_PHASE_S`` joins the late rule; a late run times 2 calls in
+   (a) and takes 3 steps in (b) and (d). Its launches, the kernels line's
+   ``launches_train_mesh``, must be 0: training takes the einsum
+   attention and the ring, as the reference's does.
 
 Timing uses CUDA events over back-to-back calls, and ``torch.profiler``
 for the device time of each kernel per call: B1 by stage and its library
@@ -522,7 +552,8 @@ def run_is_late(extra_s: float = 0.0, upcoming_s: float = None) -> bool:
     A late phase shortens its timing, never its checks."""
     if upcoming_s is None:
         upcoming_s = (CYPHER_PHASE_S + GRAPH_PLANE_S + APOC_PHASE_S + QUANT_PHASE_S
-                      + SHARDS_PHASE_S + MESH_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S)
+                      + SHARDS_PHASE_S + MESH_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S
+                      + TRAIN_MESH_PHASE_S)
     return time.perf_counter() - T_START + extra_s + upcoming_s > RUN_LIMIT_S
 
 
@@ -6088,6 +6119,9 @@ TINYLLAMA = dict(vocab_size=32_000, hidden_size=2048, num_hidden_layers=22,
                  num_attention_heads=32, num_key_value_heads=4, intermediate_size=5632,
                  max_position_embeddings=2048, rope_theta=10_000.0, rms_norm_eps=1e-5,
                  tie_word_embeddings=False)  # TinyLlama-1.1B's published config.json
+# (c)'s depth: 6 of TinyLlama's 22 layers at its published widths, cut in
+# PR 24 to make room for phase 11 on a slow host (PERF.md §4)
+TINYLLAMA_LAYERS = 6
 BGE_M3 = dict(model_type="xlm-roberta", vocab_size=250_002, hidden_size=1024,
               num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096,
               max_position_embeddings=8194, type_vocab_size=1, layer_norm_eps=1e-5,
@@ -6399,12 +6433,12 @@ def synthetic_llama(dev, cfg, seed):
 
 
 def heimdall_llama(dev, card, seed, n_new):
-    """(c): a LLaMA-class decoder at TinyLlama-1.1B's widths."""
+    """(c): a LLaMA-class decoder at TinyLlama-1.1B's widths, depth cut."""
     import torch
 
     from nornicdb_tpu_torch.heimdall import hf_import as hi
 
-    cfg = hi.HFDecoderConfig.from_hf_config(TINYLLAMA)
+    cfg = hi.HFDecoderConfig.from_hf_config({**TINYLLAMA, "num_hidden_layers": TINYLLAMA_LAYERS})
     t0 = time.perf_counter()
     sd = synthetic_llama(dev, cfg, seed)
     p_card = hi.import_hf_decoder_params(sd, cfg, device=dev)
@@ -6433,7 +6467,8 @@ def heimdall_llama(dev, card, seed, n_new):
     out = {"params": n_params, "load_s": load_s, "prefill_max_abs_err": err,
            "new_tokens": len(new), "ms_per_token": ms / max(len(new), 1),
            "tokens_agreeing": agree}
-    log(f"heimdall (c) LLaMA-class at TinyLlama-1.1B widths ({n_params:,} params, synthetic "
+    log(f"heimdall (c) LLaMA-class at TinyLlama-1.1B widths, {cfg.num_layers} of its 22 "
+        f"layers ({n_params:,} params, synthetic "
         f"seeded state dict through import_hf_decoder_params, {load_s:.1f} s): "
         f"{LLAMA_TOKENS}-token prefill logits card vs CPU (f32) max abs {err:.4g}; "
         f"{len(new)} greedy ids at {out['ms_per_token']:.3f} ms a token (CUDA events, one "
@@ -6659,6 +6694,431 @@ def phase_heimdall(dev, seed, card, late=False):
     return launches
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+TRAIN_MESH_PHASE_S = 60.0  # phase 11's budget in the late rule (21-36 s on an H100, 700 W)
+TRAIN_MESH_MEMBERS = 8  # eight members: eight cards where there are, else the one card
+RING_SHAPE = (1, 8192, 16, 64)  # (a): bge-m3's heads and its 8,192-token length, f32
+RING_ATOL = 1e-4  # the reference's own ring tolerance (tests/test_models.py:112, :124)
+RING_REPS = 5  # (a)'s timed calls a path (median); 2 in a late run
+TRAIN_SPEC = (2, 2, 2)  # (dp, tp, sp) of (b) and (c)
+SHARDED_STEPS = 10  # (b)'s steps; 3 in a late run
+SHARDED_LOSS_RTOL = 1e-5  # (b): float32 sums in another order (tests/test_torch_sharded_train.py)
+SHARDED_GRAD_ATOL = 1e-5
+BGE_BATCH = (8, 512)  # (c)'s batch and sequence
+BGE_LOSS_RTOL = 2e-2  # the reference's bf16 tolerance (tests/test_models.py:76)
+PP_EP_SHAPE = dict(width=1024, hidden=4096, batch=256, n_micro=4)
+PP_EP_CF = 4.0  # capacity 4 x 64 rows / 4 experts = 64, every row a member routes: none drops
+PP_EP_ATOL = 1e-4
+PP_EP_LR = 0.2  # the reference test's rate (tests/test_pipeline_moe.py)
+PP_EP_STEPS = 10  # (d)'s SGD steps; 3 in a late run
+DCN_SHAPE = (4096, 1024)  # (e): rows and width of the data-parallel step
+TRAIN_MEM_SLACK = 1 << 20  # (b): the shards' bytes against the memory_allocated delta
+
+
+def train_mesh_members(dev):
+    import torch
+
+    if torch.cuda.device_count() >= TRAIN_MESH_MEMBERS:
+        return [torch.device("cuda", i) for i in range(TRAIN_MESH_MEMBERS)]
+    return [torch.device("cuda", dev.index or 0)] * TRAIN_MESH_MEMBERS
+
+
+def median_ms(fn, reps):
+    """Median milliseconds of ``reps`` calls (after one warm-up), each timed
+    by CUDA events."""
+    fn()
+    return float(np.median([cuda_ms(fn)[1] for _ in range(reps)]))
+
+
+def train_ring(dev, members, seed, reps, card):
+    """(a): the ring over 8 sp members against dense attention on one
+    device, two masks."""
+    import torch
+
+    from nornicdb_tpu_torch.parallel.mesh import Mesh, _device_array
+    from nornicdb_tpu_torch.parallel.ring_attention import _dense_attention, ring_attention
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device=dev) for _ in range(3))
+    b, s = RING_SHAPE[:2]
+    first = torch.zeros(b, s, dtype=torch.bool, device=dev)
+    first[:, :s // len(members)] = True
+    masks = {"keep_0.8": torch.rand(b, s, generator=g, device=dev) > 0.2, "first_block": first}
+    mesh = Mesh(_device_array(members, (len(members),)), ("sp",))
+    out = {}
+    for name, mask in masks.items():
+        with torch.no_grad():
+            ring = ring_attention(q, k, v, mask, mesh=mesh)
+            dense = _dense_attention(q, k, v, mask)
+            err = float((ring.to(dev) - dense).abs().max())
+            finite = bool(torch.isfinite(ring).all())
+            del ring, dense
+            ring_ms = median_ms(lambda: ring_attention(q, k, v, mask, mesh=mesh), reps)
+            dense_ms = median_ms(lambda: _dense_attention(q, k, v, mask), reps)
+        if err > RING_ATOL or not finite:
+            raise AssertionError(f"train mesh (a) {name}: ring against dense max abs {err}")
+        out[name] = {"max_abs_err": err, "ring_ms": ring_ms, "dense_ms": dense_ms}
+        log(f"train mesh (a) ring attention B {b}, S {s}, H {RING_SHAPE[2]}, Dh "
+            f"{RING_SHAPE[3]} f32 over {len(members)} sp members, mask {name}: max abs "
+            f"{err:.3g} against dense (<= {RING_ATOL}); {ring_ms:.3f} ms against dense "
+            f"{dense_ms:.3f} (median of {reps}, CUDA events) ({card})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_bytes(state):
+    """Each member's bytes of the shards it owns, and of their AdamW
+    moments, by allocator block (512 B)."""
+    def block(t):
+        return -(-t.numel() * t.element_size() // 512) * 512
+
+    per = [0] * len(state.mesh.members)
+    for t in state.params.values():
+        for key, shard in t.shards.items():
+            st = state.optimizer.state[shard]
+            per[t.owners[key]] += block(shard) + block(st["exp_avg"]) + block(st["exp_avg_sq"])
+    return per
+
+
+def implied_bytes(model, mesh):
+    """What ``param_sharding_rules`` implies a member holds: a parameter
+    split over the axes its spec names, each block (with its two moments)
+    on the first member, in member order, whose block it is."""
+    from nornicdb_tpu_torch.models.encoder import param_sharding_rules
+    from nornicdb_tpu_torch.parallel.sharding import NamedSharding
+
+    rule = param_sharding_rules(model.cfg)
+    per = [0] * len(mesh.members)
+    for name, p in model.named_parameters():
+        sh = NamedSharding(mesh, rule(name, p))
+        n = int(np.prod(sh.counts(p.ndim)))
+        blk = -(-p.numel() // n * p.element_size() // 512) * 512
+        seen = set()
+        for m in range(len(mesh.members)):
+            key = sh.key(m, p.ndim)
+            if key not in seen:
+                seen.add(key)
+                per[m] += 3 * blk
+    return per
+
+
+def mini_batch(seed):
+    """One of phase 10 (d)'s batches: 128 pairs of distinct groups, seq 64."""
+    import random
+
+    from nornicdb_tpu_torch.embed.tokenizer import HashTokenizer
+    from nornicdb_tpu_torch.models import pretrain
+    from nornicdb_tpu_torch.models.encoder import EncoderConfig
+
+    groups = {}
+    for g, text in pretrain.build_corpus():
+        groups.setdefault(g, []).append(text.split())
+    names = sorted(groups)
+    tok = HashTokenizer(EncoderConfig.mini().vocab_size)
+    return pretrain.make_batch(groups, names, tok, random.Random(seed), min(128, len(names)), 64)
+
+
+def train_sharded_mini(dev, members, seed, steps, card):
+    """(b): the sharded step at the mini encoder's widths against the
+    single-device step on the same parameters."""
+    import torch
+
+    from nornicdb_tpu_torch.models import train as ttr
+    from nornicdb_tpu_torch.models.encoder import EncoderConfig
+    from nornicdb_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    a, p = mini_batch(seed)
+    mesh = make_mesh(MeshSpec(*TRAIN_SPEC), members)
+    model, single = ttr.create_train_state(EncoderConfig.mini(), seed, learning_rate=3e-4,
+                                           device=dev)
+    before = device_memory()
+    state, step = ttr.make_sharded_train_step(model, single, mesh)
+    loss = ttr.sharded_contrastive_loss(state, a, p)
+    loss.backward()
+    sharded_loss = float(loss.detach())
+    ids = [torch.from_numpy(np.asarray(x, np.int64)).to(dev) for x in (a, p)]
+    ref = ttr.info_nce_loss(model(ids[0]), model(ids[1]))
+    ref.backward()
+    single_loss = float(ref.detach())
+    grad_err = max(float((state.params[n].gather(dev, grad=True) - q.grad).abs().max())
+                   for n, q in model.named_parameters())
+    del loss, ref, ids
+    model.zero_grad(set_to_none=True)
+    state.apply_gradients()  # the first sharded step, on the gradients checked
+    held = shard_bytes(state)
+    implied = implied_bytes(model, mesh)
+    delta = device_memory() - before
+    if abs(sharded_loss - single_loss) > SHARDED_LOSS_RTOL * abs(single_loss) \
+            or grad_err > SHARDED_GRAD_ATOL or not np.isfinite(sharded_loss):
+        raise AssertionError(f"train mesh (b): loss {sharded_loss} against the single "
+                             f"device's {single_loss}, gradients max abs {grad_err}")
+    if held != implied or abs(sum(held) - delta) > TRAIN_MEM_SLACK:
+        raise AssertionError(f"train mesh (b): members hold {held} B, the rules imply "
+                             f"{implied}, memory_allocated delta {delta}")
+    losses = [sharded_loss]
+
+    def sharded_steps():
+        nonlocal state
+        for _ in range(steps - 1):
+            state, loss = step(state, a, p)
+            losses.append(loss)
+
+    _, sharded_ms = cuda_ms(sharded_steps)
+    losses = [float(x) for x in losses]
+    _, single_ms = cuda_ms(lambda: [ttr.contrastive_train_step(model, single, a, p)
+                                    for _ in range(steps - 1)])
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train mesh (b): the sharded loss did not fall: {losses}")
+    out = {"steps": steps, "batch": len(a), "first_loss": sharded_loss,
+           "single_first_loss": single_loss, "grad_max_abs_err": grad_err,
+           "last_loss": losses[-1], "member_bytes": held, "memory_delta": delta,
+           "ms_per_step": sharded_ms / (steps - 1), "single_ms_per_step": single_ms / (steps - 1)}
+    log(f"train mesh (b) sharded step, mini encoder f32, mesh dp/tp/sp {TRAIN_SPEC}, batch "
+        f"{len(a)}, seq 64: first loss {sharded_loss:.7f} against the single device's "
+        f"{single_loss:.7f}, gradients max abs {grad_err:.3g}; members hold {held} B (the "
+        f"rules' {implied}), sum {sum(held)} against the memory_allocated delta {delta}; "
+        f"{steps} steps, loss -> {losses[-1]:.6f}; {out['ms_per_step']:.3f} ms a step against "
+        f"{out['single_ms_per_step']:.3f} on one device (CUDA events) ({card})")
+    del state, step, model, single
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_sharded_bge(dev, members, seed, card):
+    """(c): one step at bge-m3's widths in bf16, the single-device step
+    first and freed before the sharded one."""
+    import torch
+
+    from nornicdb_tpu_torch.models import train as ttr
+    from nornicdb_tpu_torch.models.encoder import EncoderConfig
+    from nornicdb_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    cfg = EncoderConfig.bge_m3_like()
+    b, s = BGE_BATCH
+    rng = np.random.default_rng(seed + 11)
+    a, p = (rng.integers(1, cfg.vocab_size, (b, s)) for _ in range(2))
+    a[:, s - 64:] = 0
+    p[0, s // 2:] = 0
+    mesh = make_mesh(MeshSpec(*TRAIN_SPEC), members)
+    with torch.device(dev):  # the 567 M draws on the card, from a generator there
+        model, single = ttr.create_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    res, single_ms = cuda_ms(lambda: ttr.contrastive_train_step(model, single, a, p))
+    single_loss, single_peak = float(res[1]), torch.cuda.max_memory_allocated()
+    # back to the initial weights and a fresh AdamW, placed; then the
+    # single device's copy is freed
+    with torch.no_grad():
+        model.load_state_dict(init)
+    del init, res
+    single.optimizer.state.clear()
+    single.step = 0
+    state, step = ttr.make_sharded_train_step(model, single, mesh)
+    del model, single
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, sharded_ms = cuda_ms(lambda: step(state, a, p))
+    loss, peak = float(res[1]), torch.cuda.max_memory_allocated()
+    n_params = sum(int(np.prod(t.shape)) for t in state.params.values())
+    del state, step, res
+    torch.cuda.empty_cache()
+    if not np.isfinite(loss) or abs(loss - single_loss) > BGE_LOSS_RTOL * abs(single_loss):
+        raise AssertionError(f"train mesh (c): sharded loss {loss} against the single "
+                             f"device's {single_loss}")
+    out = {"params": n_params, "loss": loss, "single_loss": single_loss, "ms": sharded_ms,
+           "single_ms": single_ms, "peak_bytes": peak, "single_peak_bytes": single_peak}
+    log(f"train mesh (c) one step at bge-m3's widths ({n_params:,} params, bf16, "
+        f"{cfg.num_layers} layers), "
+        f"mesh dp/tp/sp {TRAIN_SPEC}, B {b}, S {s}: loss {loss:.5f} against the single "
+        f"device's {single_loss:.5f} (rtol {BGE_LOSS_RTOL}); {sharded_ms:.1f} ms against "
+        f"{single_ms:.1f} (CUDA events, first step of each); peak max_memory_allocated "
+        f"{peak:,} B against {single_peak:,} ({card})")
+    return out
+
+
+def dense_moe(params, h):
+    """Top-1 MoE on one device, expert by expert, nothing dropped."""
+    import torch
+
+    from nornicdb_tpu_torch.parallel.pipeline import _gelu
+
+    scores = torch.softmax(h @ params["router"], dim=-1)
+    gate, expert = scores.max(dim=-1)
+    out = torch.zeros_like(h)
+    for e in range(params["wi"].shape[0]):
+        rows = expert == e
+        out[rows] = (_gelu(h[rows] @ params["wi"][e]) @ params["wo"][e]) * gate[rows, None]
+    return out
+
+
+def train_pp_ep(dev, members, seed, steps, card):
+    """(d): pp x ep against the stages in sequence and a dense MoE on one
+    device, then SGD steps."""
+    import torch
+
+    from nornicdb_tpu_torch.parallel import pipeline as tpipe
+
+    mesh = tpipe.make_pp_ep_mesh(len(members), members)
+    w, hdn, batch, n_micro = (PP_EP_SHAPE[k] for k in ("width", "hidden", "batch", "n_micro"))
+    init_fn, step = tpipe.make_pp_ep_train_step(mesh, w, hdn, n_micro, learning_rate=PP_EP_LR)
+    params, _ = init_fn(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, w, generator=g, device=dev)
+    with torch.no_grad():
+        h = tpipe.pipeline_apply(params["pipe"], x, mesh, n_micro, batch_axis="ep")
+        delta, aux = tpipe.moe_apply(params["moe"], h, mesh, capacity_factor=PP_EP_CF)
+        pipe = {k: v.gather(dev) for k, v in params["pipe"].items()}
+        seq = x
+        for st in range(mesh.shape["pp"]):
+            seq = tpipe._stage_block({k: v[st:st + 1] for k, v in pipe.items()}, seq)
+        ref = dense_moe({k: v.gather(dev) for k, v in params["moe"].items()}, seq)
+        pipe_err = float((h - seq).abs().max())
+        moe_err = float((delta - ref).abs().max())
+        dropped = int((delta == 0).all(dim=1).sum())
+    if max(pipe_err, moe_err) > PP_EP_ATOL or dropped or not torch.isfinite(aux):
+        raise AssertionError(f"train mesh (d): pipeline max abs {pipe_err}, MoE {moe_err}, "
+                             f"{dropped} rows dropped")
+    losses = []
+
+    def run():
+        nonlocal params
+        for _ in range(steps):
+            params, loss = step(params, x, x * 0.5)
+            losses.append(loss)
+
+    _, ms = cuda_ms(run)
+    losses = [float(v) for v in losses]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train mesh (d): the loss did not fall: {losses}")
+    out = {"mesh": dict(mesh.shape), "pipeline_max_abs_err": pipe_err, "moe_max_abs_err": moe_err,
+           "aux": float(aux), "steps": steps, "first_loss": losses[0], "last_loss": losses[-1],
+           "ms_per_step": ms / steps}
+    log(f"train mesh (d) pp x ep {out['mesh']}: width {w}, hidden {hdn}, B {batch}, {n_micro} "
+        f"microbatches, capacity factor {PP_EP_CF} (no row dropped): pipeline max abs "
+        f"{pipe_err:.3g} against the stages in sequence, MoE {moe_err:.3g} against a dense "
+        f"MoE (<= {PP_EP_ATOL}); {steps} SGD steps, loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+        f"{out['ms_per_step']:.3f} ms a step (CUDA events) ({card})")
+    del params, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_step(mesh, w, x, y, lr=0.1):
+    """The reference's data-parallel step (``tests/test_multihost.py``): loss
+    ``mean((x @ w - y) ** 2)`` over the global batch, ``w`` replicated,
+    ``x``/``y`` over ``dcn``, the members' sums ``psum``-ed over ``dcn``,
+    SGD on ``w``'s shard."""
+    import torch
+
+    from nornicdb_tpu_torch.parallel import collectives as coll
+
+    parts = [((xm @ wm - ym) ** 2).sum()
+             for xm, wm, ym in zip(x.blocks(), w.blocks(), y.blocks())]
+    loss = coll.psum(mesh, parts, "dcn")[0] / (x.shape[0] * x.shape[1])
+    loss.backward()
+    with torch.no_grad():
+        for sh in w.shards.values():
+            sh -= lr * sh.grad
+            sh.grad = None
+    return loss.detach()
+
+
+def dp_run(members, x, y):
+    """Two steps from ``w = 1`` on a fresh ``hybrid_mesh({"tp": 2, "sp": 2})``."""
+    from nornicdb_tpu_torch.parallel import multihost as tmh
+
+    mesh = tmh.hybrid_mesh({"tp": 2, "sp": 2}, devices=members)
+    w = tmh.replicate_to_mesh(mesh, np.ones((x.shape[1],) * 2, np.float32)).requires_grad_()
+    xs, ys = tmh.process_local_batch(mesh, x), tmh.process_local_batch(mesh, y)
+    l0 = dp_step(mesh, w, xs, ys)
+    l1 = dp_step(mesh, w, xs, ys)
+    return mesh, l0, l1, w.shards[(0, 0)].detach()
+
+
+def train_dcn(dev, members, seed, card):
+    """(e): dp over dcn in one process, then again inside a one-process
+    NCCL group, whose process-axis all-reduces must change no bit."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from nornicdb_tpu_torch.parallel import mesh as tmesh
+    from nornicdb_tpu_torch.parallel import multihost as tmh
+
+    rng = np.random.default_rng(seed + 12)
+    x, y = (rng.standard_normal(DCN_SHAPE).astype(np.float32) for _ in range(2))
+    mesh, l0, l1, w = dp_run(members, x, y)
+    if not float(l1) < float(l0):
+        raise AssertionError(f"train mesh (e): the dp loss did not fall: {l0} -> {l1}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    calls = []
+    real = dist.all_reduce
+
+    def counted(*args, **kw):
+        calls.append(args[0].device)
+        return real(*args, **kw)
+
+    with tmesh.member_devices(members):
+        info = tmh.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        dist.all_reduce = counted
+        gmesh, g0, g1, gw = dp_run(members, x, y)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+    same = torch.equal(g0, l0) and torch.equal(g1, l1) and torch.equal(gw, w)
+    if not (same and gmesh.in_process_group and calls and backend == "nccl"
+            and all(d.type == "cuda" for d in calls)):
+        raise AssertionError(f"train mesh (e): in the group ({backend}, {len(calls)} "
+                             f"all_reduce calls) the step gave {float(g0)}, {float(g1)} "
+                             f"against {float(l0)}, {float(l1)}; weights equal {torch.equal(gw, w)}")
+    out = {"mesh": dict(mesh.shape), "loss": [float(l0), float(l1)], "info": info,
+           "all_reduce_calls": len(calls), "backend": backend}
+    log(f"train mesh (e) dp over dcn, hybrid_mesh {out['mesh']}, x {DCN_SHAPE}: loss "
+        f"{float(l0):.6f} -> {float(l1):.6f}; inside a one-process {backend} group "
+        f"({info}) the two steps ran {len(calls)} process-axis all_reduce calls on the card "
+        f"and gave the same losses and weights bitwise ({card})")
+    return out
+
+
+def phase_train_mesh(dev, seed, card, late=False):
+    """Phase 11 (module docstring). Returns its launches."""
+    import torch
+
+    members = train_mesh_members(dev)
+    out = REPORT["train_mesh"] = {"late": late, "members": [str(m) for m in members]}
+    reset_counts()
+    t0 = time.perf_counter()
+    parts = {"a": lambda: train_ring(dev, members, seed, 2 if late else RING_REPS, card),
+             "b": lambda: train_sharded_mini(dev, members, seed, 3 if late else SHARDED_STEPS,
+                                             card),
+             "c": lambda: train_sharded_bge(dev, members, seed, card),
+             "d": lambda: train_pp_ep(dev, members, seed, 3 if late else PP_EP_STEPS, card),
+             "e": lambda: train_dcn(dev, members, seed, card)}
+    out["part_s"] = {}
+    for name, part in parts.items():
+        t = time.perf_counter()
+        out[name] = part()
+        torch.cuda.synchronize()
+        out["part_s"][name] = time.perf_counter() - t
+    launches = read_counts()
+    out["launches"], out["s"] = launches, time.perf_counter() - t0
+    if any(launches.values()):
+        raise AssertionError(f"phase 11 launched a kernel: {launches} (training takes the "
+                             f"einsum attention and the ring, as the reference's)")
+    log(f"train mesh: phase 11 in {out['s']:.1f} s{' (late run)' if late else ''} over "
+        f"{len(members)} members ({len(set(members))} card(s)), by part (s) "
+        f"{ {k: round(v, 1) for k, v in out['part_s'].items()} }; launches {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6739,20 +7199,24 @@ def main() -> int:
     path_launches["shards"], shard_ctx = phase_shards(
         dev, corpus, bm25, card,
         late=run_is_late(upcoming_s=SHARDS_PHASE_S + MESH_PHASE_S + MEMORY_PHASE_S
-                         + HEIMDALL_PHASE_S))
+                         + HEIMDALL_PHASE_S + TRAIN_MESH_PHASE_S))
     del corpus, bm25
     lap("shards")
     path_launches["mesh"] = phase_mesh(
         dev, shard_ctx, card,
-        late=run_is_late(upcoming_s=MESH_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S))
+        late=run_is_late(upcoming_s=MESH_PHASE_S + MEMORY_PHASE_S + HEIMDALL_PHASE_S
+                         + TRAIN_MESH_PHASE_S))
     del shard_ctx
     torch.cuda.empty_cache()
     lap("mesh")
     path_launches["memory"] = phase_memory(dev, args.seed, card)
     lap("memory")
     path_launches["heimdall"] = phase_heimdall(
-        dev, args.seed, card, late=run_is_late(upcoming_s=HEIMDALL_PHASE_S))
+        dev, args.seed, card, late=run_is_late(upcoming_s=HEIMDALL_PHASE_S + TRAIN_MESH_PHASE_S))
     lap("heimdall")
+    path_launches["train_mesh"] = phase_train_mesh(
+        dev, args.seed, card, late=run_is_late(upcoming_s=TRAIN_MESH_PHASE_S))
+    lap("train_mesh")
     REPORT["total_s"] = time.perf_counter() - t_start
 
     def path_sum(name):

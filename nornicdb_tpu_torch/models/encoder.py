@@ -10,13 +10,17 @@ the port's flash-attention op (``ops/attention.py``, kernel
 ``csrc/flash_attention.cu``), which has no backward; off (training,
 ``models/train.py``) it is the reference's einsum branch: logits in
 ``cfg.dtype`` masked with ``finfo(cfg.dtype).min``, a float32 softmax cast
-back, then P.V.
+back, then P.V. With a mesh of ``sp`` > 1 attached (``cfg.mesh``),
+attention is the ring over ``sp`` instead (``parallel/ring_attention.py``),
+as the reference routes it; the kernel serves only without a mesh.
+``param_sharding_rules`` gives each parameter's layout on a (dp, tp, sp)
+mesh, which ``models/train.py:make_sharded_train_step`` places.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +28,7 @@ from torch import nn
 
 from nornicdb_tpu_torch.ops.attention import flash_attention
 from nornicdb_tpu_torch.ops.similarity import l2_normalize
+from nornicdb_tpu_torch.parallel.ring_attention import ring_attention
 
 LN_EPS = 1e-6
 
@@ -40,6 +45,11 @@ class EncoderConfig:
     # construction-time choice of attention: the B2 kernel (inference),
     # or the einsum the reference trains through (no kernel has a vjp)
     use_flash_attention: bool = True
+    # the reference's activation sharding constraints; the sharded step's
+    # member program holds those layouts whatever its value
+    shard_activations: bool = False
+    # a parallel.mesh.Mesh: with sp > 1, attention takes the ring
+    mesh: Any = None
 
     @staticmethod
     def tiny() -> "EncoderConfig":
@@ -99,7 +109,11 @@ class MultiHeadAttention(nn.Module):
         q = _dense(self.query, x, cfg.dtype).view(b, s, h, d // h)
         k = _dense(self.key, x, cfg.dtype).view(b, s, h, d // h)
         v = _dense(self.value, x, cfg.dtype).view(b, s, h, d // h)
-        if cfg.use_flash_attention:
+        if cfg.mesh is not None and cfg.mesh.shape.get("sp", 1) > 1:
+            # sequence parallel: exact ring attention over the sp axis
+            out = ring_attention(q, k, v, mask, mesh=cfg.mesh, axis_name="sp",
+                                 batch_axis="dp", head_axis="tp")
+        elif cfg.use_flash_attention and cfg.mesh is None:
             out = flash_attention(q, k, v, mask)
         else:
             out = einsum_attention(q, k, v, mask, cfg.dtype)
@@ -165,3 +179,29 @@ class Encoder(nn.Module):
         m = attention_mask[:, :, None].float()
         pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
         return l2_normalize(pooled)
+
+
+def param_sharding_rules(cfg: EncoderConfig) -> Callable[[str, Any], Tuple[Optional[str], ...]]:
+    """Each parameter's spec on a (dp, tp, sp) mesh, by ``state_dict`` name,
+    in the port's layouts: the reference's rules (heads and MLP width over
+    ``tp``, embeddings over ``tp`` on the hidden axis, the rest replicated)
+    through ``nn.Linear``'s ``[out, in]`` weights. The q/k/v biases are
+    split by heads, as the reference's 2-D ``[h, hd]`` ones are; the other
+    biases are 1-D there and replicated."""
+    del cfg
+
+    def rule(name: str, value) -> Tuple[Optional[str], ...]:
+        if name in ("tok_embed.weight", "pos_embed.weight"):
+            return (None, "tp")
+        kind, leaf = name.split(".")[-2:]
+        if kind in ("query", "key", "value"):
+            return ("tp",) if leaf == "bias" else ("tp", None)  # [h*hd, d] by heads
+        if kind == "out" and leaf == "weight":
+            return (None, "tp")  # [d, h*hd]
+        if kind == "mlp_up" and leaf == "weight":
+            return ("tp", None)  # [mlp, d]
+        if kind == "mlp_down" and leaf == "weight":
+            return (None, "tp")  # [d, mlp]
+        return (None,) * value.ndim
+
+    return rule

@@ -86,14 +86,29 @@ def best_mesh(n_devices: int) -> MeshSpec:
 
 class Mesh:
     """A named-axes array of ``torch.device``s: ``devices`` an object array
-    of the axes' sizes, ``shape`` the size of each named axis."""
+    of the axes' sizes, ``shape`` the size of each named axis.
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    A mesh may span processes (``parallel/multihost.py:hybrid_mesh``):
+    then ``process_axis`` names the axis whose rows are split between the
+    ``process_count`` processes of the ``torch.distributed`` group, process
+    major, ``devices`` holds this process's rows only (its members), and
+    ``shape`` gives that axis's global size. ``in_process_group`` says the
+    mesh was built inside such a group (a world of one included): its
+    reductions over ``process_axis`` then cross the group."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 process_axis: Optional[str] = None, process_index: int = 0,
+                 process_count: int = 1, in_process_group: bool = False):
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim} axes of devices, names {tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
+        self.process_axis = process_axis
+        self.process_index, self.process_count = process_index, process_count
+        self.in_process_group = in_process_group
+        if process_axis is not None:
+            self.shape[process_axis] *= process_count
 
     @property
     def members(self) -> List[torch.device]:

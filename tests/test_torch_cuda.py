@@ -1362,3 +1362,103 @@ def test_mesh_kernel_launches_order_with_the_callers_stream(dev, kernel):
                           want[0].cpu().numpy(), SCORE_ATOL)
     else:
         assert float((got - want).abs().max()) <= ATTN_ATOL
+
+
+# -- the training mesh (select with -k train_mesh) ----------------------------
+
+TRAIN_RING_ATOL = 1e-4  # the reference's ring tolerance (tests/test_models.py:112)
+
+
+@pytest.mark.parametrize("mask_kind", ["keep_0.8", "first_block"])
+@pytest.mark.parametrize("sp", [2, 8])
+def test_train_mesh_ring_on_members_of_one_card_matches_dense(dev, sp, mask_kind):
+    from nornicdb_tpu_torch.parallel.mesh import Mesh, _device_array
+    from nornicdb_tpu_torch.parallel.ring_attention import _dense_attention, ring_attention
+
+    g = torch.Generator(device=dev).manual_seed(sp)
+    q, k, v = (torch.randn(2, 512, 4, 64, generator=g, device=dev) for _ in range(3))
+    if mask_kind == "keep_0.8":
+        mask = torch.rand(2, 512, generator=g, device=dev) > 0.2
+    else:
+        mask = torch.zeros(2, 512, dtype=torch.bool, device=dev)
+        mask[:, :512 // sp] = True
+    mesh = Mesh(_device_array([dev] * sp, (sp,)), ("sp",))
+    q.requires_grad_()
+    got = ring_attention(q, k, v, mask, mesh=mesh)
+    want = _dense_attention(q, k, v, mask)
+    assert float((got - want).detach().abs().max()) <= TRAIN_RING_ATOL
+    (gq,) = torch.autograd.grad(got.square().sum(), q)
+    (wq,) = torch.autograd.grad(want.square().sum(), q)
+    assert float((gq - wq).abs().max()) <= TRAIN_RING_ATOL
+
+
+def test_train_mesh_sharded_step_on_the_card_matches_the_single_device_step(dev):
+    from nornicdb_tpu_torch.models import train as ttr
+    from nornicdb_tpu_torch.models.encoder import EncoderConfig
+    from nornicdb_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    cfg = EncoderConfig(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4, mlp_dim=128,
+                        max_len=64, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    a, p = (rng.integers(1, 500, (4, 32)) for _ in range(2))
+    a[:, 26:] = 0
+    model, single = ttr.create_train_state(cfg, 2, learning_rate=1e-3, device=dev)
+    state, step = ttr.make_sharded_train_step(model, single, make_mesh(MeshSpec(2, 2, 2),
+                                                                       [dev] * 8))
+    loss = ttr.sharded_contrastive_loss(state, a, p)
+    loss.backward()
+    ids = [torch.from_numpy(x).to(dev) for x in (a, p)]
+    ref = ttr.info_nce_loss(model(ids[0]), model(ids[1]))
+    ref.backward()
+    assert abs(float(loss.detach()) - float(ref.detach())) <= 1e-5 * abs(float(ref.detach()))
+    for name, q in model.named_parameters():
+        assert float((state.params[name].gather(dev, grad=True) - q.grad).abs().max()) <= 1e-5
+    state.apply_gradients()  # both first steps, on the gradients compared
+    single.apply_gradients()
+    for _ in range(2):
+        state, loss = step(state, a, p)
+        single, ref = ttr.contrastive_train_step(model, single, a, p)
+        assert abs(float(loss) - float(ref)) <= 1e-4
+
+
+_TRAIN_FAULT_PROBE = """
+import torch
+from nornicdb_tpu_torch.parallel import pipeline as tpipe
+dev = torch.device("cuda", 0)
+mesh = tpipe.make_pp_ep_mesh(8, [dev] * 8)
+init_fn, step = tpipe.make_pp_ep_train_step(mesh, 64, 128, 2, learning_rate=0.1)
+params, _ = init_fn(0)
+x = torch.randn(32, 64, device=dev)
+real, calls = tpipe._stage_block, []
+
+def faulting(p, h):
+    calls.append(1)
+    if len(calls) == 3:  # the third member's stage reads out of bounds
+        h.index_select(0, torch.full((4,), 10**9, dtype=torch.int64, device=h.device))
+    return real(p, h)
+
+tpipe._stage_block = faulting
+try:
+    params, loss = step(params, x, x * 0.5)
+    torch.cuda.synchronize()
+except Exception as exc:  # the fault must reach the caller
+    print("RAISED", len(calls), str(exc).splitlines()[0])
+else:
+    print("SWALLOWED", float(loss))
+"""
+
+
+def test_train_mesh_a_cuda_fault_inside_one_members_stage_propagates(dev):
+    """A device-side fault in one member's pipeline stage reaches the caller
+    of the pp x ep step: nothing steps down, nothing is swallowed. Run in a
+    subprocess: a device-side fault poisons its CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _TRAIN_FAULT_PROBE], cwd=repo,
+                         env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else out.stderr[-2000:]
+    assert last.startswith("RAISED"), last
+    assert "CUDA" in last or "device-side" in last, last
