@@ -137,6 +137,39 @@ Phases, in order; any failure exits non-zero:
    ``ADMISSION_BLOCKS`` interleaved blocks of the 64 queries per arm; the
    ratio is printed. ``ADMISSION_PHASE_S`` joins the late rule (a late run
    takes 16 queries per tier in (a) and 1 block in (e)).
+   The front doors are read last, on the same live DB (``surfaces (a)``-
+   ``(f)`` lines): the port's ``HttpServer`` (with the DB's database
+   manager) and ``BoltServer`` on port 0 over it, B1's and B2's counts set
+   to 0 at the block's start and read at its end (each part's growth is
+   printed too). (a) ``/nornicdb/search``: 64 fresh queries (a phase query
+   and a word of a document, so each request embeds its query: B2) in
+   vector, text and hybrid mode and hybrid with the walk off (the exact
+   tier: B1), each answer equal tie-aware to the direct ``db.recall``
+   right after it (scores equal after the JSON round trip), both past the
+   result cache; HTTP p50 / p99 beside the direct path's. (b)
+   ``/db/neo4j/tx/commit``: a count and ``db.index.vector.queryNodes``
+   rows equal to the executor's; explicit BEGIN, COMMIT and ROLLBACK, a
+   rolled-back write not seen. (c) The same over one Bolt session: the
+   count, 64 ``queryNodes`` statements with records equal to the
+   executor's (its query cache off), p50 / p99 beside the executor's,
+   and BEGIN / ROLLBACK / BEGIN / COMMIT. (d) MCP at ``/mcp``:
+   ``initialize``, ``tools/list``, 16 memories stored through the tool,
+   ``flush`` (the embed queue: B2), each found first by ``recall``, and
+   ``discover`` on one. (e) 16 HTTP clients x 32 searches alternating
+   vector and hybrid with the walk off, every body new and every result
+   cache probe missed: the hybrid batcher's mean batch above 1 and a B1
+   launch at B >= 5. (f) A hybrid search whose ``X-Nornic-Deadline-Ms``
+   budget (1 us) has run out answers 504 and launches no kernel (its
+   query's embedding is cached); under a forced ``shed_hard`` a search
+   answers 429 with ``Retry-After`` and ``/health`` 200.
+   ``SURFACES_PHASE_S`` joins the late rule (a late run takes 16 queries
+   per arm in (a) and (c)). After the phase, ``python -m
+   nornicdb_tpu_torch.cli serve`` with no ``--device`` runs in a
+   subprocess (ports 0): it must report the device ``cuda``, take 64
+   stores over HTTP, index them all (a vector search polled until every
+   document is found: the embed queue is asynchronous) and rank a
+   document first for its own text in a hybrid search
+   (``SERVE_PHASE_S``).
 5. Index at deployment scale: a 1,048,576 x 1024 float32
    ``BruteForceIndex`` filled in bulk (``fill_index``: the rows
    ``add_batch`` would store, written as ``BruteForceIndex.load`` restores
@@ -371,8 +404,8 @@ Phases, in order; any failure exits non-zero:
    and ``generate_stream``, greedy: text equal to a CPU ``Manager``'s,
    streams equal to the text, one Bifrost ``generation`` event each; the
    tool loop (``generate_with_tools`` over scripted ``EchoGenerator``
-   replies) against a stub MCP whose ``store``/``recall`` handlers are the
-   reference server's over a card DB: two stores, then a recall that
+   replies) against the port's ``McpServer`` (``api/mcp.py``) over a card
+   DB: two stores, then a recall that
    finds the first (three ``tool_call`` events); a hybrid recall with
    ``LLMReranker`` over the card's slm (its reply is no id list, so the
    order stays the plain recall's) and over a scripted model (the order
@@ -516,6 +549,17 @@ ADMISSION_PHASE_S = 20.0
 ADMISSION_BLOCKS = 4  # (e)'s interleaved blocks of the 64 hybrid queries per arm
 ADMISSION_SAMPLE = 1.0 / 64  # (e)'s sampled arm
 ADMISSION_HELD = 16  # hybrid queries under each hold in (b) and (c)
+# phase 4's surfaces block (a)-(f) (24.5 s at full depth, 15.0-19.1 s in a
+# late run on an H100 80GB, 700 W), with room; a late run takes 16 queries
+# per arm in (a) and (c)
+SURFACES_PHASE_S = 30.0
+SURFACE_QUERIES = 64  # (a)'s queries per arm, and (c)'s Bolt statements
+SURFACE_MEMORIES = 16  # (d)'s memories stored over MCP
+SERVE_PHASE_S = 20.0  # the serve subprocess after phase 4 (13.6 s on an H100 80GB, 700 W)
+SERVE_START_S = 60.0  # the subprocess must print its ports within this
+SERVE_DOCS = 64
+QUERY_NODES = ("CALL db.index.vector.queryNodes('memory', 10, $v) YIELD node, score "
+               "RETURN node, score")
 # families the modules wired into the observability core declare at import
 OBS_FAMILIES = (
     "nornicdb_microbatch_batch_size", "nornicdb_microbatch_queue_depth",
@@ -1393,6 +1437,8 @@ def phase_main_path(dev, seed, n_docs):
     obs_out["ledger"] = ledger
     admission_out, admission_launches = phase_admission(
         db, svc, fused, queries, n_docs, seed, run_is_late(ADMISSION_PHASE_S))
+    surfaces_out, surfaces_launches = phase_surfaces(
+        db, svc, fused, queries, docs, run_is_late(SURFACES_PHASE_S + SERVE_PHASE_S))
 
     def pct(xs, p):
         return float(np.percentile(np.asarray(xs), p))
@@ -1434,6 +1480,7 @@ def phase_main_path(dev, seed, n_docs):
         "cagra_profile": profile,
         "obs": obs_out,
         "admission": admission_out,
+        "surfaces": surfaces_out,
     }
     for mode, ts in lat.items():
         mp[f"{mode}_p50_ms"] = pct(ts, 50)
@@ -1461,7 +1508,7 @@ def phase_main_path(dev, seed, n_docs):
     # each path's launches, its counts set to 0 just before it
     path_launches = {"one_at_a_time": launches, "concurrent": conc["launches"],
                      "write_mix": write_mix["launches"], "cagra_profile": profile["launches"],
-                     "admission": admission_launches}
+                     "admission": admission_launches, "surfaces": surfaces_launches}
     if use_walk:
         path_launches["exact_tier_block"] = {
             "cosine_topk": brute["cosine_topk_launches"],
@@ -2220,6 +2267,546 @@ def phase_admission(db, svc, fused, queries, n_docs, seed, late):
     if launches["cosine_topk"] < 1:
         raise AssertionError(f"B1 never launched on the admission path: {launches}")
     return out, launches
+
+
+def same_hits(a, b):
+    """Two answers equal tie-aware: the same scores in order, and the same
+    ids within each run of equal scores."""
+    if [h["score"] for h in a] != [h["score"] for h in b]:
+        return False
+    groups = {}
+    for side, hits in enumerate((a, b)):
+        for h in hits:
+            groups.setdefault((side, h["score"]), []).append(h["id"])
+    return all(sorted(groups.get((0, s), [])) == sorted(groups.get((1, s), []))
+               for s in {s for _, s in groups})
+
+
+class HttpClient:
+    """One keep-alive HTTP/1.1 connection to the port's HTTP server on this
+    host, as a driver's connection pool holds one (a socket timeout of
+    120 s)."""
+
+    def __init__(self, port):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+
+    def call(self, path, body=None, headers=None, method=None):
+        """(status, parsed body, headers, ms) of one request."""
+        data = json.dumps(body).encode() if body is not None else None
+        t0 = time.perf_counter()
+        self.conn.request(method or ("POST" if data is not None else "GET"), path, body=data,
+                          headers={"Content-Type": "application/json", **(headers or {})})
+        resp = self.conn.getresponse()
+        raw = resp.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        return resp.status, (json.loads(raw) if raw else None), dict(resp.getheaders()), ms
+
+    def close(self):
+        self.conn.close()
+
+
+class BoltClient:
+    """A Bolt 4.4 session over a socket with a timeout, speaking the port's
+    PackStream."""
+
+    def __init__(self, port):
+        import socket
+        import struct
+
+        from nornicdb_tpu_torch.api import bolt, packstream
+
+        self.bolt, self.ps = bolt, packstream
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.sock.sendall(struct.pack(">I", bolt.BOLT_MAGIC) + struct.pack(">I", 0x0404)
+                          + b"\x00" * 12)
+        if struct.unpack(">I", self.sock.recv(4))[0] & 0xFF != 4:
+            raise AssertionError("bolt: version 4 was not chosen")
+
+    def exchange(self, sig, *fields):
+        """One message's replies: (the last message's tag and fields, records)."""
+        p = self.ps.Packer()
+        p.pack(self.ps.Structure(sig, list(fields)))
+        self.bolt.write_message(self.sock, p.data())
+        records = []
+        while True:
+            msg = self.ps.Unpacker(self.bolt.read_message(self.sock)).unpack()
+            if msg.tag != self.bolt.MSG_RECORD:
+                return msg.tag, msg.fields, records
+            records.append(msg.fields[0])
+
+    def run(self, query, params=None):
+        b = self.bolt
+        tag, fields, _ = self.exchange(b.MSG_RUN, query, params or {}, {})
+        if tag != b.MSG_SUCCESS:
+            raise AssertionError(f"bolt: RUN {query!r} answered {tag:#x} {fields}")
+        tag, fields, records = self.exchange(b.MSG_PULL, {"n": -1})
+        if tag != b.MSG_SUCCESS:
+            raise AssertionError(f"bolt: PULL answered {tag:#x} {fields}")
+        return records
+
+    def close(self):
+        self.sock.close()
+
+
+def phase_surfaces(db, svc, fused, queries, docs, late):
+    """Phase 4's surfaces block, on the live DB after the admission block:
+    the port's ``HttpServer`` (with the DB's database manager) and
+    ``BoltServer`` on port 0 over it. B1's and B2's counts are set to 0 at
+    the block's start and read at its end; each part's own growth is kept
+    too. (a) ``/nornicdb/search``: ``SURFACE_QUERIES`` fresh queries (16 in
+    a late run) in vector, text and hybrid mode, and hybrid with the walk
+    off (the exact tier), each answer equal tie-aware to the direct
+    ``db.recall`` at the same moment (scores equal after the JSON round
+    trip), both past the result cache; p50 / p99 of each beside the
+    direct path's. (b) ``/db/neo4j/tx/commit``: a count and
+    ``db.index.vector.queryNodes`` equal to the executor's rows; explicit
+    BEGIN, COMMIT and ROLLBACK (a rolled-back write is not seen). (c) The
+    same statements over one Bolt session, records equal; p50 / p99 of
+    the vector statement beside the executor's. (d) MCP at ``/mcp``:
+    ``initialize``, ``tools/list``, ``SURFACE_MEMORIES`` stores, flush, and
+    each memory's ``recall`` and ``discover`` find it. (e) 16 HTTP clients
+    x 32 vector and hybrid searches with the walk off, every body new and
+    every result-cache probe missed: the hybrid batcher's mean batch above
+    1 and a B1 launch at B >= 5. (f) An expired deadline header answers
+    504 and launches no kernel; a forced ``shed_hard`` answers 429 with
+    ``Retry-After``, and ``/health`` 200."""
+    import threading
+
+    import torch
+
+    from nornicdb_tpu_torch import admission
+    from nornicdb_tpu_torch.api.bolt import BoltServer
+    from nornicdb_tpu_torch.api.http_server import HttpServer, _jsonable
+    from nornicdb_tpu_torch.api.packstream import pack, to_packable, unpack
+    from nornicdb_tpu_torch.ops.attention import flash_attention
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk
+
+    t_phase = time.perf_counter()
+    walk_min_n = fused.walk_min_n
+    flash_attention.launches = 0
+    fused_cosine_topk.launches = 0
+    fused_cosine_topk.launch_sizes.clear()
+    out = {"late": late}
+
+    def grown(mark):
+        return {"cosine_topk": fused_cosine_topk.launches - mark[0],
+                "flash_attention": flash_attention.launches - mark[1]}
+
+    def mark():
+        return fused_cosine_topk.launches, flash_attention.launches
+
+    t_part = time.perf_counter()
+    http = HttpServer(db, port=0, database_manager=db.multidb_manager()).start()
+    bolt = BoltServer(db, port=0).start()
+    client = HttpClient(http.port)
+    http_call = client.call
+    cached = db._embedder  # the DB's embedder behind its LRU
+
+    def forget_embedding(text):
+        with cached._lock:
+            cached._cache.pop(text, None)
+
+    out["setup_s"] = time.perf_counter() - t_part
+    try:
+        t_part = time.perf_counter()
+        # (a) REST search against the direct path: fresh query texts, each
+        # embedded by the HTTP request (B2) and again by the direct recall
+        # right after it (its LRU entry dropped before each side, so both
+        # time the same work in every arm)
+        n_q = 16 if late else SURFACE_QUERIES
+        qs = [f"{q} {docs[i].split()[-1]}" for i, q in enumerate(queries[:n_q])]
+        arms = (("vector", "vector", True), ("text", "text", True),
+                ("hybrid", "hybrid", True), ("hybrid_exact", "hybrid", False))
+        lat = {}
+        a_launches = {}
+        mismatches = []
+        for arm, mode, walk in arms:
+            m0 = mark()
+            fused.walk_min_n = walk_min_n if walk else None
+            http_ms, direct_ms = [], []
+            try:
+                with CacheBypass(svc):
+                    for i, q in enumerate(qs):
+                        forget_embedding(q)
+                        st, body, _, ms = http_call("/nornicdb/search",
+                                                    {"query": q, "mode": mode, "limit": 10,
+                                                     "arm": arm})
+                        forget_embedding(q)
+                        t0 = time.perf_counter()
+                        direct = db.recall(q, limit=10, mode=mode)
+                        direct_ms.append((time.perf_counter() - t0) * 1e3)
+                        http_ms.append(ms)
+                        want = json.loads(json.dumps([{"id": h["id"], "score": h["score"]}
+                                                      for h in direct]))
+                        got = [{"id": h["id"], "score": h["score"]} for h in body["results"]] \
+                            if st == 200 else None
+                        if got is None or not got or not same_hits(got, want):
+                            mismatches.append((arm, q, st, got, want))
+            finally:
+                fused.walk_min_n = walk_min_n
+            torch.cuda.synchronize()
+            a_launches[arm] = grown(m0)
+            lat[arm] = {"http_p50_ms": pctl(http_ms, 50), "http_p99_ms": pctl(http_ms, 99),
+                        "direct_p50_ms": pctl(direct_ms, 50),
+                        "direct_p99_ms": pctl(direct_ms, 99)}
+            log(f"surfaces (a) /nornicdb/search {arm}: {len(qs)} queries, http p50 "
+                f"{lat[arm]['http_p50_ms']:.3f} ms p99 {lat[arm]['http_p99_ms']:.3f} ms, direct "
+                f"recall p50 {lat[arm]['direct_p50_ms']:.3f} ms p99 "
+                f"{lat[arm]['direct_p99_ms']:.3f} ms; launches {a_launches[arm]}")
+        out["a"] = {"s": time.perf_counter() - t_part, "queries_per_arm": len(qs),
+                    "latency": lat, "launches": a_launches,
+                    "mismatches": len(mismatches)}
+        if mismatches:
+            raise AssertionError(f"surfaces (a): {len(mismatches)} answers differ from the "
+                                 f"direct recall, first {mismatches[0]}")
+
+        t_part = time.perf_counter()
+        # (b) the transactional HTTP API against the executor's rows
+        m0 = mark()
+        ex = db.executor
+        qv = [float(x) for x in np.asarray(db._embedder.embed(qs[0]), np.float32)]
+
+        def direct_rows(q, params=None):
+            return json.loads(json.dumps([[_jsonable(v) for v in row]
+                                          for row in ex.execute(q, params or {}).rows]))
+
+        def tx_rows(body):
+            if body["errors"]:
+                raise AssertionError(f"surfaces (b): {body['errors']}")
+            return [[d["row"] for d in r["data"]] for r in body["results"]]
+
+        stmts = [{"statement": "MATCH (n) RETURN count(n)"},
+                 {"statement": QUERY_NODES, "parameters": {"v": qv}}]
+        st, body, _, _ = http_call("/db/neo4j/tx/commit", {"statements": stmts})
+        got = tx_rows(body)
+        want = [direct_rows("MATCH (n) RETURN count(n)"), direct_rows(QUERY_NODES, {"v": qv})]
+        if st != 200 or got != want or len(got[1]) != 10:
+            raise AssertionError(f"surfaces (b): tx/commit rows {got} against {want}")
+        st, body, _, _ = http_call("/db/neo4j/tx", {"statements": [
+            {"statement": "CREATE (n:SurfaceKept {k: 1}) RETURN n.k"}]})
+        tx = body["transaction"]["id"]
+        seen_inside = direct_rows("MATCH (n:SurfaceKept) RETURN count(n)")
+        st2, body2, _, _ = http_call(f"/db/neo4j/tx/{tx}/commit", {"statements": [
+            {"statement": "MATCH (n:SurfaceKept) RETURN count(n)"}]})
+        kept = direct_rows("MATCH (n:SurfaceKept) RETURN count(n)")
+        st3, body3, _, _ = http_call("/db/neo4j/tx", {"statements": [
+            {"statement": "CREATE (n:SurfaceGone {k: 2})"}]})
+        st4, _, _, _ = http_call(f"/db/neo4j/tx/{body3['transaction']['id']}",
+                                 method="DELETE")
+        gone = direct_rows("MATCH (n:SurfaceGone) RETURN count(n)")
+        out["b"] = {"s": time.perf_counter() - t_part, "rows": len(got[1]), "begin": st, "commit": st2, "rollback": st4,
+                    "seen_before_commit": seen_inside, "kept": kept, "rolled_back": gone,
+                    "launches": grown(m0)}
+        log(f"surfaces (b) tx API: count and queryNodes rows equal the executor's; BEGIN {st}, "
+            f"COMMIT {st2} ({kept[0][0]} kept, {seen_inside[0][0]} seen outside before it), "
+            f"ROLLBACK {st4} ({gone[0][0]} seen); launches {out['b']['launches']}")
+        if (st, st2, st3, st4) != (201, 200, 201, 200) or seen_inside != [[0]] \
+                or kept != [[1]] or gone != [[0]] or tx_rows(body2) != [[[1]]]:
+            raise AssertionError(f"surfaces (b): explicit transactions {out['b']}")
+
+        t_part = time.perf_counter()
+        # (c) the same statements over Bolt
+        m0 = mark()
+        b = BoltClient(bolt.port)
+        try:
+            from nornicdb_tpu_torch.api.bolt import MSG_HELLO, MSG_SUCCESS
+
+            if b.exchange(MSG_HELLO, {"scheme": "none"})[0] != MSG_SUCCESS:
+                raise AssertionError("surfaces (c): HELLO failed")
+
+            def packed(rows):
+                return repr(unpack(pack(to_packable(rows))))
+
+            if repr(b.run("MATCH (n) RETURN count(n)")) != packed(
+                    ex.execute("MATCH (n) RETURN count(n)").rows):
+                raise AssertionError("surfaces (c): the count differs")
+            bolt_ms, exec_ms, bad = [], [], 0
+            # each side runs the statement
+            cache_on, ex.enable_query_cache = ex.enable_query_cache, False
+            try:
+                for q in qs:
+                    v = [float(x) for x in np.asarray(db._embedder.embed(q), np.float32)]
+                    t0 = time.perf_counter()
+                    records = b.run(QUERY_NODES, {"v": v})
+                    bolt_ms.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    rows = ex.execute(QUERY_NODES, {"v": v}).rows
+                    exec_ms.append((time.perf_counter() - t0) * 1e3)
+                    bad += repr(records) != packed(rows) or len(records) != 10
+            finally:
+                ex.enable_query_cache = cache_on
+            from nornicdb_tpu_torch.api.bolt import MSG_BEGIN, MSG_COMMIT, MSG_ROLLBACK
+
+            tags = [b.exchange(MSG_BEGIN, {})[0]]
+            b.run("CREATE (n:SurfaceBolt {k: 3})")
+            inside = b.run("MATCH (n:SurfaceBolt) RETURN count(n)")
+            outside = direct_rows("MATCH (n:SurfaceBolt) RETURN count(n)")
+            tags.append(b.exchange(MSG_ROLLBACK)[0])
+            after_rollback = direct_rows("MATCH (n:SurfaceBolt) RETURN count(n)")
+            tags.append(b.exchange(MSG_BEGIN, {})[0])
+            b.run("CREATE (n:SurfaceBolt {k: 4})")
+            tags.append(b.exchange(MSG_COMMIT)[0])
+            after_commit = direct_rows("MATCH (n:SurfaceBolt) RETURN count(n)")
+        finally:
+            b.close()
+        out["c"] = {"s": time.perf_counter() - t_part, "statements": len(qs), "mismatches": bad,
+                    "bolt_p50_ms": pctl(bolt_ms, 50), "bolt_p99_ms": pctl(bolt_ms, 99),
+                    "executor_p50_ms": pctl(exec_ms, 50), "executor_p99_ms": pctl(exec_ms, 99),
+                    "tx": {"inside": inside, "outside": outside, "after_rollback": after_rollback,
+                           "after_commit": after_commit},
+                    "launches": grown(m0)}
+        log(f"surfaces (c) bolt: {len(qs)} queryNodes statements, records equal the executor's "
+            f"({bad} differ); bolt p50 {out['c']['bolt_p50_ms']:.3f} ms p99 "
+            f"{out['c']['bolt_p99_ms']:.3f} ms, executor p50 {out['c']['executor_p50_ms']:.3f} ms "
+            f"p99 {out['c']['executor_p99_ms']:.3f} ms; BEGIN/ROLLBACK/BEGIN/COMMIT {tags}; "
+            f"launches {out['c']['launches']}")
+        if bad or tags != [MSG_SUCCESS] * 4 or inside != [[1]] or outside != [[0]] \
+                or after_rollback != [[0]] or after_commit != [[1]]:
+            raise AssertionError(f"surfaces (c): {out['c']}, tags {tags}")
+
+        t_part = time.perf_counter()
+        # (d) MCP over /mcp: memories stored through the tool, embedded by
+        # the embed queue (B2), then found by recall and discover
+        m0 = mark()
+
+        def rpc(i, method, params=None):
+            st, body, _, _ = http_call("/mcp", {"jsonrpc": "2.0", "id": i,
+                                                           "method": method,
+                                                           "params": params or {}})
+            if st != 200 or "result" not in body:
+                raise AssertionError(f"surfaces (d): {method} answered {st} {body}")
+            return body["result"]
+
+        init = rpc(1, "initialize")
+        tools = sorted(t["name"] for t in rpc(2, "tools/list")["tools"])
+        mem = [f"surface memory {i} about {docs[-1 - i]}" for i in range(SURFACE_MEMORIES)]
+        for i, text in enumerate(mem):
+            rpc(10 + i, "tools/call", {"name": "store",
+                                       "arguments": {"content": text, "node_id": f"mcp{i}"}})
+        db.flush()
+        found = 0
+        for i, text in enumerate(mem):
+            hits = json.loads(rpc(100 + i, "tools/call", {
+                "name": "recall", "arguments": {"query": text, "limit": 3}})["content"][0]["text"])
+            found += bool(hits) and hits[0]["id"] == f"mcp{i}"
+        disc = json.loads(rpc(200, "tools/call", {"name": "discover", "arguments": {
+            "node_id": "mcp0", "limit": 5}})["content"][0]["text"])
+        out["d"] = {"s": time.perf_counter() - t_part, "protocol": init["protocolVersion"], "tools": tools, "stored": len(mem),
+                    "recall_found": found, "discover_similar": len(disc["similar"]),
+                    "launches": grown(m0)}
+        log(f"surfaces (d) mcp: initialize {init['protocolVersion']}, tools {tools}; "
+            f"{len(mem)} memories stored, flushed, {found} found first by recall; discover "
+            f"mcp0: {len(disc['similar'])} similar; launches {out['d']['launches']}")
+        if found != len(mem) or disc["node"]["id"] != "mcp0" or not disc["similar"] \
+                or "store" not in tools:
+            raise AssertionError(f"surfaces (d): {out['d']}")
+
+        t_part = time.perf_counter()
+        # (e) concurrent HTTP clients on the exact tier
+        m0 = mark()
+        hyb0 = batcher_mark(svc._hybrid_batch)
+        sizes0 = dict(fused_cosine_topk.launch_sizes)
+        statuses, errors = [], []
+        barrier = threading.Barrier(CONCURRENT_THREADS)
+
+        # each client's keep-alive connection is opened and answered once
+        # before the barrier, one after another: sixteen connects at once
+        # overflow the standard library server's listen backlog of 5
+        conns = []
+        for _ in range(CONCURRENT_THREADS):
+            conns.append(HttpClient(http.port))
+            if conns[-1].call("/health")[0] != 200:
+                raise AssertionError("surfaces (e): /health failed")
+
+        def search_client(t):
+            conn = conns[t]
+            try:
+                barrier.wait()
+                for j in range(CONCURRENT_PER_THREAD):
+                    q = qs[(t * 5 + j) % len(qs)]
+                    mode = "vector" if j % 2 == 0 else "hybrid"
+                    st, _, _, _ = conn.call("/nornicdb/search", {
+                        "query": q, "mode": mode, "limit": 10, "client": t, "n": j})
+                    statuses.append((mode, st))
+            except BaseException as exc:  # noqa: BLE001 -- re-raised below
+                errors.append(exc)
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=search_client, args=(t,))
+                   for t in range(CONCURRENT_THREADS)]
+        fused.walk_min_n = None
+        try:
+            with CacheBypass(svc) as bypass:
+                t0 = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=600)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+        finally:
+            fused.walk_min_n = walk_min_n
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("surfaces (e): a client did not finish")
+        if errors:
+            raise errors[0]
+        hb, hq, hsizes = batcher_delta(svc._hybrid_batch, hyb0)
+        sizes = {b: n - sizes0.get(b, 0) for b, n in fused_cosine_topk.launch_sizes.items()
+                 if n != sizes0.get(b, 0)}
+        from collections import Counter
+
+        answered = Counter(statuses)
+        hybrid_ok = answered[("hybrid", 200)]
+        out["e"] = {"s": time.perf_counter() - t_part, "clients": CONCURRENT_THREADS, "requests": len(statuses),
+                    "statuses": {f"{m} {st}": n for (m, st), n in sorted(answered.items())},
+                    "wall_s": wall_s,
+                    "requests_per_s": len(statuses) / wall_s, "cache_probes_missed": bypass.probes,
+                    "hybrid_batches": hb, "hybrid_queries": hq,
+                    "hybrid_mean_batch": hq / max(hb, 1), "hybrid_batch_sizes": hsizes,
+                    "cosine_topk_launch_sizes": dict(sorted(sizes.items())),
+                    "launches": grown(m0)}
+        log(f"surfaces (e) {len(statuses)} HTTP searches from {CONCURRENT_THREADS} clients in "
+            f"{wall_s:.3f} s (exact tier), answered {out['e']['statuses']}: hybrid mean batch "
+            f"{out['e']['hybrid_mean_batch']:.3f} over {hb} batches (sizes {hsizes}); B1 "
+            f"launches by B {out['e']['cosine_topk_launch_sizes']}")
+        # a shed is an honest answer (429); every other request is a 200,
+        # and each hybrid 200 rode the batcher once
+        if set(st for _, st in answered) - {200, 429} or hq != hybrid_ok \
+                or out["e"]["hybrid_mean_batch"] <= 1.0 or not any(b >= 5 for b in sizes):
+            raise AssertionError(f"surfaces (e): {out['e']}")
+
+        t_part = time.perf_counter()
+        # (f) an expired deadline, then a forced shed, from an admitting
+        # controller (the posture (e)'s load left is cleared)
+        admission.CONTROLLER.reset()
+        m0 = mark()
+        st, body, _, _ = http_call("/nornicdb/search",
+                                   {"query": qs[0], "mode": "hybrid", "limit": 9},
+                                   headers={admission.DEADLINE_HEADER: "0.001"})
+        torch.cuda.synchronize()
+        expired = {"status": st, "code": (body or {}).get("errors", [{}])[0].get("code"),
+                   "launches": grown(m0)}
+        with PostureHold(admission.CONTROLLER, "shed_hard"):
+            st_shed, body_shed, hdrs, _ = http_call("/nornicdb/search",
+                                                    {"query": qs[1], "limit": 8})
+            st_health = http_call("/health")[0]
+        shed = {"status": st_shed, "retry_after": hdrs.get("Retry-After"),
+                "code": (body_shed or {}).get("errors", [{}])[0].get("code"),
+                "health": st_health}
+        out["f"] = {"s": time.perf_counter() - t_part, "expired": expired, "shed": shed}
+        log(f"surfaces (f) an expired deadline: {st} {expired['code']}, launches "
+            f"{expired['launches']}; a forced shed: {st_shed} Retry-After {shed['retry_after']}, "
+            f"/health {st_health}")
+        if st != 504 or any(expired["launches"].values()) or st_shed != 429 \
+                or not shed["retry_after"] or st_health != 200:
+            raise AssertionError(f"surfaces (f): {out['f']}")
+    finally:
+        client.close()
+        bolt.stop()
+        http.stop()
+    torch.cuda.synchronize()
+    launches = {"cosine_topk": fused_cosine_topk.launches,
+                "flash_attention": flash_attention.launches}
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t_phase
+    parts = {k: round(out[k]["s"], 2) for k in "abcdef"}
+    log(f"surfaces: {out['s']:.1f} s (setup {out['setup_s']:.2f}, by part {parts}); "
+        f"launches {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"surfaces: a kernel never launched: {launches}")
+    return out, launches
+
+
+def phase_serve():
+    """``python -m nornicdb_tpu_torch.cli serve`` with no ``--device`` (an
+    in-memory DB, ports 0) in a subprocess: it must print the device
+    ``cuda``, take ``SERVE_DOCS`` stores over HTTP, index them all (the
+    phase polls a vector search until every document is found: the embed
+    queue is asynchronous), and rank a document first for its own text in
+    a hybrid search. Its standard error goes to ``chiprun_out/serve.log``;
+    the subprocess is stopped in a ``finally``."""
+    import queue
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    err_path = os.path.join(out_dir, "serve.log")
+    err = open(err_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nornicdb_tpu_torch.cli", "serve", "--http-port", "0",
+         "--bolt-port", "0"], cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+
+    def stderr_tail():
+        if not err.closed:
+            err.flush()
+        with open(err_path) as f:
+            return f.read()[-2000:]
+
+    out = {}
+    try:
+        port = device = None
+        while device is None:
+            try:
+                line = lines.get(timeout=max(SERVE_START_S - (time.perf_counter() - t0), 0.01))
+            except queue.Empty:
+                raise AssertionError(f"serve: not up within {SERVE_START_S} s: "
+                                     f"{stderr_tail()}") from None
+            if line.strip().startswith("http ") and ":" in line:
+                port = int(line.rsplit(":", 1)[1])
+            if line.strip().startswith("device"):
+                device = line.split(":", 1)[1].strip()
+        up_s = time.perf_counter() - t0
+        http_call = HttpClient(port).call
+        rng = np.random.default_rng(11)
+        words = [f"s{i}" for i in range(400)]
+        texts = [" ".join(rng.choice(words, 10)) for _ in range(SERVE_DOCS)]
+        for i, text in enumerate(texts):
+            st, body, _, _ = http_call("/nornicdb/store", {"content": text, "id": f"v{i}"})
+            if st != 201:
+                raise AssertionError(f"serve: a store answered {st} {body}")
+        t1 = time.perf_counter()
+        indexed = 0
+        for attempt in range(2000):
+            st, body, _, _ = http_call("/nornicdb/search", {
+                "query": texts[0], "mode": "vector", "limit": SERVE_DOCS, "attempt": attempt})
+            indexed = len(body["results"]) if st == 200 else 0
+            if indexed == SERVE_DOCS or time.perf_counter() - t0 > SERVE_START_S:
+                break
+            time.sleep(0.02)
+        embed_s = time.perf_counter() - t1
+        st, body, _, _ = http_call("/nornicdb/search",
+                                   {"query": texts[7], "mode": "hybrid", "limit": 5})
+        top = body["results"][0]["id"] if st == 200 and body["results"] else None
+        out = {"device": device, "up_s": up_s, "indexed": indexed, "embed_wait_s": embed_s,
+               "hybrid_top": top, "s": time.perf_counter() - t0}
+        log(f"serve: `python -m nornicdb_tpu_torch.cli serve` up in {up_s:.1f} s on device "
+            f"{device}; {SERVE_DOCS} docs stored over HTTP and {indexed} indexed within "
+            f"{embed_s:.2f} s; hybrid top hit for doc v7's text: {top}")
+        if not device.startswith("cuda") or indexed != SERVE_DOCS or top != "v7":
+            raise AssertionError(f"serve: {out}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        err.close()
+    out["exit_code"] = proc.returncode
+    if proc.returncode != 0:
+        raise AssertionError(f"serve: exited with {proc.returncode}: {stderr_tail()}")
+    REPORT["serve"] = out
+    return out
 
 
 def phase_concurrent(db, svc, fused, recorder, queries, results, seq_trios,
@@ -6128,27 +6715,6 @@ BGE_M3 = dict(model_type="xlm-roberta", vocab_size=250_002, hidden_size=1024,
               pad_token_id=1)  # bge-m3's (XLM-R large) published config.json
 
 
-class StubMcp:
-    """The MCP tool surface ``ToolLoop`` drives (``_tools``/``_handlers``)
-    with the reference server's ``store`` and ``recall`` handlers
-    (``nornicdb_tpu/api/mcp.py``) over a port DB; the MCP server itself is
-    not ported yet."""
-
-    def __init__(self, db):
-        self.db = db
-        self._tools = {"store": {"name": "store"}, "recall": {"name": "recall"}}
-        self._handlers = {"store": self._store, "recall": self._recall}
-
-    def _store(self, args):
-        node = self.db.store(args.get("content", ""), labels=args.get("labels"),
-                             properties=args.get("properties"), node_id=args.get("node_id"))
-        return {"id": node.id, "labels": node.labels}
-
-    def _recall(self, args):
-        hits = self.db.recall(args.get("query", ""), limit=int(args.get("limit", 10)))
-        return [{"id": h.get("id"), "score": h.get("score")} for h in hits]
-
-
 def logits_close(card, cpu, rtol, what):
     """max |card - cpu| within ``rtol`` of the largest |cpu| logit (plus
     1e-5); returns the max abs difference."""
@@ -6287,7 +6853,9 @@ def heimdall_serving(dev, card, texts):
 
     db = nornicdb_tpu_torch.open(device=dev)
     try:
-        mcp = StubMcp(db)
+        from nornicdb_tpu_torch.api.mcp import McpServer
+
+        mcp = McpServer(db)
         mgr.register(ModelSpec(name="tools", backend="echo", options={"replies": [
             'TOOL {"tool": "store", "args": {"content": "%s", "node_id": "h1"}}' % texts[0],
             'TOOL {"tool": "store", "args": {"content": "%s", "node_id": "h2"}}' % texts[1],
@@ -7173,6 +7741,8 @@ def main() -> int:
         f"{mp['launches_per_query']['flash_attention']:.4f} (per text through the encoder)")
 
     lap("main_path")
+    phase_serve()
+    lap("serve")
     idx = phase_index(dev, args.seed, args.index_rows, card)
     lap("index")
     # phase 8 (b) on phase 5's index, while it is on the card

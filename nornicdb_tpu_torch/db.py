@@ -27,8 +27,10 @@ anchor and ranks the distinct frontier by cosine against a query vector
 over the search service's index: one dispatch on the executor's device
 graph plane, or its host version where the plane answers None.
 ``database`` names the namespace the DB's records live under
-(``"neo4j"``). Encryption at rest and replication wait for later slices:
-``passphrase`` and ``replication`` raise ``NotPortedError``.
+(``"neo4j"``). ``passphrase`` encrypts a data dir at rest with the
+reference's keys and record bytes (``encryption.py``; it needs the
+``cryptography`` package, which is imported only then). Replication
+waits for a later slice: ``replication`` raises ``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -85,20 +87,26 @@ class DB:
             raise ValueError(f"unknown engine {engine!r}")
         if engine in ("native", "python") and not data_dir:
             raise ValueError(f"engine={engine!r} requires data_dir")
-        if passphrase is not None:
-            raise NotPortedError("encryption at rest (passphrase) is not ported yet")
         if replication is not None:
             raise NotPortedError("replication is not ported yet")
         self._data_dir = data_dir if engine != "memory" else None
         if self._data_dir:
+            # at-rest encryption: a PBKDF2 key from the passphrase and the
+            # salt file in the data dir
+            from nornicdb_tpu_torch.encryption import make_encryptor
+
+            encryptor = make_encryptor(passphrase, data_dir)
             if engine == "python":
-                base: Engine = DurableEngine(data_dir, sync_every_write=sync_every_write)
+                base: Engine = DurableEngine(data_dir, sync_every_write=sync_every_write,
+                                             encryptor=encryptor)
             elif engine == "native":
                 from nornicdb_tpu_torch.storage.disk import DiskEngine
 
-                base = DiskEngine(data_dir, sync_every_write=sync_every_write)
+                base = DiskEngine(data_dir, sync_every_write=sync_every_write,
+                                  encryptor=encryptor)
             else:
-                base = make_persistent_engine(data_dir, sync_every_write=sync_every_write)
+                base = make_persistent_engine(data_dir, sync_every_write=sync_every_write,
+                                              encryptor=encryptor)
         else:
             base = MemoryEngine()
         self._base = base

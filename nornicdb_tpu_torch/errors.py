@@ -22,12 +22,6 @@ class NotPortedError(NotImplementedError):
     """A feature of the reference that the port does not have yet."""
 
 
-class EncryptedStoreError(NotPortedError):
-    """A store or record encrypted at rest (the reference's ``NKE1``
-    records and its native store's sentinel): at-rest encryption is not
-    ported."""
-
-
 
 class DeadlineExceeded(RuntimeError):
     """The request's deadline budget expired before (or while) it
@@ -48,6 +42,8 @@ def is_device_fault(exc: BaseException) -> bool:
     """True for an error the port never hides behind a fallback, a count
     or a fail-open (ROADMAP C29-C31): a ``RuntimeError`` — CUDA errors,
     ``torch.OutOfMemoryError``, ``NotPortedError`` — other than a
-    ``DeadlineExceeded``, which is a request's budget running out and is
+    ``DeadlineExceeded``, which is a request's budget running out, and an
+    ``EmbedHTTPError``, which is a remote backend failing; both are
     counted, swallowed or failed open wherever the reference does."""
-    return isinstance(exc, RuntimeError) and not isinstance(exc, DeadlineExceeded)
+    return isinstance(exc, RuntimeError) and not isinstance(
+        exc, (DeadlineExceeded, EmbedHTTPError))

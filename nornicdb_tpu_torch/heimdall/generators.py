@@ -8,14 +8,9 @@ the deterministic ``EchoGenerator`` test double.
 
 from __future__ import annotations
 
-import json
-import time
-import urllib.error
-import urllib.request
-from typing import Any, Dict, Iterator, List, Optional, Protocol
+from typing import Dict, Iterator, List, Optional, Protocol
 
 from nornicdb_tpu_torch._device import DeviceLike
-from nornicdb_tpu_torch.errors import EmbedHTTPError
 
 Message = Dict[str, str]  # {"role": ..., "content": ...}
 
@@ -116,59 +111,15 @@ class TorchGenerator:
             yield text[i:i + 16]
 
 
-def _post_json(url: str, payload: Dict[str, Any],
-               headers: Optional[Dict[str, str]] = None,
-               timeout: float = 30.0, retries: int = 2,
-               backoff_s: float = 0.5) -> Dict[str, Any]:
-    """A retrying JSON POST (a copy of the reference's
-    ``embed/http_providers._post_json``): 5xx, non-JSON bodies and
-    connection errors retry; 4xx and the last failure raise
-    ``EmbedHTTPError``."""
-    body = json.dumps(payload).encode("utf-8")
-    hdrs = {"Content-Type": "application/json", **(headers or {})}
-    last: Optional[Exception] = None
-    for attempt in range(retries + 1):
-        try:
-            req = urllib.request.Request(url, data=body, headers=hdrs,
-                                         method="POST")
-            with urllib.request.urlopen(req, timeout=timeout) as resp:
-                raw = resp.read()
-            try:
-                return json.loads(raw)
-            except json.JSONDecodeError as e:
-                # a 200 with a non-JSON body (proxy error page) is as
-                # transient as a 5xx: retry, then wrap
-                if attempt == retries:
-                    raise EmbedHTTPError(
-                        f"POST {url} returned non-JSON body: "
-                        f"{raw[:200]!r}") from e
-                last = e
-                time.sleep(backoff_s * (attempt + 1))
-                continue
-        except urllib.error.HTTPError as e:
-            # 4xx are permanent (bad model name, auth); 5xx retry
-            detail = ""
-            try:
-                detail = e.read().decode("utf-8", "replace")[:300]
-            except Exception:
-                pass
-            if e.code < 500 or attempt == retries:
-                raise EmbedHTTPError(
-                    f"POST {url} -> HTTP {e.code}: {detail}") from e
-            last = e
-        except (urllib.error.URLError, TimeoutError, OSError) as e:
-            last = e
-            if attempt == retries:
-                raise EmbedHTTPError(f"POST {url} failed: {e}") from e
-        time.sleep(backoff_s * (attempt + 1))
-    raise EmbedHTTPError(f"POST {url} failed: {last}")
-
-
 class _HttpGenerator:
     timeout = 60.0
     retries = 1
 
     def _post(self, url: str, payload: dict, headers: dict) -> dict:
+        # the retrying POST of embed/http_providers.py: one HTTP helper
+        # for the embedding and the generation backends
+        from nornicdb_tpu_torch.embed.http_providers import _post_json
+
         return _post_json(url, payload, headers=headers,
                           timeout=self.timeout, retries=self.retries)
 

@@ -46,13 +46,15 @@ from nornicdb_tpu_torch.storage.wal import WAL, ReplayResult, WALCorruptionError
 from nornicdb_tpu_torch.storage.wal_engine import DurableEngine, WALEngine  # noqa: F401
 
 
-def make_persistent_engine(data_dir: str, sync_every_write: bool = False) -> Engine:
+def make_persistent_engine(data_dir: str, sync_every_write: bool = False,
+                           encryptor=None) -> Engine:
     """The durable base engine for ``data_dir``: the format already on
     disk wins (``wal-*.log``/``snapshot-*.bin`` reopen as
     ``DurableEngine``, ``kv/`` as ``DiskEngine``), a dir holding both
     raises, and a fresh dir gets the native engine when its library
     builds, else the Python one. An existing store that fails to open
-    raises: corruption must not pass for an empty database."""
+    raises: corruption must not pass for an empty database. ``encryptor``
+    encrypts the store at rest (``encryption.Encryptor``)."""
     from nornicdb_tpu_torch.storage.disk import DiskEngine, native_available
 
     has_python_format = bool(
@@ -67,7 +69,10 @@ def make_persistent_engine(data_dir: str, sync_every_write: bool = False) -> Eng
             "engine='python' or engine='native'"
         )
     if has_python_format:
-        return DurableEngine(data_dir, sync_every_write=sync_every_write)
+        return DurableEngine(data_dir, sync_every_write=sync_every_write,
+                             encryptor=encryptor)
     if has_native_format or native_available():
-        return DiskEngine(data_dir, sync_every_write=sync_every_write)
-    return DurableEngine(data_dir, sync_every_write=sync_every_write)
+        return DiskEngine(data_dir, sync_every_write=sync_every_write,
+                          encryptor=encryptor)
+    return DurableEngine(data_dir, sync_every_write=sync_every_write,
+                         encryptor=encryptor)

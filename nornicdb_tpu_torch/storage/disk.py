@@ -14,9 +14,12 @@ Key spaces:
   ``a:<node>\\x00o\\x00<edge>``    outgoing adjacency
   ``a:<node>\\x00i\\x00<edge>``    incoming adjacency
 
-A store encrypted at rest (its sentinel key, or a value behind the
-``NKE1`` magic) raises ``EncryptedStoreError``: at-rest encryption is not
-ported.
+With an ``encryptor`` (``encryption.Encryptor``) the record values are
+``NKE1`` followed by their AES-256-GCM ciphertext, and a sentinel record
+written on the first encrypted open makes a later open with a wrong or
+missing passphrase raise ``EncryptionError`` before anything is written.
+The index keys (ids, labels, edge types) stay plain: the prefix scans
+read them.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import threading
 import time
 from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
-from nornicdb_tpu_torch.errors import EncryptedStoreError
+from nornicdb_tpu_torch.encryption import EncryptionError
 from nornicdb_tpu_torch.storage.codec import pack, unpack
 from nornicdb_tpu_torch.storage.types import (
     Direction,
@@ -208,7 +211,7 @@ class DiskEngine(Engine):
     ``open_s`` is the seconds the open took (the segment scan)."""
 
     def __init__(self, data_dir: str, sync_every_write: bool = False,
-                 auto_compact: bool = True):
+                 auto_compact: bool = True, encryptor=None):
         # a native store beside pure-Python engine data would shadow that
         # database as an empty one
         if not os.path.isdir(os.path.join(data_dir, "kv")) and (
@@ -222,10 +225,8 @@ class DiskEngine(Engine):
         t0 = time.perf_counter()
         self.kv = DiskKV(os.path.join(data_dir, "kv"), sync_every_write=sync_every_write)
         self.open_s = time.perf_counter() - t0
-        if self.kv.has(_ENC_SENTINEL_KEY):
-            self.kv.close()
-            raise EncryptedStoreError(
-                "the store is encrypted at rest, which is not ported yet")
+        self._enc = encryptor
+        self._verify_encryption_state()
         self.auto_compact = auto_compact
         self._lock = threading.Lock()  # serializes multi-key mutations
 
@@ -251,11 +252,41 @@ class DiskEngine(Engine):
     def _ak(node_id: str, direction: bytes, edge_id: str) -> bytes:
         return b"a:" + node_id.encode() + _SEP + direction + _SEP + edge_id.encode()
 
-    @staticmethod
-    def _unpack(raw: bytes) -> Any:
+    def _verify_encryption_state(self) -> None:
+        """Fail at open on a passphrase mismatch, before any write could mix
+        records under two keys. The first encrypted open writes a sentinel
+        record; a later open must decrypt it."""
+        raw = self.kv.get(_ENC_SENTINEL_KEY)
+        if raw is not None:
+            if raw[: len(_ENC_MAGIC)] == _ENC_MAGIC and self._enc is None:
+                self.kv.close()
+                raise EncryptionError("store is encrypted; open with the passphrase")
+            try:
+                self._unpack(raw)  # raises EncryptionError on a wrong key
+            except EncryptionError:
+                self.kv.close()
+                raise
+        elif self._enc is not None:
+            if self.kv.count() > 0:
+                self.kv.close()
+                raise EncryptionError(
+                    "store exists unencrypted; open without a passphrase "
+                    "(or export/re-import to encrypt)")
+            self.kv.put(_ENC_SENTINEL_KEY, self._pack({"enc": True}))
+
+    def _pack(self, d) -> bytes:
+        """A record's bytes, behind ``NKE1`` and AES-256-GCM under an
+        encryptor."""
+        raw = pack(d)
+        if self._enc is not None:
+            raw = _ENC_MAGIC + self._enc.encrypt(raw)
+        return raw
+
+    def _unpack(self, raw: bytes) -> Any:
         if raw[: len(_ENC_MAGIC)] == _ENC_MAGIC:
-            raise EncryptedStoreError(
-                "a record is encrypted at rest, which is not ported yet")
+            if self._enc is None:
+                raise EncryptionError("store is encrypted; open with the passphrase")
+            raw = self._enc.decrypt(raw[len(_ENC_MAGIC):])
         return unpack(raw)
 
     def _node(self, raw: bytes) -> Node:
@@ -282,7 +313,7 @@ class DiskEngine(Engine):
             ts = now_ms()
             n.created_at = n.created_at or ts
             n.updated_at = ts
-            self.kv.put(key, pack(n.to_dict()))
+            self.kv.put(key, self._pack(n.to_dict()))
             for label in n.labels:
                 self.kv.put(self._lk(label, n.id), b"")
 
@@ -305,7 +336,7 @@ class DiskEngine(Engine):
                 self.kv.delete(self._lk(label, n.id))
             for label in set(n.labels) - set(old.labels):
                 self.kv.put(self._lk(label, n.id), b"")
-            self.kv.put(self._nk(n.id), pack(n.to_dict()))
+            self.kv.put(self._nk(n.id), self._pack(n.to_dict()))
         self._maybe_compact()
 
     def delete_node(self, node_id: NodeID) -> None:
@@ -358,7 +389,7 @@ class DiskEngine(Engine):
             ts = now_ms()
             e.created_at = e.created_at or ts
             e.updated_at = ts
-            self.kv.put(key, pack(e.to_dict()))
+            self.kv.put(key, self._pack(e.to_dict()))
             self.kv.put(self._tk(e.type, e.id), b"")
             self.kv.put(self._ak(e.start_node, b"o", e.id), b"")
             self.kv.put(self._ak(e.end_node, b"i", e.id), b"")
@@ -380,7 +411,7 @@ class DiskEngine(Engine):
             e.updated_at = now_ms()
             # endpoints and type are immutable, as in MemoryEngine
             e.start_node, e.end_node, e.type = old.start_node, old.end_node, old.type
-            self.kv.put(self._ek(e.id), pack(e.to_dict()))
+            self.kv.put(self._ek(e.id), self._pack(e.to_dict()))
         self._maybe_compact()
 
     def _delete_edge_locked(self, edge_id: EdgeID) -> None:

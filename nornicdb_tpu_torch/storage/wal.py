@@ -10,9 +10,10 @@ corruption in an older segment stops its replay there and reports it
 (``degraded``). Appends and fsyncs are observed in the reference's
 latency histograms (``nornicdb_wal_append_seconds``,
 ``nornicdb_wal_fsync_seconds``) and counted in ``counters``, with their
-seconds. A record
-encrypted at rest (the ``NKE1`` magic) raises ``EncryptedStoreError``:
-at-rest encryption is not ported.
+seconds. With an ``encryptor`` (``encryption.Encryptor``) every record
+and snapshot payload is ``NKE1`` followed by its AES-256-GCM ciphertext;
+an encrypted log opened without the passphrase, or with a wrong one,
+raises ``EncryptionError``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from nornicdb_tpu_torch.errors import EncryptedStoreError, NotPortedError
+from nornicdb_tpu_torch.encryption import EncryptionError
 from nornicdb_tpu_torch.obs import REGISTRY
 from nornicdb_tpu_torch.storage.codec import pack as _pack
 from nornicdb_tpu_torch.storage.codec import unpack as _unpack
@@ -70,11 +71,13 @@ class WAL:
         max_segment_bytes: int = 16 * 1024 * 1024,
         sync_every_write: bool = False,
         retained_segments: int = 4,
+        encryptor=None,
     ):
         self.dir = directory
         self.max_segment_bytes = max_segment_bytes
         self.sync_every_write = sync_every_write
         self.retained_segments = retained_segments
+        self._enc = encryptor
         self._lock = threading.Lock()
         self._seq = 0
         self._fh = None
@@ -87,17 +90,19 @@ class WAL:
         os.makedirs(self.dir, exist_ok=True)
         self._seq = self._scan_last_seq()
 
-    # -- payload codec ----------------------------------------------------
+    # -- payload codec (AES-256-GCM at rest under an encryptor) ------------
 
-    @staticmethod
-    def _encode(obj) -> bytes:
-        return _pack(obj)
+    def _encode(self, obj) -> bytes:
+        payload = _pack(obj)
+        if self._enc is not None:
+            payload = _ENC_MAGIC + self._enc.encrypt(payload)
+        return payload
 
-    @staticmethod
-    def _decode(payload: bytes):
+    def _decode(self, payload: bytes):
         if payload[: len(_ENC_MAGIC)] == _ENC_MAGIC:
-            raise EncryptedStoreError(
-                "the WAL is encrypted at rest, which is not ported yet")
+            if self._enc is None:
+                raise EncryptionError("WAL is encrypted; open with the passphrase")
+            payload = self._enc.decrypt(payload[len(_ENC_MAGIC):])
         return _unpack(payload)
 
     # -- segment bookkeeping --------------------------------------------
@@ -273,8 +278,6 @@ class WAL:
                         continue
                     doc = self._decode(payload)
                     return doc["state"], doc["seq"]
-            except NotPortedError:
-                raise
             except (OSError, ValueError, KeyError):
                 continue
         return None, 0
@@ -354,9 +357,8 @@ def _iter_records(path: str, decode: Callable[[bytes], Any], skip_to: Optional[i
     """Yield (record, end_offset) for each valid record; stop at the first
     corrupt or torn frame. With ``skip_to``, a record whose seq is at most
     it (a snapshot covers it) yields None in place of the record, without
-    being decoded. A record the port cannot read by design (an encrypted
-    one) raises instead of passing for a torn log, which replay would
-    truncate."""
+    being decoded. A wrong or missing encryption passphrase raises
+    instead of passing for a torn log, which replay would truncate."""
     try:
         with open(path, "rb") as f:
             off = 0
@@ -376,7 +378,7 @@ def _iter_records(path: str, decode: Callable[[bytes], Any], skip_to: Optional[i
                     continue
                 try:
                     rec = decode(payload)
-                except NotPortedError:
+                except EncryptionError:
                     raise
                 except Exception:
                     return

@@ -176,10 +176,11 @@ class DurableEngine(WALEngine):
         sync_every_write: bool = False,
         auto_compact_every: int = 50_000,
         max_segment_bytes: int = 16 * 1024 * 1024,
+        encryptor=None,
     ):
         t0 = time.perf_counter()
         wal = WAL(data_dir, max_segment_bytes=max_segment_bytes,
-                  sync_every_write=sync_every_write)
+                  sync_every_write=sync_every_write, encryptor=encryptor)
         super().__init__(MemoryEngine(), wal, auto_compact_every=auto_compact_every)
         self.replay_result: Optional[ReplayResult] = self.recover()
         self.open_s = time.perf_counter() - t0

@@ -1462,3 +1462,123 @@ def test_train_mesh_a_cuda_fault_inside_one_members_stage_propagates(dev):
     last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else out.stderr[-2000:]
     assert last.startswith("RAISED"), last
     assert "CUDA" in last or "device-side" in last, last
+
+
+# ---------------------------------------------------------------------------
+# the front doors: the HTTP server over a DB on the card
+# ---------------------------------------------------------------------------
+
+
+def _http(port, path, body=None, method="POST"):
+    import json
+    import urllib.error
+    import urllib.request
+
+    r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                               data=json.dumps(body).encode() if body is not None else None,
+                               headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(r, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_http_search_on_the_card_equals_the_direct_recall(dev):
+    """``/nornicdb/search`` on a DB on the card answers what ``db.recall``
+    answers (ids and scores after the JSON round trip), each computed past
+    the result cache, and the requests launch both kernels: B2 for the
+    query embeds, B1 for the exact vector search (3,000 documents: above
+    the index's small-host rung, below HNSW's and the fused tier's
+    floors)."""
+    import nornicdb_tpu_torch
+    from nornicdb_tpu_torch.api.http_server import HttpServer
+
+    rng = np.random.default_rng(5)
+    words = [f"w{i}" for i in range(300)]
+    db = nornicdb_tpu_torch.open(device=dev)
+    srv = None
+    try:
+        for i in range(3000):
+            db.store(" ".join(rng.choice(words, size=12)), node_id=f"d{i}")
+        db.flush()
+        svc = db.search
+        srv = HttpServer(db, port=0).start()
+        queries = [" ".join(rng.choice(words, size=3)) for _ in range(8)]
+        b1, b2 = fused_cosine_topk.launches, flash_attention.launches
+        for mode in ("vector", "hybrid", "text"):
+            for q in queries:
+                svc._clear_result_cache()
+                st, body = _http(srv.port, "/nornicdb/search", {"query": q, "mode": mode})
+                svc._clear_result_cache()
+                direct = db.recall(q, limit=10, mode=mode)
+                assert st == 200
+                assert [(h["id"], h["score"]) for h in body["results"]] == \
+                    [(h["id"], float(h["score"])) for h in direct]
+        assert fused_cosine_topk.launches > b1 and flash_attention.launches > b2
+    finally:
+        if srv is not None:
+            srv.stop()
+        db.close()
+
+
+_HTTP_FAULT_PROBE = """
+import json, urllib.request, urllib.error
+import torch
+import nornicdb_tpu_torch
+from nornicdb_tpu_torch import obs
+from nornicdb_tpu_torch.api.http_server import HttpServer
+from nornicdb_tpu_torch.embed.embedder import HashEmbedder
+
+db = nornicdb_tpu_torch.open(device="cuda", embedder=HashEmbedder())
+db.store("oslo is the capital", node_id="a")
+db.flush()
+svc = db.search
+srv = HttpServer(db, port=0).start()
+
+def get(path, body=None):
+    r = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}", method="POST" if body else "GET",
+                               data=json.dumps(body).encode() if body else None,
+                               headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(r, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+def faulting(*a, **k):  # a launch that reads out of bounds
+    bad = torch.full((4,), 10**9, dtype=torch.int64, device="cuda")
+    torch.zeros(8, device="cuda").index_select(0, bad)
+    torch.cuda.synchronize()
+
+svc.search = faulting
+st, body = get("/nornicdb/search", {"query": "oslo"})
+print("SEARCH", st, body["errors"][0]["code"], "CUDA" in body["errors"][0]["message"])
+obs.parity_breaches = lambda: (torch.cuda.synchronize(), [])[1]  # a probe that touches the card
+try:
+    srv._readyz()
+    print("PROBE SWALLOWED")
+except RuntimeError as exc:
+    print("PROBE RAISED", "CUDA" in str(exc))
+st, body = get("/readyz")
+print("READYZ", st)
+srv.stop()
+"""
+
+
+def test_a_cuda_fault_in_a_request_is_answered_and_reraised_from_a_probe(dev):
+    """A device-side fault inside ``/nornicdb/search`` is answered 500 with
+    the CUDA error; a readiness probe that meets the poisoned context
+    re-raises it (ROADMAP C39), so ``/readyz`` answers 500 too, never a
+    silent ``ready``. Run in a subprocess: a device-side fault poisons its
+    CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _HTTP_FAULT_PROBE], cwd=repo,
+                         env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    lines = out.stdout.strip().splitlines()
+    assert "SEARCH 500 Neo.DatabaseError.General.UnknownError True" in lines, out.stderr[-2000:]
+    assert "PROBE RAISED True" in lines and "READYZ 500" in lines, (lines, out.stderr[-2000:])

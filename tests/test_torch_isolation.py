@@ -1,6 +1,7 @@
 """The port stands alone: it loads no JAX, no flax, nothing of the JAX
-package, no msgpack and no cryptography (the card's machine has neither),
-and its entry points refuse to run on the CPU unasked."""
+package and no msgpack, and ``cryptography`` only under an encryption
+passphrase (the card's machine has neither), and its entry points refuse
+to run on the CPU unasked."""
 
 import ast
 import json
@@ -79,6 +80,28 @@ def test_port_imports_transformers_safetensors_and_optax_only_when_used():
                     (path, name)
 
 
+_CRYPTO_PROBE = """
+import json, sys, tempfile
+import nornicdb_tpu_torch
+from nornicdb_tpu_torch.embed.embedder import HashEmbedder
+loaded = []
+for passphrase in (None, "secret"):
+    d = tempfile.mkdtemp()
+    db = nornicdb_tpu_torch.open(d, device="cpu", engine="python", auto_embed=False,
+                                 embedder=HashEmbedder(), passphrase=passphrase)
+    db.close()
+    loaded.append("cryptography" in sys.modules)
+print(json.dumps(loaded))
+"""
+
+
+def test_port_loads_cryptography_only_under_a_passphrase():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _CRYPTO_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [False, True]
+
+
 def test_port_modules_load_no_jax_in_a_fresh_process():
     # a subprocess: this test process has jax loaded by tests/conftest.py
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -101,7 +124,10 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
                  "admission", "obs.audit", "obs.slo", "obs.fleet",
                  "heimdall", "heimdall.model", "heimdall.train", "heimdall.hf_import",
                  "heimdall.generators", "heimdall.scheduler", "heimdall.bifrost",
-                 "heimdall.tools", "models.train", "models.pretrain", "models.hf_import"):
+                 "heimdall.tools", "models.train", "models.pretrain", "models.hf_import",
+                 "storage.txn", "encryption", "audit", "auth", "retention", "config",
+                 "api", "api.http_server", "api.openapi", "api.mcp", "api.packstream",
+                 "api.bolt", "embed.http_providers", "cli"):
         assert "nornicdb_tpu_torch." + name in result["imported"]
     assert result["bad"] == []
 
@@ -119,8 +145,12 @@ def test_port_sources_import_nothing_of_jax(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "nornicdb_tpu",
-                               "msgpack", "cryptography"), (path, name)
+            assert top not in ("jax", "jaxlib", "flax", "nornicdb_tpu", "msgpack"), (path, name)
+            # cryptography: only encryption.py, inside the function that
+            # builds an Encryptor
+            if top == "cryptography":
+                assert os.path.basename(path) == "encryption.py" and node not in tree.body, \
+                    (path, name)
 
 
 _OBS_PROBE = """

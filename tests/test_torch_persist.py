@@ -536,7 +536,7 @@ def test_unreadable_or_hf_sidecar_raises(tmp_path, monkeypatch):
     db.close()
 
 
-@pytest.mark.parametrize("kw", [{"passphrase": "secret"}, {"replication": object()}])
+@pytest.mark.parametrize("kw", [{"replication": object()}])
 def test_unported_db_options_raise(kw, tmp_path):
     with pytest.raises(NotPortedError):
         nornicdb_tpu_torch.open(str(tmp_path), device="cpu", **kw)

@@ -22,7 +22,6 @@ from nornicdb_tpu.storage import make_persistent_engine as j_make_persistent
 from nornicdb_tpu.storage.disk import DiskEngine as JDisk
 from nornicdb_tpu.storage.types import Edge as JEdge
 from nornicdb_tpu.storage.types import Node as JNode
-from nornicdb_tpu_torch.errors import EncryptedStoreError
 from nornicdb_tpu_torch.storage import (
     WAL,
     AlreadyExistsError,
@@ -364,18 +363,6 @@ def test_unreadable_snapshot_refuses_silent_recovery(tmp_path):
         DurableEngine(str(tmp_path))
 
 
-def test_encrypted_wal_record_raises(tmp_path):
-    import struct
-    import zlib
-
-    payload = b"NKE1" + bytes(32)
-    with open(tmp_path / "wal-0.log", "wb") as f:
-        f.write(struct.pack("<II", len(payload), zlib.crc32(payload)) + payload)
-    with pytest.raises(EncryptedStoreError):
-        DurableEngine(str(tmp_path))
-    assert os.path.getsize(tmp_path / "wal-0.log") == 8 + len(payload)  # not truncated
-
-
 def test_temporal_wal_record_raises_instead_of_truncating(tmp_path):
     """A WAL record with a tagged value, written by the JAX package, opens
     in the port with the value revived and the log untouched; the port's
@@ -596,29 +583,6 @@ def test_native_store_refuses_to_shadow_python_data(tmp_path):
     DurableEngine(str(tmp_path)).close()
     with pytest.raises(ValueError, match="pure-Python"):
         DiskEngine(str(tmp_path))
-
-
-def test_encrypted_native_store_raises(tmp_path):
-    from nornicdb_tpu.storage.disk import DiskKV as JKV
-
-    kv = JKV(os.path.join(str(tmp_path), "kv"))
-    kv.put(b"\x00meta:enc", b"NKE1" + bytes(28))
-    kv.put(b"n:neo4j:a", b"NKE1" + bytes(40))
-    kv.close()
-    with pytest.raises(EncryptedStoreError):
-        DiskEngine(str(tmp_path))
-
-
-def test_encrypted_native_record_raises(tmp_path):
-    from nornicdb_tpu.storage.disk import DiskKV as JKV
-
-    kv = JKV(os.path.join(str(tmp_path), "kv"))
-    kv.put(b"n:a", b"NKE1" + bytes(40))
-    kv.close()
-    eng = DiskEngine(str(tmp_path))
-    with pytest.raises(EncryptedStoreError):
-        eng.get_node("a")
-    eng.close()
 
 
 def test_disk_engine_repairs_a_torn_tail_as_jax(tmp_path):
