@@ -94,8 +94,9 @@ Phases, in order; any failure exits non-zero:
    (its ``memory_allocated`` delta within the allocator's 512-byte
    rounding per tensor) and the graph's resource bytes plus the exact
    tier's join map the graph's delta; the drift is split into the
-   encoder's weights, the join maps, cuBLAS's workspaces (the bytes
-   ``torch._C._cuda_clearCublasWorkspaces()`` frees) and the rest. (b) At the phase's end,
+   encoder's weights, the join maps, cuBLASLt's workspaces (the bytes
+   ``torch._C._cuda_clearCublasWorkspaces()`` frees beyond the cuBLAS
+   workspaces the ledger names as a resource) and the rest. (b) At the phase's end,
    ``calibration_summary()``: each kind's dispatches must equal the
    phase's own counts (``hybrid_fused`` and ``hybrid_walk_fused`` the
    fused tier's dispatches, ``microbatch`` the batches of the three
@@ -161,9 +162,18 @@ Phases, in order; any failure exits non-zero:
    launch at B >= 5. (f) A hybrid search whose ``X-Nornic-Deadline-Ms``
    budget (1 us) has run out answers 504 and launches no kernel (its
    query's embedding is cached); under a forced ``shed_hard`` a search
-   answers 429 with ``Retry-After`` and ``/health`` 200.
+   answers 429 with ``Retry-After`` and ``/health`` 200. (g) The memory
+   ledger's readiness probe (``readyz_probe``): ``reconcile()`` at a clock
+   and past the 60 s window, then ``/readyz``: the drift under its 64 MiB
+   bound with the cuBLAS workspaces named, no ``device_mem_drift``.
    ``SURFACES_PHASE_S`` joins the late rule (a late run takes 16 queries
-   per arm in (a) and (c)). After the phase, ``python -m
+   per arm in (a) and (c)). Then the ``qdrant (a)``-``(e)`` block
+   (``phase_qdrant``; its docstring): a Cosine collection of the live
+   index's own embeddings over REST, searches equal to B1's plain top-k
+   one at a time and from concurrent clients, Dot and Euclid collections,
+   GraphQL ``search`` and ``similar``, the gRPC services where ``grpc`` is
+   installed, the readiness probe again and an ``ivf_hnsw`` space on the
+   card (``QDRANT_PHASE_S`` in the late rule). After the phase, ``python -m
    nornicdb_tpu_torch.cli serve`` with no ``--device`` runs in a
    subprocess (ports 0): it must report the device ``cuda``, take 64
    stores over HTTP, index them all (a vector search polled until every
@@ -555,6 +565,20 @@ ADMISSION_HELD = 16  # hybrid queries under each hold in (b) and (c)
 SURFACES_PHASE_S = 30.0
 SURFACE_QUERIES = 64  # (a)'s queries per arm, and (c)'s Bolt statements
 SURFACE_MEMORIES = 16  # (d)'s memories stored over MCP
+# phase 4's qdrant block (a)-(e) after the surfaces block (18.7 s at full
+# depth on an H100 80GB, 700 W), with room; a late run cuts it to
+# QDRANT_LATE_POINTS points, 16 queries an arm, 8 clients x 16
+QDRANT_PHASE_S = 30.0
+QDRANT_LATE_POINTS = 16_384
+QDRANT_BULK_BATCH = 1000  # points a upsert_points call in the bulk load
+QDRANT_REST_POINTS = 1024  # points more over PUT /collections/docs/points
+QDRANT_QUERIES = 64  # (a)'s REST searches one at a time, and (c)'s official ones
+QDRANT_RAW_POINTS = 10_000  # the Dot and the Euclid collection's points
+QDRANT_IVF_ROWS = 16_384  # (e)'s ivf_hnsw space
+QDRANT_IVF_NPROBE = 8  # of its 16 clusters, for the recall check
+# the collection's device pair against the memory_allocated delta: the
+# allocator rounds each of its two tensors
+QDRANT_MEM_SLACK = 1 << 20
 SERVE_PHASE_S = 20.0  # the serve subprocess after phase 4 (13.6 s on an H100 80GB, 700 W)
 SERVE_START_S = 60.0  # the subprocess must print its ports within this
 SERVE_DOCS = 64
@@ -1219,7 +1243,12 @@ def phase_main_path(dev, seed, n_docs):
     walk = {"used": use_walk, "walk_min_n": walk_min_n}
     graph = None
     if use_walk:
-        graph, graph_wait_s = wait_for_graph(fused)
+        built, graph_wait_s = wait_for_graph(fused)
+        # the script keeps the first graph's shape, not its tensors: a later
+        # rebuild frees them (the ledger probe of surfaces (g) reads the
+        # card's bytes with no copy held here)
+        graph = {key: built[key] for key in ("n", "iters", "rows_per_shard")}
+        del built
         torch.cuda.synchronize()
         graph_alloc = torch.cuda.memory_allocated() - mem0
         cg = fused.cagra
@@ -1394,6 +1423,7 @@ def phase_main_path(dev, seed, n_docs):
     s_k, i_k = fused_cosine_topk(qv, m, valid, 30)
     s_p, i_p = cosine_topk_auto(qv, m, valid, 30)
     s_k, i_k, s_p, i_p = (x.cpu().numpy() for x in (s_k, i_k, s_p, i_p))
+    del m, valid  # the index's device pair of this moment; a write clones it
     if not topk_agree(i_k, s_k, i_p, s_p, TOPK_SCORE_ATOL):
         raise AssertionError("main-path vector answers disagree with the plain path")
 
@@ -1421,6 +1451,7 @@ def phase_main_path(dev, seed, n_docs):
         m, valid = vecs._device_arrays_locked()
     qw = l2_normalize(torch.tensor(qw_np, dtype=torch.float32, device=dev)).contiguous()
     s_p, i_p = (x.cpu().numpy() for x in cosine_topk_auto(qw, m, valid, 300))
+    del m, valid
     ext = vecs._ids_locked()
     for row, hits in enumerate(wide):
         if len(hits) != 300:
@@ -1433,12 +1464,17 @@ def phase_main_path(dev, seed, n_docs):
     write_mix = phase_write_mix(db, svc, fused, docs, queries, rng)
     profile = phase_cagra_profile(dev, svc, qvs)
     obs_out = phase_obs(db, svc, fused, queries, profile, conc,
-                        run_is_late(OBS_PHASE_S + ADMISSION_PHASE_S))
+                        run_is_late(OBS_PHASE_S + ADMISSION_PHASE_S + SURFACES_PHASE_S
+                                    + QDRANT_PHASE_S))
     obs_out["ledger"] = ledger
     admission_out, admission_launches = phase_admission(
-        db, svc, fused, queries, n_docs, seed, run_is_late(ADMISSION_PHASE_S))
+        db, svc, fused, queries, n_docs, seed,
+        run_is_late(ADMISSION_PHASE_S + SURFACES_PHASE_S + QDRANT_PHASE_S))
     surfaces_out, surfaces_launches = phase_surfaces(
-        db, svc, fused, queries, docs, run_is_late(SURFACES_PHASE_S + SERVE_PHASE_S))
+        db, svc, fused, queries, docs,
+        run_is_late(SURFACES_PHASE_S + QDRANT_PHASE_S + SERVE_PHASE_S))
+    qdrant_out, qdrant_launches = phase_qdrant(
+        db, svc, fused, queries, docs, run_is_late(QDRANT_PHASE_S + SERVE_PHASE_S))
 
     def pct(xs, p):
         return float(np.percentile(np.asarray(xs), p))
@@ -1481,6 +1517,7 @@ def phase_main_path(dev, seed, n_docs):
         "obs": obs_out,
         "admission": admission_out,
         "surfaces": surfaces_out,
+        "qdrant": qdrant_out,
     }
     for mode, ts in lat.items():
         mp[f"{mode}_p50_ms"] = pct(ts, 50)
@@ -1504,11 +1541,14 @@ def phase_main_path(dev, seed, n_docs):
     corpus = (docs, queries, np.asarray([n.embedding for n in nodes], np.float32))
     del nodes
     bm25 = svc.bm25  # host state; phase 8 reads it after the close
+    # the walk's graph as it stands now (phase 5 times B1 over its rows)
+    graph = fused.cagra._graph if use_walk else None
     db.close()
     # each path's launches, its counts set to 0 just before it
     path_launches = {"one_at_a_time": launches, "concurrent": conc["launches"],
                      "write_mix": write_mix["launches"], "cagra_profile": profile["launches"],
-                     "admission": admission_launches, "surfaces": surfaces_launches}
+                     "admission": admission_launches, "surfaces": surfaces_launches,
+                     "qdrant": qdrant_launches}
     if use_walk:
         path_launches["exact_tier_block"] = {
             "cosine_topk": brute["cosine_topk_launches"],
@@ -1713,24 +1753,29 @@ def obs_ledger(db, svc, fused, snap_bytes, snap_alloc, graph_alloc, l2v_bytes):
         if graph + l2v_bytes != graph_alloc:
             raise AssertionError(f"obs: the graph's resource bytes {graph} + the join map "
                                  f"{l2v_bytes} against its memory_allocated delta {graph_alloc}")
-    model = db._embedder.inner.model
-    encoder = sum(t.numel() * t.element_size()
-                  for t in list(model.parameters()) + list(model.buffers()) if t.is_cuda)
-    maps = sum(m[1].numel() * m[1].element_size()
-               for m in fused.lex._snap.get("row_maps", {}).values())
+    split = drift_split(db, fused, rec["drift_bytes"])
+    encoder, maps = split["encoder_bytes"], split["join_map_bytes"]
     # cuBLAS keeps its workspaces in PyTorch's allocator: the bytes that
-    # clearing them frees (the next product allocates them again)
+    # clearing them frees (the next product allocates them again); the
+    # ledger names the cuBLAS ones (a resource since ROADMAP C40), not
+    # cuBLASLt's
+    named = cublas_bytes()
     if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
         torch._C._cuda_clearCublasWorkspaces()
     cublas = after - torch.cuda.memory_allocated()
-    rest = rec["drift_bytes"] - encoder - maps - cublas
+    rest = split["rest_bytes"] - (cublas - named)
     log(f"obs (a) drift {rec['drift_bytes']} = encoder weights {encoder} + join maps {maps} "
-        f"+ cuBLAS workspaces {cublas} + the rest {rest}; snapshot {lex} against its delta "
-        f"{snap_alloc}; graph {graph} + join map {l2v_bytes} against its delta {graph_alloc}")
+        f"+ cuBLASLt workspaces {cublas - named} + the rest {rest}; cuBLAS workspaces {cublas} "
+        f"freed by clearing, {named} of them named by the ledger; snapshot {lex} against its "
+        f"delta {snap_alloc}; graph {graph} + join map {l2v_bytes} against its delta {graph_alloc}")
+    if not 0 < named <= cublas or cublas - named >= 32 << 20:
+        raise AssertionError(f"obs: the ledger names {named} of the {cublas} bytes of cuBLAS "
+                             f"workspaces")
     return {**rec, "memory_allocated": before, "snapshot_device_bytes": lex,
             "snapshot_delta": snap_alloc, "graph_device_bytes": graph, "graph_delta": graph_alloc,
             "drift_encoder_bytes": encoder, "drift_join_map_bytes": maps,
-            "drift_cublas_workspace_bytes": cublas, "drift_rest_bytes": rest,
+            "cublas_workspace_bytes": cublas, "cublas_named_bytes": named,
+            "drift_cublaslt_workspace_bytes": cublas - named, "drift_rest_bytes": rest,
             "resources": {f"{f}:{i}": e.get("device_bytes") for (f, i), e in res.items()
                           if "device_bytes" in e}}
 
@@ -2704,6 +2749,8 @@ def phase_surfaces(db, svc, fused, queries, docs, late):
         if st != 504 or any(expired["launches"].values()) or st_shed != 429 \
                 or not shed["retry_after"] or st_health != 200:
             raise AssertionError(f"surfaces (f): {out['f']}")
+        admission.CONTROLLER.reset()
+        out["g"] = readyz_probe(http_call, db, fused, "surfaces (g)")
     finally:
         client.close()
         bolt.stop()
@@ -2719,6 +2766,560 @@ def phase_surfaces(db, svc, fused, queries, docs, late):
     if min(launches.values()) < 1:
         raise AssertionError(f"surfaces: a kernel never launched: {launches}")
     return out, launches
+
+
+class CompatCacheBypass(CacheBypass):
+    """``CacheBypass`` over a Qdrant layer's search-result cache."""
+
+    def __init__(self, compat):
+        self.cache = compat._search_cache
+        self.probes = 0
+
+
+def cublas_bytes():
+    """The card's cuBLAS workspaces as the ledger's resource names them."""
+    from nornicdb_tpu_torch import obs
+
+    return sum(e.get("device_bytes", 0) for e in obs.resource_snapshot()
+               if e["family"] == "cublas")
+
+
+def point_hits(body):
+    """(ids, scores) of a Qdrant REST search answer."""
+    hits = body["result"]["points"] if isinstance(body["result"], dict) else body["result"]
+    return [h["id"] for h in hits], [h["score"] for h in hits]
+
+
+def plain_point_topk(idx, qv, k):
+    """B1's plain version over a collection's device rows: (point ids,
+    scores) per query."""
+    import torch
+
+    from nornicdb_tpu_torch.ops.similarity import cosine_topk_auto, l2_normalize
+
+    with idx._lock:
+        m, valid = idx._device_arrays_locked()
+        ext = idx._ids_locked()
+    qn = l2_normalize(torch.tensor(np.asarray(qv, np.float32), device=m.device)).contiguous()
+    s, i = (x.cpu().numpy() for x in cosine_topk_auto(qn, m, valid, k))
+    return [[int(ext[j].rsplit("/", 1)[1]) for j in row] for row in i], s.tolist()
+
+
+def phase_qdrant(db, svc, fused, queries, docs, late):
+    """Phase 4's qdrant block, on the live DB after the surfaces block: the
+    DB's ``qdrant_compat`` behind an ``HttpServer`` on port 0 (and a
+    ``GrpcServer`` where ``grpc`` is installed). B1's and B2's counts are
+    set to 0 at the block's start and read at its end. (a) A Cosine
+    collection of the main path's own embeddings (read from the live
+    index; ``QDRANT_LATE_POINTS`` of them in a late run), bulk-loaded
+    through ``upsert_points`` in batches of ``QDRANT_BULK_BATCH`` and
+    ``QDRANT_REST_POINTS`` more over REST: no B2 launch and no BM25
+    document come of it, and the collection's registered ``brute`` bytes
+    equal the ``memory_allocated`` delta within ``QDRANT_MEM_SLACK``. Then
+    ``QDRANT_QUERIES`` REST searches one at a time (16 in a late run), each
+    equal to B1's plain top-k over the same rows (ids tie-aware, scores
+    within 1e-5), beside the direct ``search_points`` past the result
+    cache, B1 launched once a miss; 16 keep-alive clients x 32 searches
+    (8 x 16 late): mean batch > 1 and a B1 launch at B >= 5; a search
+    whose filter passes 1% of the points fills its limit, equal to a host
+    exact ranking of the passing rows; a Dot and a Euclid collection of
+    ``QDRANT_RAW_POINTS`` equal to numpy's ranking. (b) ``search`` and
+    ``similar`` over ``POST /graphql`` equal ``db.search`` on the same
+    arguments. (c) Where ``grpc`` is installed: official
+    ``qdrant.Points/Search`` equal to (a)'s REST answers, native
+    ``SearchService/Search`` equal to ``vector_search_candidates``.
+    (d) ``readyz_probe`` with the collections resident. (e) An
+    ``ivf_hnsw`` vector space on the card over ``QDRANT_IVF_ROWS``
+    embeddings: recall@10 >= 0.95 against B1 exact over the same rows."""
+    import importlib.util
+    import threading
+    import types
+
+    import torch
+
+    from nornicdb_tpu_torch import obs
+    from nornicdb_tpu_torch.api.http_server import HttpServer
+    from nornicdb_tpu_torch.obs import audit as t_audit
+    from nornicdb_tpu_torch.ops.attention import flash_attention
+    from nornicdb_tpu_torch.ops.topk import fused_cosine_topk, topk_agree
+    from nornicdb_tpu_torch.vectorspace import VectorSpaceRegistry
+
+    t_phase = time.perf_counter()
+    if t_audit.sampling_active():
+        raise AssertionError("qdrant: the shadow audit samples; its replays would launch B1")
+    matrix, valid, ext_ids = svc.vectors.snapshot()
+    rows = np.flatnonzero(valid)
+    n_pts = min(QDRANT_LATE_POINTS if late else len(rows), len(rows))
+    n_q = 16 if late else QDRANT_QUERIES
+    clients, per_client = (8, 16) if late else (CONCURRENT_THREADS, CONCURRENT_PER_THREAD)
+    emb = matrix[rows[:n_pts]]
+    dims = emb.shape[1]
+    qv = np.asarray(db._embedder.embed_batch(list(queries[:n_q])), np.float32)
+    compat = db.qdrant_compat
+    out = {"late": late, "points": n_pts, "queries": n_q, "clients": clients,
+           "per_client": per_client}
+    flash_attention.launches = 0
+    fused_cosine_topk.launches = 0
+    fused_cosine_topk.launch_sizes.clear()
+
+    def mark():
+        return fused_cosine_topk.launches, flash_attention.launches
+
+    def grown(m0):
+        return {"cosine_topk": fused_cosine_topk.launches - m0[0],
+                "flash_attention": flash_attention.launches - m0[1]}
+
+    http = HttpServer(db, port=0).start()
+    client = HttpClient(http.port)
+    call = client.call
+    try:
+        # (a) the Cosine collection
+        t_part = time.perf_counter()
+        bm25_docs, vectors = len(svc.bm25), len(svc.vectors)
+        torch.cuda.synchronize()
+        mem0, ws0 = torch.cuda.memory_allocated(), cublas_bytes()
+        st, body, _, _ = call("/collections/docs", {"vectors": {"size": dims,
+                                                                "distance": "Cosine"}}, method="PUT")
+        if st != 200 or body["result"] is not True:
+            raise AssertionError(f"qdrant (a): create answered {st} {body}")
+        t0 = time.perf_counter()
+        for lo in range(0, n_pts, QDRANT_BULK_BATCH):
+            hi = min(lo + QDRANT_BULK_BATCH, n_pts)
+            compat.upsert_points("docs", [
+                {"id": i, "vector": emb[i].tolist(), "payload": {"bucket": i % 100}}
+                for i in range(lo, hi)])
+        bulk_s = time.perf_counter() - t0
+        extra = np.random.default_rng(7).standard_normal((QDRANT_REST_POINTS, dims)).astype(np.float32)
+        t0 = time.perf_counter()
+        st, body, _, rest_ms = call("/collections/docs/points", {"points": [
+            {"id": n_pts + i, "vector": v.tolist(), "payload": {"bucket": (n_pts + i) % 100}}
+            for i, v in enumerate(extra)]}, method="PUT")
+        rest_put_s = time.perf_counter() - t0
+        db.flush()
+        upsert_launches = grown((0, 0))
+        total = n_pts + QDRANT_REST_POINTS
+        st2, count, _, _ = call("/collections/docs/points/count", {})
+        if st != 200 or body["result"]["status"] != "completed" or count["result"]["count"] != total:
+            raise AssertionError(f"qdrant (a): REST upsert {st} {body}, count {count}")
+        if upsert_launches["flash_attention"] or len(svc.bm25) != bm25_docs \
+                or len(svc.vectors) != vectors:
+            raise AssertionError(f"qdrant (a): the upsert reached the encoder or the native "
+                                 f"index: {upsert_launches}, bm25 {len(svc.bm25)} of "
+                                 f"{bm25_docs}, vectors {len(svc.vectors)} of {vectors}")
+        idx = compat._index("docs")
+        # the first search makes the collection's device copy
+        st, first, _, _ = call("/collections/docs/points/search",
+                               {"vector": qv[0].tolist(), "limit": 10, "with_payload": False})
+        torch.cuda.synchronize()
+        mem_delta = torch.cuda.memory_allocated() - mem0 - (cublas_bytes() - ws0)
+        res = {(e["family"], e["index"]): e for e in obs.resource_snapshot()}
+        brute_bytes = res[("brute", "qdrant:docs")]["device_bytes"]
+        out["a_load"] = {"bulk_s": bulk_s, "bulk_points_per_s": n_pts / bulk_s,
+                         "rest_put_s": rest_put_s, "rest_put_ms": rest_ms,
+                         "brute_device_bytes": brute_bytes, "memory_allocated_delta": mem_delta,
+                         "capacity": idx._capacity, "launches": upsert_launches}
+        log(f"qdrant (a) load: {n_pts} points through upsert_points in batches of "
+            f"{QDRANT_BULK_BATCH} in {bulk_s:.3f} s ({n_pts / bulk_s:.0f} points/s), "
+            f"{QDRANT_REST_POINTS} over PUT /collections/docs/points in {rest_put_s:.3f} s; "
+            f"launches {upsert_launches}, bm25 docs {len(svc.bm25)} (was {bm25_docs}); brute "
+            f"qdrant:docs {brute_bytes} bytes against a memory_allocated delta of {mem_delta} "
+            f"(cuBLAS workspaces apart), capacity {idx._capacity}")
+        if st != 200 or abs(mem_delta - brute_bytes) > QDRANT_MEM_SLACK:
+            raise AssertionError(f"qdrant (a): {out['a_load']}, first search {st}")
+
+        t_part = time.perf_counter()
+        m0 = mark()
+        want_ids, want_scores = plain_point_topk(idx, qv, 10)
+        plain_launches = grown(m0)
+        m0 = mark()
+        batches0 = compat._microbatchers["docs"].batches
+        rest_ms, direct_ms, bad, rest_answers = [], [], [], []
+        misses0 = fused_cosine_topk.launches
+        for i, v in enumerate(qv):
+            body_q = {"vector": v.tolist(), "limit": 10, "with_payload": False}
+            st, body, _, ms = call("/collections/docs/points/search", body_q)
+            with CompatCacheBypass(compat):
+                t0 = time.perf_counter()
+                direct = compat.search_points("docs", v.tolist(), limit=10, with_payload=False)
+                direct_ms.append((time.perf_counter() - t0) * 1e3)
+            rest_ms.append(ms)
+            got = point_hits(body) if st == 200 else ([], [])
+            rest_answers.append(got)
+            if not topk_agree([got[0]], [got[1]], [want_ids[i]], [want_scores[i]],
+                              TOPK_SCORE_ATOL) \
+                    or [h["id"] for h in direct] != got[0]:
+                bad.append((i, st, got, want_ids[i]))
+        torch.cuda.synchronize()
+        a_launches = grown(m0)
+        # the first query's REST answer was cached by the load check above
+        misses = 2 * n_q - 1
+        out["a"] = {"s": time.perf_counter() - t_part, "rest_p50_ms": pctl(rest_ms, 50),
+                    "rest_p99_ms": pctl(rest_ms, 99), "direct_p50_ms": pctl(direct_ms, 50),
+                    "direct_p99_ms": pctl(direct_ms, 99), "mismatches": len(bad),
+                    "launches": a_launches, "misses": misses,
+                    "batches": compat._microbatchers["docs"].batches - batches0,
+                    "plain_check_launches": plain_launches}
+        log(f"qdrant (a) search: {n_q} REST searches one at a time, each equal to B1's plain "
+            f"top-k ({len(bad)} differ); REST p50 {out['a']['rest_p50_ms']:.3f} ms p99 "
+            f"{out['a']['rest_p99_ms']:.3f} ms, direct search_points p50 "
+            f"{out['a']['direct_p50_ms']:.3f} ms p99 {out['a']['direct_p99_ms']:.3f} ms; "
+            f"launches {a_launches} for {misses} cache misses")
+        if bad or a_launches["cosine_topk"] != misses or a_launches["flash_attention"]:
+            raise AssertionError(f"qdrant (a): {out['a']}, first mismatch {bad[:1]}")
+
+        # concurrent keep-alive clients, every body a cache miss (a
+        # threshold under every cosine keeps the answers)
+        t_part = time.perf_counter()
+        m0 = mark()
+        mb = compat._microbatchers["docs"]
+        mb0 = batcher_mark(mb)
+        sizes0 = dict(fused_cosine_topk.launch_sizes)
+        conns = []
+        for _ in range(clients):
+            conns.append(HttpClient(http.port))
+            if conns[-1].call("/health")[0] != 200:
+                raise AssertionError("qdrant (a): /health failed")
+        statuses, errors = [], []
+        barrier = threading.Barrier(clients)
+
+        def search_client(t):
+            conn = conns[t]
+            try:
+                barrier.wait()
+                for j in range(per_client):
+                    v = qv[(t * 5 + j) % n_q]
+                    st, body, _, _ = conn.call("/collections/docs/points/search", {
+                        "vector": v.tolist(), "limit": 10, "with_payload": False,
+                        "score_threshold": -2.0 - (t * per_client + j) * 1e-6})
+                    statuses.append(st)
+            except BaseException as exc:  # noqa: BLE001 -- re-raised below
+                errors.append(exc)
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=search_client, args=(t,)) for t in range(clients)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("qdrant (a): a client did not finish")
+        if errors:
+            raise errors[0]
+        nb, nq_, bsizes = batcher_delta(mb, mb0)
+        sizes = {b: n - sizes0.get(b, 0) for b, n in fused_cosine_topk.launch_sizes.items()
+                 if n != sizes0.get(b, 0)}
+        out["a_concurrent"] = {"s": time.perf_counter() - t_part, "requests": len(statuses),
+                               "wall_s": wall_s, "requests_per_s": len(statuses) / wall_s,
+                               "batches": nb, "queries": nq_, "mean_batch": nq_ / max(nb, 1),
+                               "batch_sizes": bsizes,
+                               "cosine_topk_launch_sizes": dict(sorted(sizes.items())),
+                               "launches": grown(m0)}
+        log(f"qdrant (a) concurrent: {len(statuses)} REST searches from {clients} clients in "
+            f"{wall_s:.3f} s ({len(statuses) / wall_s:.1f}/s), mean batch "
+            f"{out['a_concurrent']['mean_batch']:.3f} over {nb} batches (sizes {bsizes}); B1 "
+            f"launches by B {out['a_concurrent']['cosine_topk_launch_sizes']}")
+        if set(statuses) != {200} or nq_ != len(statuses) \
+                or out["a_concurrent"]["mean_batch"] <= 1.0 or not any(b >= 5 for b in sizes):
+            raise AssertionError(f"qdrant (a) concurrent: {out['a_concurrent']}")
+
+        # a filter that passes 1% of the points fills its limit through
+        # the widening rounds, equal to an exact host ranking of those rows
+        t_part = time.perf_counter()
+        m0 = mark()
+        flt = {"must": [{"key": "bucket", "match": {"value": 7}}]}
+        st, body, _, ms = call("/collections/docs/points/search",
+                               {"vector": qv[1].tolist(), "limit": 10, "filter": flt})
+        got = point_hits(body) if st == 200 else ([], [])
+        allv = np.vstack([emb, extra / np.linalg.norm(extra, axis=1, keepdims=True)])
+        keep = np.flatnonzero(np.arange(total) % 100 == 7)
+        qn = qv[1] / np.linalg.norm(qv[1])
+        sc = allv[keep] @ qn
+        order = np.argsort(-sc, kind="stable")[:10]
+        filtered_ok = st == 200 and len(got[0]) == 10 \
+            and all(h["payload"]["bucket"] == 7 for h in body["result"]) \
+            and topk_agree([got[0]], [got[1]], [[int(keep[j]) for j in order]],
+                           [sc[order].tolist()], TOPK_SCORE_ATOL)
+        out["a_filtered"] = {"ms": ms, "hits": len(got[0]), "launches": grown(m0),
+                             "agrees": bool(filtered_ok)}
+        log(f"qdrant (a) filtered: a filter passing 1% of {total} points filled "
+            f"{len(got[0])} of 10 in {ms:.3f} ms, equal to the host ranking of the passing "
+            f"rows: {filtered_ok}; launches {out['a_filtered']['launches']}")
+        if not filtered_ok:
+            raise AssertionError(f"qdrant (a) filtered: {st} {got}")
+
+        # Dot and Euclid: host numpy over the raw client vectors
+        t_part = time.perf_counter()
+        m0 = mark()
+        rng = np.random.default_rng(11)
+        raw = (emb[:QDRANT_RAW_POINTS] * rng.uniform(0.5, 2.0, (min(QDRANT_RAW_POINTS, n_pts), 1))
+               ).astype(np.float32)
+        raw_bad = []
+        for name, distance in (("dot", "Dot"), ("euclid", "Euclid")):
+            call(f"/collections/{name}", {"vectors": {"size": dims, "distance": distance}},
+                 method="PUT")
+            for lo in range(0, len(raw), QDRANT_BULK_BATCH):
+                compat.upsert_points(name, [{"id": i, "vector": raw[i].tolist()}
+                                            for i in range(lo, min(lo + QDRANT_BULK_BATCH,
+                                                                   len(raw)))])
+            for v in qv[:16]:
+                st, body, _, _ = call(f"/collections/{name}/points/search",
+                                      {"vector": v.tolist(), "limit": 10, "with_payload": False})
+                got = point_hits(body) if st == 200 else ([], [])
+                sc = raw @ v if distance == "Dot" else -np.linalg.norm(raw - v[None, :], axis=1)
+                order = np.argsort(-sc)[:10]
+                want = [float(-s) if distance == "Euclid" else float(s) for s in sc[order]]
+                if got[0] != order.tolist() or not np.allclose(got[1], want, rtol=0, atol=1e-5):
+                    raw_bad.append((name, got, order.tolist()))
+        out["a_raw"] = {"s": time.perf_counter() - t_part, "points": len(raw),
+                        "mismatches": len(raw_bad), "launches": grown(m0)}
+        log(f"qdrant (a) Dot and Euclid: {len(raw)} points each, 16 REST searches each equal "
+            f"to numpy's ranking ({len(raw_bad)} differ); launches {out['a_raw']['launches']}")
+        if raw_bad or any(out["a_raw"]["launches"].values()):
+            raise AssertionError(f"qdrant (a) raw: {out['a_raw']}, first {raw_bad[:1]}")
+
+        # (b) GraphQL search and similar against db.search
+        t_part = time.perf_counter()
+        m0 = mark()
+        cached = db._embedder
+        gql_ms, direct_ms, gql_bad = [], [], []
+        n_g = 16
+        doc = ("query S($q: String!, $id: ID!) { search(query: $q, limit: 10) { score node { id } }"
+               " similar(id: $id, limit: 10) { score node { id } } }")
+        with CacheBypass(svc):
+            for i in range(n_g):
+                q = f"{queries[i]} {docs[-1 - i].split()[0]}"
+                nid = ext_ids[rows[i * 97 % len(rows)]]
+                with cached._lock:
+                    cached._cache.pop(q, None)
+                st, body, _, ms = call("/graphql", {"query": doc, "variables": {"q": q, "id": nid}})
+                with cached._lock:
+                    cached._cache.pop(q, None)
+                t0 = time.perf_counter()
+                ds = svc.search(query=q, limit=10)
+                dsim = svc.similar(nid, limit=10)
+                direct_ms.append((time.perf_counter() - t0) * 1e3)
+                gql_ms.append(ms)
+                want = json.loads(json.dumps({"search": [{"score": r["score"], "node": {
+                    "id": r["id"]}} for r in ds], "similar": [{"score": r["score"], "node": {
+                        "id": r["id"]}} for r in dsim]}))
+                if st != 200 or body.get("errors") or body["data"] != want:
+                    gql_bad.append((q, st, body, want))
+        torch.cuda.synchronize()
+        out["b"] = {"s": time.perf_counter() - t_part, "queries": n_g,
+                    "graphql_p50_ms": pctl(gql_ms, 50), "graphql_p99_ms": pctl(gql_ms, 99),
+                    "direct_p50_ms": pctl(direct_ms, 50), "direct_p99_ms": pctl(direct_ms, 99),
+                    "mismatches": len(gql_bad), "launches": grown(m0)}
+        log(f"qdrant (b) graphql: {n_g} documents of search and similar (limit 10) equal to "
+            f"db.search ({len(gql_bad)} differ); POST /graphql p50 {out['b']['graphql_p50_ms']:.3f} "
+            f"ms p99 {out['b']['graphql_p99_ms']:.3f} ms, direct search + similar p50 "
+            f"{out['b']['direct_p50_ms']:.3f} ms p99 {out['b']['direct_p99_ms']:.3f} ms; "
+            f"launches {out['b']['launches']}")
+        if gql_bad or out["b"]["launches"]["flash_attention"] < 1:
+            raise AssertionError(f"qdrant (b): {out['b']}, first {str(gql_bad[:1])[:800]}")
+
+        # (c) gRPC, where it is installed
+        t_part = time.perf_counter()
+        has_grpc = importlib.util.find_spec("grpc") is not None
+        out["c"] = {"grpc_installed": has_grpc}
+        if not has_grpc:
+            log("qdrant (c) grpc: the grpc package is not installed on this machine; the gRPC "
+                "surfaces are held on the CPU only (tests/test_torch_grpc.py)")
+        else:
+            out["c"].update(qdrant_grpc(db, svc, compat, qv, rest_answers, mark, grown))
+            out["c"]["s"] = time.perf_counter() - t_part
+
+        # (d) the ledger with the collections resident
+        out["d"] = readyz_probe(call, db, fused, "qdrant (d)")
+
+        # (e) an ivf_hnsw vector space on the card
+        t_part = time.perf_counter()
+        n_ivf = min(QDRANT_IVF_ROWS, n_pts)
+        reg = VectorSpaceRegistry(db.device)
+        space = reg.get_or_create(database="qdrant-ivf", backend="ivf_hnsw", dims=dims)
+        ivf = space.ensure_index()
+        t0 = time.perf_counter()
+        ivf.build([(str(i), emb[i]) for i in range(n_ivf)])
+        build_s = time.perf_counter() - t0
+        m0 = mark()
+        rows_t = torch.tensor(emb[:n_ivf], device=db.device)
+        valid_t = torch.ones(n_ivf, dtype=torch.bool, device=db.device)
+        qn_t = torch.nn.functional.normalize(torch.tensor(qv, device=db.device), dim=1)
+        # B1 exact over the same rows: a check, so its launch is not the path's
+        counted = fused_cosine_topk.launches, dict(fused_cosine_topk.launch_sizes)
+        s_e, i_e = fused_cosine_topk(qn_t.contiguous(), rows_t, valid_t, 10)
+        exact_ids = i_e.cpu().numpy()
+        fused_cosine_topk.launches = counted[0]
+        fused_cosine_topk.launch_sizes.clear()
+        fused_cosine_topk.launch_sizes.update(counted[1])
+        ivf_ms, hits, hits_profile = [], 0, 0
+        for row, v in enumerate(qv):
+            t0 = time.perf_counter()
+            got = ivf.search(v, k=10, nprobe=QDRANT_IVF_NPROBE)
+            ivf_ms.append((time.perf_counter() - t0) * 1e3)
+            want = set(exact_ids[row].tolist())
+            hits += len({int(e) for e, _ in got} & want)
+            # at the ANN profile's own nprobe, printed beside the check
+            hits_profile += len({int(e) for e, _ in ivf.search(v, k=10)} & want)
+        recall = hits / (10 * len(qv))
+        recall_profile = hits_profile / (10 * len(qv))
+        out["e"] = {"rows": n_ivf, "build_s": build_s, "clusters": len(ivf.clusters),
+                    "device": str(ivf.device), "nprobe": QDRANT_IVF_NPROBE,
+                    "ef_search": ivf.ef_search, "recall_at_10": recall,
+                    "profile_nprobe": ivf.nprobe, "recall_at_10_profile_nprobe": recall_profile,
+                    "p50_ms": pctl(ivf_ms, 50), "p99_ms": pctl(ivf_ms, 99),
+                    "launches": grown(m0), "s": time.perf_counter() - t_part}
+        del rows_t, valid_t, qn_t, s_e, i_e
+        log(f"qdrant (e) ivf_hnsw space on {ivf.device}: {n_ivf} rows partitioned by kmeans_fit "
+            f"on {ivf.device} into {len(ivf.clusters)} HNSW graphs in {build_s:.3f} s; recall@10 "
+            f"{recall:.4f} at nprobe {QDRANT_IVF_NPROBE}, ef {ivf.ef_search} against B1 exact "
+            f"over the same rows ({recall_profile:.4f} at the profile's nprobe {ivf.nprobe}); "
+            f"p50 {out['e']['p50_ms']:.3f} ms p99 {out['e']['p99_ms']:.3f} ms")
+        if ivf.device.type != "cuda" or recall < RECALL_MIN:
+            raise AssertionError(f"qdrant (e): {out['e']}")
+    finally:
+        client.close()
+        http.stop()
+    torch.cuda.synchronize()
+    launches = {"cosine_topk": fused_cosine_topk.launches,
+                "flash_attention": flash_attention.launches}
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t_phase
+    log(f"qdrant: {out['s']:.1f} s{' (late: cut depth)' if late else ''}, {n_pts} points, "
+        f"{n_q} queries an arm, {clients} clients x {per_client}; launches {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"qdrant: a kernel never launched: {launches}")
+    return out, launches
+
+
+def qdrant_grpc(db, svc, compat, qv, rest_answers, mark, grown):
+    """The qdrant block's (c): ``GrpcServer`` on port 0 over the live DB.
+    Official ``qdrant.Points/Search`` of (a)'s vectors equal (a)'s REST
+    answers, and native ``SearchService/Search`` of 16 of them equals the
+    direct ``vector_search_candidates``; p50 of each."""
+    import grpc
+
+    from nornicdb_tpu_torch.api.grpc_server import GrpcServer
+    from nornicdb_tpu_torch.api.proto import nornic_pb2 as pb
+    from nornicdb_tpu_torch.api.proto import qdrant_pb2 as q
+    from nornicdb_tpu_torch.ops.topk import topk_agree
+
+    srv = GrpcServer(db, port=0).start()
+    ch = grpc.insecure_channel(srv.address)
+    try:
+        search = ch.unary_unary("/qdrant.Points/Search",
+                                request_serializer=q.SearchPoints.SerializeToString,
+                                response_deserializer=q.SearchResponse.FromString)
+        native = ch.unary_unary("/nornic.v1.SearchService/Search",
+                                request_serializer=pb.SearchRequest.SerializeToString,
+                                response_deserializer=pb.SearchResponse.FromString)
+        m0 = mark()
+        official_ms, bad = [], []
+        for v, (ids, scores) in zip(qv, rest_answers):
+            # payloads on (the official default): another cache key than
+            # (a)'s REST searches, so each call reaches B1
+            req = q.SearchPoints(collection_name="docs", vector=v.tolist(), limit=10)
+            t0 = time.perf_counter()
+            resp = search(req, timeout=120)
+            official_ms.append((time.perf_counter() - t0) * 1e3)
+            got = [int(p.id.num) for p in resp.result], [p.score for p in resp.result]
+            if not topk_agree([got[0]], [got[1]], [ids], [scores], TOPK_SCORE_ATOL):
+                bad.append((got, ids))
+        official = grown(m0)
+        m0 = mark()
+        native_ms, native_bad = [], []
+        for v in qv[:16]:
+            t0 = time.perf_counter()
+            resp = native(pb.SearchRequest(vector=v.tolist(), limit=10), timeout=120)
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+            direct = svc.vector_search_candidates(v, k=10)
+            if [h.node_id for h in resp.hits] != [i for i, _ in direct] \
+                    or not np.allclose([h.score for h in resp.hits], [s for _, s in direct],
+                                       rtol=0, atol=TOPK_SCORE_ATOL):
+                native_bad.append(([h.node_id for h in resp.hits], direct))
+        out = {"official_searches": len(qv), "official_p50_ms": pctl(official_ms, 50),
+               "official_p99_ms": pctl(official_ms, 99), "official_mismatches": len(bad),
+               "official_launches": official, "native_searches": 16,
+               "native_p50_ms": pctl(native_ms, 50), "native_mismatches": len(native_bad),
+               "native_launches": grown(m0)}
+    finally:
+        ch.close()
+        srv.stop()
+    import google.protobuf
+
+    out.update(grpc_version=grpc.__version__, protobuf_version=google.protobuf.__version__)
+    log(f"qdrant (c) grpc: grpcio {grpc.__version__} and protobuf "
+        f"{google.protobuf.__version__} are installed; {len(qv)} official "
+        f"qdrant.Points/Search calls equal (a)'s REST answers ({len(bad)} differ), p50 "
+        f"{out['official_p50_ms']:.3f} ms, launches {official}; 16 native SearchService/Search "
+        f"equal vector_search_candidates ({len(native_bad)} differ), p50 "
+        f"{out['native_p50_ms']:.3f} ms, launches {out['native_launches']}")
+    if bad or native_bad or official["cosine_topk"] != len(qv):
+        raise AssertionError(f"qdrant (c): {out}, first {str((bad + native_bad)[:1])[:600]}")
+    return out
+
+
+def drift_split(db, fused, drift):
+    """The ledger drift's parts that the script can name: the encoder's
+    weights and the exact tier's join maps on the card; what stays is the
+    rest (cuBLAS's workspaces among it, unless a resource names them)."""
+    model = db._embedder.inner.model
+    encoder = sum(t.numel() * t.element_size()
+                  for t in list(model.parameters()) + list(model.buffers()) if t.is_cuda)
+    maps = sum(m[1].numel() * m[1].element_size()
+               for m in fused.lex._snap.get("row_maps", {}).values())
+    return {"encoder_bytes": encoder, "join_map_bytes": maps,
+            "rest_bytes": None if drift is None else drift - encoder - maps}
+
+
+def readyz_probe(http_call, db, fused, label):
+    """ROADMAP C40's probe on the live DB: ``reconcile()`` at a clock ``t``
+    and at ``t`` + the detection window + 1 s (no wait), then ``GET
+    /readyz`` on the running server. The drift must sit under the bound
+    (64 MiB, window 60 s, both as configured) with no leak flagged, and
+    ``/readyz`` must name no ``device_mem_drift``: it answers 200, or 503
+    for changelogs at their cap alone (a rule of the reference's
+    ``_readyz``: an index that has logged more writes than its cap reads
+    ``changelog_near_overrun`` from then on, in both packages)."""
+    import torch
+
+    from nornicdb_tpu_torch import obs
+    from nornicdb_tpu_torch.obs import device as obs_device
+
+    torch.cuda.synchronize()
+    c = obs_device.cfg()
+    t = time.time()
+    first = obs_device.reconcile(now=t)
+    second = obs_device.reconcile(now=t + c["mem_drift_s"] + 1.0)
+    st, body, _, ms = http_call("/readyz")
+    res = {f"{e['family']}:{e['index']}": e["device_bytes"]
+           for e in obs.resource_snapshot() if "device_bytes" in e}
+    out = {"status": st, "body": body, "drift_bytes": second["drift_bytes"],
+           "ledger_bytes": second["ledger_bytes"], "backend_bytes": second["backend_bytes"],
+           "bound_bytes": second["bound_bytes"], "window_s": second["window_s"],
+           "leak_after_window": second["leak_suspected"], "leak_at_t": first["leak_suspected"],
+           "split": drift_split(db, fused, second["drift_bytes"]), "resources": res,
+           "ms": ms}
+    log(f"{label} /readyz after the window: {st} {json.dumps(body)[:300]}; drift "
+        f"{second['drift_bytes']} (ledger {second['ledger_bytes']}, memory_allocated "
+        f"{second['backend_bytes']}), bound {second['bound_bytes']}, window "
+        f"{second['window_s']} s; split {out['split']}; resources {res}")
+    reasons = (body or {}).get("reasons", [])
+    full = {f"{e['family']}/{e['index']}" for e in obs.resource_snapshot()
+            if e.get("changelog_cap") and e.get("changelog_depth", 0) >= 0.9 * e["changelog_cap"]}
+    others = [r for r in reasons
+              if not (r.startswith("changelog_near_overrun:")
+                      and r.split(":", 1)[1].split("(")[0] in full)]
+    out["reasons_besides_full_changelogs"] = others
+    if st not in (200, 503) or (st == 503) != bool(reasons) or others \
+            or second["leak_suspected"] \
+            or abs(second["drift_bytes"]) > second["bound_bytes"] \
+            or second["bound_bytes"] != 64 << 20 or second["window_s"] != 60.0:
+        raise AssertionError(f"{label}: /readyz {st}, {out}")
+    return out
 
 
 def phase_serve():

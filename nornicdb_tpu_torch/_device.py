@@ -27,6 +27,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         # is off for matmuls and for cuDNN alike.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # the card's cuBLAS workspaces are a resource of the memory
+        # ledger (ROADMAP C40)
+        from nornicdb_tpu_torch.obs.device import track_cublas_workspaces
+
+        track_cublas_workspaces(dev)
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -11,9 +11,13 @@ Heimdall's OpenAI-compatible chat. Built on the standard library's
 ``admission.DEADLINE_HEADER``; a shed answers 429 with ``Retry-After``
 and an expired deadline 504.
 
-Where the port differs (ROADMAP C38, C39): ``/graphql`` and the Qdrant
-REST routes (``/collections``) answer 501 with the reference's error
-body, naming the module that is not ported; and a device fault
+GraphQL at ``/graphql`` (``api/graphql.py``, with a response-bytes
+cache for query documents validated against a graph-mutation generation)
+and the Qdrant REST wire format at ``/collections`` (``api/qdrant.py``,
+the DB's ``qdrant_compat``; snapshots under the data dir's
+``qdrant-snapshots``).
+
+Where the port differs (ROADMAP C39): a device fault
 (``errors.is_device_fault``) inside a readiness or scrape probe, which
 the reference swallows, re-raises. Every error the reference answers is
 still answered, device faults among them (500).
@@ -30,7 +34,7 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from nornicdb_tpu_torch import admission as _adm
@@ -242,11 +246,39 @@ class HTTPError(Exception):
         self.message = message
 
 
-def _not_ported(what: str) -> HTTPError:
-    """The 501 of a route whose module the port does not have yet (C38),
-    with the reference's error body."""
-    return HTTPError(501, "Neo.DatabaseError.General.UnknownError",
-                     f"{what} is not ported yet")
+class _GraphGeneration:
+    """MutationListener that versions the whole graph: every mutation
+    event (including bulk clears) bumps one counter, giving response-
+    bytes caches a safe validity token. The bump is an itertools.count
+    next() — atomic under the GIL, unlike `gen += 1`, whose lost
+    updates could leave the generation unmoved across a racing pair of
+    writes and let a stale entry validate."""
+
+    __slots__ = ("gen", "_c")
+
+    def __init__(self):
+        import itertools
+
+        self._c = itertools.count(1)
+        self.gen = 0
+
+    def _bump(self) -> None:
+        self.gen = next(self._c)
+
+    def on_node_upsert(self, node) -> None:
+        self._bump()
+
+    def on_node_delete(self, node_id) -> None:
+        self._bump()
+
+    def on_edge_upsert(self, edge) -> None:
+        self._bump()
+
+    def on_edge_delete(self, edge_id) -> None:
+        self._bump()
+
+    def on_bulk_change(self) -> None:
+        self._bump()
 
 
 class HttpServer:
@@ -287,6 +319,15 @@ class HttpServer:
 
         self._search_wire: LRUCache = LRUCache(max_size=512,
                                                ttl_seconds=300.0)
+        # /graphql response-bytes cache for query-kind documents, keyed
+        # the same way and validated against a graph-mutation
+        # generation fed by a storage listener (any write through any
+        # surface — bolt, tx API, qdrant, bulk clears — invalidates)
+        self._graphql_wire: LRUCache = LRUCache(max_size=512,
+                                                ttl_seconds=300.0)
+        self._graph_gen = _GraphGeneration()
+        if hasattr(db, "storage") and hasattr(db.storage, "add_listener"):
+            db.storage.add_listener(self._graph_gen)
 
     @property
     def mcp(self):
@@ -478,11 +519,11 @@ class HttpServer:
                     # against unchanged state skip execution, hit
                     # copies AND json serialization entirely
                     try:
-                        if self.path == "/graphql":
-                            # api/graphql.py is not ported (C38)
-                            raise _not_ported("GraphQL (api/graphql.py)")
-                        data = outer._search_response_bytes(
-                            body, self.headers)
+                        data = (outer._search_response_bytes(
+                                    body, self.headers)
+                                if self.path == "/nornicdb/search" else
+                                outer._graphql_response_bytes(
+                                    body, self.headers))
                     except HTTPError as e:
                         outer.metrics.inc("http_errors_total")
                         self._reply(e.status, {"errors": [
@@ -661,9 +702,28 @@ class HttpServer:
             response = self.mcp.handle_jsonrpc(payload)
             return (200, response) if response is not None else (202, {})
 
-        # GraphQL endpoint + playground: api/graphql.py is not ported (C38)
+        # GraphQL endpoint + playground
         if parsed.path == "/graphql":
-            raise _not_ported("GraphQL (api/graphql.py)")
+            if method == "GET":
+                from nornicdb_tpu_torch.api.graphql import PLAYGROUND_HTML
+
+                return 200, PLAYGROUND_HTML
+            if method == "POST":
+                from nornicdb_tpu_torch.api.graphql import GraphQLAPI, GraphQLError
+
+                q = payload.get("query", "")
+                op_name = payload.get("operationName")
+                try:
+                    kind = GraphQLAPI.operation_kind(q, op_name)
+                except GraphQLError as e:
+                    return 200, {"data": None,
+                                 "errors": [{"message": str(e)}]}
+                self.authorize(
+                    username, self.default_database,
+                    WRITE if kind == "mutation" else READ,
+                )
+                return 200, self.graphql.execute(
+                    q, payload.get("variables"), op_name)
 
         if parsed.path == "/status":
             return 200, self._status()
@@ -692,8 +752,8 @@ class HttpServer:
                            WRITE if method == "POST" else READ)
             return self._heimdall_routes(method, segments, payload, username)
 
-        # Qdrant-compatible REST surface: api/qdrant.py and
-        # DB.qdrant_compat are not ported (C38)
+        # Qdrant-compatible REST surface: the Qdrant HTTP wire format
+        # over the DB's QdrantCompat
         if segments[:1] == ["collections"]:
             self.authorize(
                 username, self.default_database,
@@ -701,7 +761,7 @@ class HttpServer:
                 (len(segments) >= 3 and segments[2] == "points" and
                  segments[-1] in ("delete",)) else READ,
             )
-            raise _not_ported("the Qdrant REST surface (api/qdrant.py)")
+            return self._qdrant_routes(method, segments, payload, query)
 
         # admin
         if segments[:1] == ["admin"]:
@@ -1053,6 +1113,38 @@ class HttpServer:
         self._search_wire.put(key, (gen, data))
         return data
 
+    def _graphql_response_bytes(self, body: bytes, headers) -> bytes:
+        """Serve POST /graphql from the response-bytes cache. Only
+        query-kind documents are stored (mutations always execute), and
+        entries are validated against the graph-mutation generation, so
+        a write through ANY surface invalidates."""
+        gen = self._graph_gen.gen
+        key = (headers.get("Authorization", ""), body)
+        hit = self._graphql_wire.get(key)
+        if hit is not None and hit[0] == gen:
+            return hit[1]
+        # miss-only admission verdict: cache hits are never shed
+        _adm.check("http", _adm.lane())
+        status, payload = self.route("POST", "/graphql", body, headers)
+        if status != 200:
+            raise HTTPError(status, "Neo.ClientError.Request.Invalid",
+                            str(payload)[:200])
+        data = json.dumps(payload, default=_json_default).encode()
+        try:
+            from nornicdb_tpu_torch.api.graphql import GraphQLAPI
+
+            doc = json.loads(body)
+            kind = GraphQLAPI.operation_kind(
+                doc.get("query", ""), doc.get("operationName"))
+        except Exception:
+            kind = "mutation"  # unparseable: never cache
+        if (kind == "query" and isinstance(payload, dict)
+                and not payload.get("errors")):
+            # gen was read BEFORE execution: a write racing the compute
+            # leaves a stale-gen entry the next get rejects
+            self._graphql_wire.put(key, (gen, data))
+        return data
+
     # -- REST convenience API --------------------------------------------
 
     def _nornicdb_routes(self, method: str, segments: List[str],
@@ -1168,6 +1260,147 @@ class HttpServer:
 
         raise HTTPError(404, "Neo.ClientError.Request.Invalid",
                         f"no route /nornicdb/{action}")
+
+    # -- qdrant-compatible REST ------------------------------------------
+
+    @property
+    def qdrant(self):
+        return self.db.qdrant_compat
+
+    @property
+    def graphql(self):
+        if getattr(self, "_graphql", None) is None:
+            from nornicdb_tpu_torch.api.graphql import GraphQLAPI
+
+            self._graphql = GraphQLAPI(self.db)
+        return self._graphql
+
+    def _qdrant_snapshot_dir(self) -> str:
+        import tempfile
+
+        data_dir = getattr(self.db, "_data_dir", None)
+        return (os.path.join(data_dir, "qdrant-snapshots") if data_dir
+                else os.path.join(tempfile.gettempdir(),
+                                  "nornicdb-qdrant-snapshots"))
+
+    def _qdrant_routes(self, method: str, segments: List[str],
+                       payload: Dict[str, Any],
+                       query: Dict[str, str]) -> Tuple[int, Any]:
+        """Qdrant REST wire format: every response is
+        {"result": ..., "status": "ok", "time": seconds}."""
+        from nornicdb_tpu_torch.api.qdrant import QdrantError
+
+        t0 = time.time()
+
+        def ok(result: Any, status: int = 200) -> Tuple[int, Any]:
+            return status, {"result": result, "status": "ok",
+                            "time": time.time() - t0}
+
+        try:
+            q = self.qdrant
+            if len(segments) == 1 and method == "GET":
+                return ok({"collections": [
+                    {"name": n} for n in q.list_collections()
+                ]})
+            if segments[1:] == ["aliases"] and method == "GET":
+                return ok({"aliases": q.list_aliases()})
+            name = segments[1] if len(segments) > 1 else ""
+            if len(segments) == 2:
+                if method == "PUT":
+                    return ok(q.create_collection(
+                        name, payload.get("vectors")))
+                if method == "DELETE":
+                    return ok(q.delete_collection(name))
+                if method == "GET":
+                    return ok(q.get_collection(name))
+            if segments[1:] == ["aliases"] and method == "POST":
+                # upstream POST /collections/aliases ChangeAliases body
+                actions = []
+                for act in payload.get("actions", []):
+                    if "create_alias" in act:
+                        a = act["create_alias"]
+                        actions.append({"create": {
+                            "alias": a.get("alias_name", ""),
+                            "collection": a.get("collection_name", "")}})
+                    elif "rename_alias" in act:
+                        a = act["rename_alias"]
+                        actions.append({"rename": {
+                            "old": a.get("old_alias_name", ""),
+                            "new": a.get("new_alias_name", "")}})
+                    elif "delete_alias" in act:
+                        actions.append({"delete": {
+                            "alias": act["delete_alias"].get(
+                                "alias_name", "")}})
+                return ok(q.update_aliases(actions))
+            if len(segments) == 3 and segments[2] == "aliases" \
+                    and method == "GET":
+                return ok({"aliases": q.list_aliases(name)})
+            if len(segments) >= 3 and segments[2] == "snapshots":
+                snap_dir = self._qdrant_snapshot_dir()
+                if method == "POST" and len(segments) == 3:
+                    return ok(q.create_snapshot(name, snap_dir))
+                if method == "GET" and len(segments) == 3:
+                    return ok(q.list_snapshots(name, snap_dir))
+                if method == "DELETE" and len(segments) == 4:
+                    return ok(q.delete_snapshot(name, segments[3],
+                                                snap_dir))
+                if method == "PUT" and len(segments) == 5 \
+                        and segments[4] == "recover":
+                    return ok({"restored": q.recover_snapshot(
+                        name, segments[3], snap_dir)})
+            if len(segments) >= 3 and segments[2] == "points":
+                action = segments[3] if len(segments) > 3 else ""
+                if method == "PUT" and not action:
+                    n = q.upsert_points(name, payload.get("points", []))
+                    # write path has no audit serve chokepoint — the
+                    # per-tenant request (and its rate window) still
+                    # counts the bulk upsert
+                    _tenant.record_served("qdrant", "host")
+                    return ok({"operation_id": n, "status": "completed"})
+                if method == "POST" and not action:
+                    return ok(q.retrieve_points(
+                        name, payload.get("ids", []),
+                        with_payload=payload.get("with_payload", True),
+                        with_vector=payload.get("with_vector", False)))
+                if method == "POST" and action == "search":
+                    return ok(q.search_points(
+                        name, payload.get("vector", []),
+                        limit=int(payload.get("limit", 10)),
+                        with_payload=payload.get("with_payload", True),
+                        with_vector=payload.get("with_vector", False),
+                        score_threshold=payload.get("score_threshold"),
+                        query_filter=payload.get("filter")))
+                if method == "POST" and action == "query":
+                    # universal query API subset: nearest by raw vector
+                    qv = payload.get("query")
+                    if isinstance(qv, dict):
+                        qv = qv.get("nearest")
+                    pts = q.search_points(
+                        name, qv or [],
+                        limit=int(payload.get("limit", 10)),
+                        with_payload=payload.get("with_payload", True),
+                        with_vector=payload.get("with_vector", False),
+                        query_filter=payload.get("filter"))
+                    return ok({"points": pts})
+                if method == "POST" and action == "delete":
+                    n = q.delete_points(
+                        name,
+                        payload.get("points", payload.get("ids", [])))
+                    return ok({"operation_id": n, "status": "completed"})
+                if method == "POST" and action == "count":
+                    return ok({"count": q.count_points(name)})
+                if method == "POST" and action == "scroll":
+                    return ok(q.scroll_points(
+                        name,
+                        offset=payload.get("offset"),
+                        limit=int(payload.get("limit", 10)),
+                        with_payload=payload.get("with_payload", True),
+                        with_vector=payload.get("with_vector", False)))
+        except QdrantError as e:
+            return e.status, {"status": {"error": str(e)},
+                              "time": time.time() - t0}
+        raise HTTPError(404, "Neo.ClientError.Request.Invalid",
+                        f"no qdrant route {method} /{'/'.join(segments)}")
 
     # -- Heimdall ----------------------------------------------------------
 

@@ -2,12 +2,16 @@
 ``nornicdb_tpu/cli.py``; the same commands, flags and files).
 
 Run as ``python -m nornicdb_tpu_torch.cli <command>``. ``serve`` opens the
-DB and starts the HTTP server (MCP at ``/mcp``) and the Bolt server over
-it. ``--device`` names the device the DB runs on and defaults to
-``cuda``: without a card, ``serve``, ``import`` and ``export`` raise
-unless given ``--device cpu``. What the port has no module for yet raises
-``NotPortedError`` when asked (ROADMAP C38): ``--grpc-port`` other than
-0, ``--plugins-dir``, ``eval`` and ``oauth-provider``.
+DB and starts the HTTP server (MCP at ``/mcp``, GraphQL at ``/graphql``,
+the Qdrant REST routes at ``/collections``) and the Bolt server over it;
+``--grpc-port`` other than 0 also starts the gRPC server
+(``api/grpc_server.py``: the native search and Qdrant services and the
+official Qdrant ones, on ``grpc.aio``), behind a bearer token when
+``--grpc-auth-token`` is given. ``--device`` names the device the DB runs
+on and defaults to ``cuda``: without a card, ``serve``, ``import`` and
+``export`` raise unless given ``--device cpu``. What the port has no
+module for yet raises ``NotPortedError`` when asked (ROADMAP C38):
+``--plugins-dir``, ``eval`` and ``oauth-provider``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,10 @@ def _build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--bolt-port", type=int, default=7687)
     serve.add_argument("--grpc-port", type=int, default=0,
                        help="gRPC port (0 = disabled)")
+    serve.add_argument("--grpc-auth-token", default=None,
+                       help="require this bearer token on every gRPC "
+                            "call (parity with the REST surface's write "
+                            "authorization)")
     serve.add_argument("--host", default="127.0.0.1")
     serve.add_argument("--database", default="neo4j")
     serve.add_argument("--plugins-dir", default=None)
@@ -85,8 +93,6 @@ def cmd_serve(args) -> int:
     import os
 
     # refused before anything opens (C38)
-    if args.grpc_port:
-        raise NotPortedError("the gRPC server (api/grpc_server.py) is not ported yet")
     if args.plugins_dir:
         raise NotPortedError("plugins (plugins.py) are not ported yet")
     if args.ann_quality:
@@ -98,9 +104,18 @@ def cmd_serve(args) -> int:
     http = HttpServer(db, host=args.host, port=args.http_port,
                       database_manager=db.multidb_manager()).start()
     bolt = BoltServer(db, host=args.host, port=args.bolt_port).start()
+    grpc_srv = None
+    if args.grpc_port:
+        from nornicdb_tpu_torch.api.grpc_server import GrpcServer
+
+        grpc_srv = GrpcServer(db, host=args.host, port=args.grpc_port,
+                              auth_token=args.grpc_auth_token).start()
     print(f"nornicdb-tpu {VERSION}")
     print(f"  http  : http://{args.host}:{http.port}")
     print(f"  bolt  : bolt://{args.host}:{bolt.port}")
+    if grpc_srv is not None:
+        auth = " (bearer auth)" if args.grpc_auth_token else ""
+        print(f"  grpc  : {grpc_srv.address} (aio){auth}")
     print(f"  data  : {args.data_dir or '(in-memory)'}")
     print(f"  device: {db.device}", flush=True)
     stop = threading.Event()
@@ -112,6 +127,8 @@ def cmd_serve(args) -> int:
     signal.signal(signal.SIGTERM, _sig)
     stop.wait()
     print("shutting down")
+    if grpc_srv is not None:
+        grpc_srv.stop()
     bolt.stop()
     http.stop()
     db.close()

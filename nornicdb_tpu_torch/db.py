@@ -265,6 +265,23 @@ class DB:
             return self._search
 
     @property
+    def qdrant_compat(self):
+        """The one Qdrant translation layer of this DB, on its device,
+        built on first use: the REST and gRPC surfaces share its
+        per-collection index cache. Points are ordinary storage nodes, so
+        a write through any other surface (a Cypher ``SET`` or
+        ``DELETE``, a GDPR delete) invalidates the collection too."""
+        with self._lock:
+            if getattr(self, "_qdrant_compat", None) is None:
+                from nornicdb_tpu_torch.api.qdrant import QdrantCompat
+
+                compat = QdrantCompat(self.storage, device=self.device)
+                if hasattr(self.storage, "add_listener"):
+                    self.storage.add_listener(_QdrantInvalidationListener(compat))
+                self._qdrant_compat = compat
+            return self._qdrant_compat
+
+    @property
     def decay(self):
         """The decay manager, built on first use."""
         if self._decay is None:
@@ -502,6 +519,21 @@ class DB:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class _QdrantInvalidationListener(MutationListener):
+    """Routes node mutations from any surface into the Qdrant layer's
+    invalidation (``QdrantCompat._on_external_mutation``, which filters
+    out the layer's own writes)."""
+
+    def __init__(self, compat):
+        self._compat = compat
+
+    def on_node_upsert(self, node: Node) -> None:
+        self._compat._on_external_mutation(node.id)
+
+    def on_node_delete(self, node_id: str) -> None:
+        self._compat._on_external_mutation(node_id)
 
 
 class _CacheInvalidator(MutationListener):

@@ -474,6 +474,138 @@ def set_backend_probe(
     _backend_probe = fn
 
 
+# PyTorch's default cuBLAS workspace: 32 MiB on sm90 (Hopper), else
+# 2 x 4 MiB + 8 x 16 KiB (at::cuda::getChosenWorkspaceSize)
+_CUBLAS_WS_SM90 = 4096 * 8 * 1024
+_CUBLAS_WS_OTHER = 4096 * 1024 * 2 + 16 * 1024 * 8
+
+
+def cublas_workspace_size(capability: Tuple[int, int],
+                          config: Optional[str] = None) -> int:
+    """The bytes of one cuBLAS workspace, as PyTorch chooses them:
+    ``CUBLAS_WORKSPACE_CONFIG``'s ``:SIZE_KiB:COUNT`` pairs summed, else the
+    default of the card's architecture."""
+    import os
+    import re
+
+    config = os.environ.get("CUBLAS_WORKSPACE_CONFIG") if config is None else config
+    if config is not None:
+        pairs = re.findall(r":([0-9]+):([0-9]+)", config)
+        return sum(int(size) * 1024 * int(count) for size, count in pairs)
+    return _CUBLAS_WS_SM90 if tuple(capability) == (9, 0) else _CUBLAS_WS_OTHER
+
+
+# how far the walk over a resource's attributes looks for the tensors it
+# holds: snapshots keep theirs in dicts, lists and tuples a few levels
+# down; a container of more entries than _HELD_ITEMS is an id map, not a
+# set of device arrays, and is not entered
+_HELD_DEPTH = 4
+_HELD_ITEMS = 256
+
+
+def _held(value: Any, depth: int, out: set) -> None:
+    if isinstance(value, torch.Tensor):
+        if value.layout == torch.strided:
+            out.add(value.untyped_storage().data_ptr())
+        return
+    if depth == 0 or not isinstance(value, (dict, list, tuple)) or len(value) > _HELD_ITEMS:
+        return
+    for item in list(value.values() if isinstance(value, dict) else value):
+        _held(item, depth - 1, out)
+
+
+def held_storage_ptrs(skip: Any = None) -> set:
+    """The storage addresses of the tensors that the live registered
+    resources (``skip`` aside) hold in their attributes, or in dicts,
+    lists and tuples there, ``_HELD_DEPTH`` levels down."""
+    from nornicdb_tpu_torch.obs import resources as _resources
+
+    out: set = set()
+    for _family, _name, obj in _resources._live_objects():
+        if obj is skip:
+            continue
+        for value in list(getattr(obj, "__dict__", {}).values()):
+            _held(value, _HELD_DEPTH, out)
+    return out
+
+
+class CublasWorkspaces:
+    """The cuBLAS workspaces of one card as a resource of the ledger.
+
+    PyTorch gives every (cuBLAS handle, stream) pair that runs a product a
+    workspace of its own, held by the caching allocator for the life of
+    the process; a handle belongs to a thread while it lives, so a server
+    whose threads run products holds one workspace per thread that ever
+    ran one at a time (32 MiB each on Hopper). They are bytes the indexes'
+    gauges cannot name, so the drift would read them as a leak (ROADMAP
+    C40). This resource reads them from the allocator's state: the
+    active blocks of the card whose requested size is one workspace, less
+    the blocks that hold a tensor of another registered resource (an
+    index's matrix can be exactly one workspace: 1,024 dims at 8,192
+    rows). The blocks come from ``torch.cuda.memory_snapshot()``, read
+    again only once the allocator has allocated or freed since the last
+    read; it never clears them. Where there is no CUDA allocator it reads
+    0."""
+
+    def __init__(self, device: torch.device):
+        self.device = device  # as resolve_device gave it (the ledger's device)
+        self._lock = threading.Lock()
+        self._read: Optional[Tuple[Any, ...]] = None  # the allocator's counters at the last read
+        self._blocks: frozenset = frozenset()  # addresses of the blocks of one workspace's size
+
+    def _sized_blocks(self, index: int, size: int) -> frozenset:
+        stats = torch.cuda.memory_stats(index)
+        read = (stats.get("allocation.all.allocated"), stats.get("allocation.all.freed"), size)
+        with self._lock:
+            if read == self._read:
+                return self._blocks
+        found = set()
+        for seg in torch.cuda.memory_snapshot():
+            if seg.get("device") != index:
+                continue
+            address = seg.get("address", 0)
+            for block in seg.get("blocks", ()):
+                if block.get("state") == "active_allocated" \
+                        and block.get("requested_size", block.get("size")) == size:
+                    found.add(block.get("address", address))
+                address += block.get("size", 0)
+        with self._lock:
+            self._read, self._blocks = read, frozenset(found)
+        return self._blocks
+
+    def workspaces(self) -> Tuple[int, int]:
+        """(count, bytes of one) of the live workspaces on the card."""
+        if not torch.cuda.is_available():
+            return 0, 0
+        index = self.device.index if self.device.index is not None else torch.cuda.current_device()
+        size = cublas_workspace_size(torch.cuda.get_device_capability(index))
+        blocks = self._sized_blocks(index, size)
+        if blocks:
+            blocks = blocks - held_storage_ptrs(skip=self)
+        return len(blocks), size
+
+    def resource_stats(self) -> Dict[str, float]:
+        count, size = self.workspaces()
+        return {"device_bytes": count * size, "workspaces": count,
+                "workspace_bytes": size}
+
+
+_workspaces: Dict[int, CublasWorkspaces] = {}
+
+
+def track_cublas_workspaces(device: torch.device) -> None:
+    """Register the card's cuBLAS workspaces with the resource ledger
+    (once per card; ``resolve_device`` calls it for every CUDA device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with _lock:
+        res = _workspaces.get(index)
+        if res is None:
+            res = _workspaces[index] = CublasWorkspaces(device)
+    from nornicdb_tpu_torch.obs import resources as _resources
+
+    _resources.register("cublas", f"workspaces:cuda:{index}", res)
+
+
 def ledger_bytes() -> float:
     """Shape-derived device bytes: every ``*device_bytes`` stat the
     resource accounting carries (brute/quant/tiered slabs, graph

@@ -79,6 +79,12 @@ class HNSWIndex:
     def __len__(self) -> int:
         return len(self._slot_of)
 
+    def ids(self) -> List[str]:
+        """Alive external ids (an IVF-HNSW reload rebuilds its routing
+        map from these)."""
+        with self._lock:
+            return list(self._slot_of.keys())
+
     def __contains__(self, ext_id: str) -> bool:
         with self._lock:
             return ext_id in self._slot_of

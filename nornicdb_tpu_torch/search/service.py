@@ -96,6 +96,7 @@ from nornicdb_tpu_torch.search.microbatch import MicroBatcher
 from nornicdb_tpu_torch.search.rrf import rrf_fuse
 from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
 from nornicdb_tpu_torch.storage.types import Engine, Node
+from nornicdb_tpu_torch.vectorspace import VectorSpaceRegistry
 
 logger = logging.getLogger(__name__)
 
@@ -194,6 +195,8 @@ class SearchService:
         hnsw_m: int = 16,
         hnsw_ef_search: int = HNSW_EF_SEARCH,
         reranker: Optional[Any] = None,
+        database: str = "neo4j",
+        vector_registry: Optional[VectorSpaceRegistry] = None,
         persist_dir: Optional[str] = None,
         save_debounce_s: float = 5.0,
         resource_name: Optional[str] = None,
@@ -205,7 +208,15 @@ class SearchService:
         self.hnsw_threshold = hnsw_threshold
         self._lock = threading.RLock()
         self.bm25 = BM25Index()
-        self.vectors = BruteForceIndex(device=device)
+        # the document vector index lives in a registered vector space,
+        # (database, "node", "embedding"), of this service's registry
+        # unless the caller shares one; its brute index is built on the
+        # registry's device
+        self.database = database
+        self.vector_registry = vector_registry or VectorSpaceRegistry(device)
+        self._doc_space = self.vector_registry.get_or_create(
+            database=database, entity_type="node", backend="brute")
+        self.vectors = self._doc_space.ensure_index()
         self.hnsw: Optional[HNSWIndex] = None
         # the device graph of the cagra profile, over self.vectors
         self.cagra: Optional[CagraIndex] = None
@@ -636,6 +647,8 @@ class SearchService:
         t3 = time.perf_counter()
         with self._lock:
             self.bm25 = bm25
+            # the registered space's index is still the live one
+            self._doc_space.index = vectors
             self.vectors = vectors
             # the resource gauges follow the restored structures
             register_resource("bm25", self.resource_name, bm25)
@@ -732,6 +745,10 @@ class SearchService:
             return
         self.cagra = idx
         register_resource("cagra", self.resource_name, idx)
+        # the graph index as a vector space of its own, as the hnsw tier
+        self.vector_registry.get_or_create(
+            database=self.database, entity_type="node",
+            vector_name="embedding_cagra", backend="cagra").index = idx
         self.stats.cagra_builds += 1
         self.stats.strategy = "cagra"
 
@@ -746,6 +763,9 @@ class SearchService:
         idx = HNSWIndex(m=self._hnsw_m, ef_search=self._hnsw_ef)
         idx.build(items, seed_ids=seeds)
         self.hnsw = idx
+        self.vector_registry.get_or_create(
+            database=self.database, entity_type="node",
+            vector_name="embedding_hnsw", backend="hnsw").index = idx
         self.stats.hnsw_builds += 1
         self.stats.strategy = "hnsw"
 

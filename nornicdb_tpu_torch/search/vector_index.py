@@ -601,6 +601,10 @@ class BruteForceIndex:
             return None
         return plane.search_batch(np.asarray(queries, dtype=np.float32), k)
 
+    def search(self, query: Sequence[float], k: int = 10) -> List[Tuple[str, float]]:
+        """One query's [(ext_id, cosine)], through ``search_batch``."""
+        return self.search_batch(np.asarray([query], dtype=np.float32), k)[0]
+
     def search_batch(
         self, queries: np.ndarray, k: int = 10, exact: bool = False,
     ) -> List[List[Tuple[str, float]]]:

@@ -1,6 +1,7 @@
 """The port's command line (``nornicdb_tpu_torch/cli.py``) against the JAX
 package's: ``serve --device cpu`` in a subprocess answers ``/health``, a
-transaction commit and a search over HTTP and Bolt; ``serve`` without
+transaction commit and a search over HTTP and Bolt, and with
+``--grpc-port`` the gRPC server behind its bearer token; ``serve`` without
 ``--device`` and without a card raises; the commands the port has no
 module for yet raise ``NotPortedError`` (ROADMAP C38); and the files that
 ``import`` reads and ``export`` writes are the reference CLI's. Every
@@ -49,9 +50,9 @@ def _ports(proc, timeout_s=240.0):
         line = proc.stdout.readline()
         if not line:
             break
-        for name in ("http", "bolt"):
+        for name in ("http", "bolt", "grpc"):
             if line.strip().startswith(f"{name} ") and ":" in line:
-                ports[name] = int(line.rsplit(":", 1)[1].strip())
+                ports[name] = int(line.rsplit(":", 1)[1].split()[0])
         if line.strip().startswith("device"):
             return ports, line.split(":", 1)[1].strip()
     raise AssertionError(f"the server did not come up: {proc.stderr.read()[-2000:]}")
@@ -144,7 +145,7 @@ def test_serve_without_a_card_in_a_fresh_process():
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "--device", "cpu", "--grpc-port", "50051"],
+    ["serve", "--device", "cpu", "--grpc-port", "50051", "--plugins-dir", "/nonexistent"],
     ["serve", "--device", "cpu", "--plugins-dir", "/nonexistent"],
     ["eval", "suite.jsonl"],
     ["eval", "suite.jsonl", "--corpus", "corpus.jsonl", "--mrr", "0.9"],
@@ -156,13 +157,52 @@ def test_unported_commands_raise(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "--device", "cpu", "--grpc-auth-token", "secret"],
+    ["serve", "--device", "cpu", "--grpc-token", "secret"],
     ["import", "rows.jsonl", "--device", "cpu", "--bogus"]])
 def test_flags_nothing_reads_are_refused(argv, capsys):
     # a flag the port would ignore is an argparse error, not a silent no-op
     with pytest.raises(SystemExit) as exc:
         t_cli.main(argv)
     assert exc.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_grpc_flags_parse_as_the_reference():
+    argv = ["serve", "--grpc-port", "50051", "--grpc-auth-token", "secret"]
+    t_args = t_cli._build_parser().parse_args(argv)
+    j_args = j_cli._build_parser().parse_args(argv)
+    assert (t_args.grpc_port, t_args.grpc_auth_token) == (j_args.grpc_port,
+                                                          j_args.grpc_auth_token) == (50051, "secret")
+    assert t_cli._build_parser().parse_args(["serve"]).grpc_port == 0
+
+
+def test_serve_grpc_port_starts_the_grpc_server_behind_its_token():
+    grpc = pytest.importorskip("grpc")
+    from nornicdb_tpu_torch.api.proto import qdrant_pb2 as q
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        free = s.getsockname()[1]
+    proc = _serve(["--device", "cpu", "--grpc-port", str(free), "--grpc-auth-token", "secret"])
+    try:
+        ports, device = _ports(proc)
+        assert device == "cpu" and ports["grpc"] == free
+        with grpc.insecure_channel(f"127.0.0.1:{free}") as ch:
+            create = ch.unary_unary("/qdrant.Collections/Create",
+                                    request_serializer=q.CreateCollection.SerializeToString,
+                                    response_deserializer=q.CollectionOperationResponse.FromString)
+            listing = ch.unary_unary("/qdrant.Collections/List",
+                                     request_serializer=q.ListCollectionsRequest.SerializeToString,
+                                     response_deserializer=q.ListCollectionsResponse.FromString)
+            with pytest.raises(grpc.RpcError) as exc:
+                listing(q.ListCollectionsRequest(), timeout=30)
+            assert exc.value.code() == grpc.StatusCode.UNAUTHENTICATED
+            md = (("authorization", "Bearer secret"),)
+            assert create(q.CreateCollection(collection_name="c"), timeout=30, metadata=md).result
+            got = listing(q.ListCollectionsRequest(), timeout=30, metadata=md)
+            assert [c.name for c in got.collections] == ["c"]
+    finally:
+        _stop(proc)
+    assert proc.returncode == 0
 
 
 def test_version_and_help_match(capsys):

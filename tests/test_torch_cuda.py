@@ -804,7 +804,13 @@ def test_obs_backend_bytes_is_the_allocators_count(dev, obs_device):
     assert obs_device.backend_bytes() == float(torch.cuda.memory_allocated(dev))
     rec = obs_device.reconcile()
     assert rec["backend_bytes"] == torch.cuda.memory_allocated(dev)
-    assert rec["ledger_bytes"] == idx.resource_stats()["device_bytes"] > 0
+    # the ledger: the index's device pair and the card's cuBLAS workspaces
+    # (a resource since ROADMAP C40)
+    workspaces = [e for e in resources.snapshot() if e["family"] == "cublas"]
+    assert len(workspaces) == 1 and workspaces[0]["device_bytes"] % (32 << 20) == 0
+    assert rec["ledger_bytes"] == idx.resource_stats()["device_bytes"] \
+        + workspaces[0]["device_bytes"]
+    assert idx.resource_stats()["device_bytes"] > 0
     assert rec["drift_bytes"] == rec["backend_bytes"] - rec["ledger_bytes"]
 
 
@@ -1582,3 +1588,166 @@ def test_a_cuda_fault_in_a_request_is_answered_and_reraised_from_a_probe(dev):
     lines = out.stdout.strip().splitlines()
     assert "SEARCH 500 Neo.DatabaseError.General.UnknownError True" in lines, out.stderr[-2000:]
     assert "PROBE RAISED True" in lines and "READYZ 500" in lines, (lines, out.stderr[-2000:])
+
+
+def test_qdrant_search_on_the_card_equals_the_cpu_port(dev):
+    """A Cosine collection on the card answers what the same collection on
+    the CPU answers (ids tie-aware, scores within 1e-5), each search a B1
+    launch on the card (3,000 points of 160 dims: above the index's
+    small-host rung)."""
+    from nornicdb_tpu_torch.api.qdrant import QdrantCompat
+    from nornicdb_tpu_torch.storage import MemoryEngine
+
+    rng = np.random.default_rng(9)
+    pts = [{"id": i, "vector": rng.standard_normal(160).astype(np.float32).tolist(),
+            "payload": {"b": i % 10}} for i in range(3000)]
+    card, cpu = QdrantCompat(MemoryEngine(), device=dev), QdrantCompat(MemoryEngine(), device="cpu")
+    for c in (card, cpu):
+        c.create_collection("c", {"size": 160})
+        c.upsert_points("c", pts)
+    b1 = fused_cosine_topk.launches
+    for i in range(16):
+        q = pts[i * 97]["vector"]
+        flt = {"must": [{"key": "b", "match": {"value": i % 10}}]} if i % 2 else None
+        got, want = (c.search_points("c", q, limit=10, query_filter=flt) for c in (card, cpu))
+        assert topk_agree([[h["id"] for h in got]], [[h["score"] for h in got]],
+                          [[h["id"] for h in want]], [[h["score"] for h in want]], SCORE_ATOL)
+    assert fused_cosine_topk.launches - b1 >= 16
+    assert card._index("c").device.type == "cuda"
+
+
+_QDRANT_FAULT_PROBE = """
+import json, urllib.request, urllib.error
+import torch
+import nornicdb_tpu_torch
+from nornicdb_tpu_torch import obs
+from nornicdb_tpu_torch.api.http_server import HttpServer
+from nornicdb_tpu_torch.embed.embedder import HashEmbedder
+
+db = nornicdb_tpu_torch.open(device="cuda", embedder=HashEmbedder())
+srv = HttpServer(db, port=0).start()
+
+def call(method, path, body=None):
+    r = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}", method=method,
+                               data=json.dumps(body).encode() if body is not None else None,
+                               headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(r, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+call("PUT", "/collections/c", {"vectors": {"size": 4}})
+call("PUT", "/collections/c/points", {"points": [{"id": 1, "vector": [1, 0, 0, 0]}]})
+idx = db.qdrant_compat._index("c")
+
+def faulting(*a, **k):  # a launch that reads out of bounds
+    bad = torch.full((4,), 10**9, dtype=torch.int64, device="cuda")
+    torch.zeros(8, device="cuda").index_select(0, bad)
+    torch.cuda.synchronize()
+
+idx.search_batch = faulting
+st, body = call("POST", "/collections/c/points/search", {"vector": [1, 0, 0, 0]})
+print("SEARCH", st, body["errors"][0]["code"], "CUDA" in body["errors"][0]["message"])
+obs.parity_breaches = lambda: (torch.cuda.synchronize(), [])[1]  # a probe that touches the card
+try:
+    srv._readyz()
+    print("PROBE SWALLOWED")
+except RuntimeError as exc:
+    print("PROBE RAISED", "CUDA" in str(exc))
+srv.stop()
+"""
+
+
+def test_a_cuda_fault_in_a_collection_search_is_answered_500_and_reraised_from_a_probe(dev):
+    """A device-side fault inside a Qdrant collection's search is answered
+    500 over REST, as the reference answers an error there, and a
+    readiness probe that meets the poisoned context re-raises it (C39,
+    C42). A subprocess: the fault poisons its CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _QDRANT_FAULT_PROBE], cwd=repo,
+                         env=dict(os.environ), capture_output=True, text=True, timeout=300)
+    lines = out.stdout.strip().splitlines()
+    assert "SEARCH 500 Neo.DatabaseError.General.UnknownError True" in lines, out.stderr[-2000:]
+    assert "PROBE RAISED True" in lines, (lines, out.stderr[-2000:])
+
+
+def test_readyz_after_the_window_is_ready_with_the_cublas_workspaces_named(dev):
+    """ROADMAP C40: the main path's DB at a small size, one product on a
+    second stream (a second cuBLAS workspace), then the ledger reconciled
+    at a clock and again past the detection window: the workspaces are a
+    named resource, the drift stays under the 64 MiB bound and ``/readyz``
+    answers 200."""
+    import json as _json
+    import time
+    import urllib.request
+
+    import nornicdb_tpu_torch
+    from nornicdb_tpu_torch import obs
+    from nornicdb_tpu_torch.api.http_server import HttpServer
+    from nornicdb_tpu_torch.obs import device as obs_device
+
+    rng = np.random.default_rng(3)
+    words = [f"w{i}" for i in range(300)]
+    db = nornicdb_tpu_torch.open(device=dev)
+    srv = None
+    try:
+        for i in range(2000):
+            db.store(" ".join(rng.choice(words, size=12)), node_id=f"d{i}")
+        db.flush()
+        db.recall("w1 w2", limit=10)
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            x = torch.randn(64, 160, device=dev)
+            (x @ x.T).sum().item()
+        torch.cuda.synchronize()
+        srv = HttpServer(db, port=0).start()
+        ws = {e["index"]: e for e in obs.resource_snapshot() if e["family"] == "cublas"}
+        assert ws and sum(e["workspaces"] for e in ws.values()) >= 2
+        c = obs_device.cfg()
+        assert (c["mem_drift_bytes"], c["mem_drift_s"]) == (64 << 20, 60.0)
+        t = time.time()
+        obs_device.reconcile(now=t)
+        rec = obs_device.reconcile(now=t + c["mem_drift_s"] + 1.0)
+        assert abs(rec["drift_bytes"]) < c["mem_drift_bytes"] and not rec["leak_suspected"], rec
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/readyz", timeout=60) as r:
+            assert r.status == 200 and _json.loads(r.read())["status"] == "ready"
+    finally:
+        if srv is not None:
+            srv.stop()
+        db.close()
+
+
+def test_cublas_workspaces_leave_out_an_index_matrix_of_one_workspace(dev):
+    """A collection matrix of exactly one workspace's bytes on the card
+    (1,024 dims at 4,097 points: capacity 8,192, 32 MiB) is an allocator
+    block of that size; the workspace resource does not count it, so the
+    ledger names the matrix once, by its index."""
+    from nornicdb_tpu_torch.obs import device as obs_device
+    from nornicdb_tpu_torch.obs import resources as obs_resources
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    ws = obs_device.cublas_workspace_size(torch.cuda.get_device_capability(dev))
+    x = torch.randn(64, 160, device=dev)
+    (x @ x.T).sum().item()  # this thread's workspace exists before the count
+    res = obs_device.CublasWorkspaces(torch.device(dev))
+    before, size = res.workspaces()
+    assert size == ws and before >= 1
+    rng = np.random.default_rng(5)
+    idx = BruteForceIndex(dims=1024, device=dev)
+    idx.add_batch([(f"p{i}", row) for i, row in enumerate(
+        rng.standard_normal((4097, 1024)).astype(np.float32))])
+    idx.search_batch(rng.standard_normal((1, 1024)).astype(np.float32), 5)
+    torch.cuda.synchronize()
+    with idx._lock:
+        matrix, _ = idx._device_arrays_locked()
+    assert matrix.numel() * matrix.element_size() == ws
+    obs_resources.register("brute", "one_workspace", idx)
+    try:
+        assert res.workspaces() == (before, ws)
+    finally:
+        obs_resources.unregister("brute", "one_workspace")

@@ -1,7 +1,8 @@
 """The port stands alone: it loads no JAX, no flax, nothing of the JAX
-package and no msgpack, and ``cryptography`` only under an encryption
-passphrase (the card's machine has neither), and its entry points refuse
-to run on the CPU unasked."""
+package and no msgpack, ``cryptography`` only under an encryption
+passphrase (the card's machine has neither), and ``grpc`` and
+``google.protobuf`` only in the modules that serve gRPC, when a gRPC
+surface is used; and its entry points refuse to run on the CPU unasked."""
 
 import ast
 import json
@@ -127,9 +128,58 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
                  "heimdall.tools", "models.train", "models.pretrain", "models.hf_import",
                  "storage.txn", "encryption", "audit", "auth", "retention", "config",
                  "api", "api.http_server", "api.openapi", "api.mcp", "api.packstream",
-                 "api.bolt", "embed.http_providers", "cli"):
+                 "api.bolt", "embed.http_providers", "cli", "search.util", "search.ivfpq",
+                 "search.ivf_hnsw", "vectorspace", "api.qdrant", "api.graphql",
+                 "api.grpc_server", "api.qdrant_official_grpc", "api.proto",
+                 "api.proto.nornic_pb2", "api.proto.qdrant_pb2"):
         assert "nornicdb_tpu_torch." + name in result["imported"]
     assert result["bad"] == []
+
+
+_GRPC_MODULES = {os.path.join("api", "grpc_server.py"),
+                 os.path.join("api", "qdrant_official_grpc.py"),
+                 os.path.join("api", "proto", "nornic_pb2.py"),
+                 os.path.join("api", "proto", "qdrant_pb2.py")}
+_GRPC_IMPORTS = ("nornicdb_tpu_torch.api.grpc_server", "nornicdb_tpu_torch.api.qdrant_official_grpc",
+                 "nornicdb_tpu_torch.api.proto")
+
+_GRPC_PROBE = """
+import importlib, json, pkgutil, sys
+import nornicdb_tpu_torch
+serving = ("nornicdb_tpu_torch.api.grpc_server", "nornicdb_tpu_torch.api.qdrant_official_grpc",
+           "nornicdb_tpu_torch.api.proto.")
+for m in pkgutil.walk_packages(nornicdb_tpu_torch.__path__, "nornicdb_tpu_torch."):
+    if not m.name.startswith(serving):
+        importlib.import_module(m.name)
+from nornicdb_tpu_torch.api.graphql import GraphQLAPI
+from nornicdb_tpu_torch.api.http_server import HttpServer
+from nornicdb_tpu_torch.embed.embedder import HashEmbedder
+db = nornicdb_tpu_torch.open(device="cpu", embedder=HashEmbedder())
+q = db.qdrant_compat
+q.create_collection("c", {"size": 2})
+q.upsert_points("c", [{"id": 1, "vector": [1.0, 0.0]}])
+q.search_points("c", [1.0, 0.0])
+GraphQLAPI(db).execute("{ nodeCount }")
+srv = HttpServer(db, port=0).start()
+srv.route("GET", "/collections/c", b"", {})
+srv.stop()
+loaded = lambda: sorted(m for m in sys.modules if m.split(".")[0] == "grpc"
+                        or m.startswith("google.protobuf"))
+before = loaded()
+from nornicdb_tpu_torch.api.grpc_server import GrpcServer
+g = GrpcServer(db, port=0).start()
+g.stop()
+db.close()
+print(json.dumps({"before": before, "after": bool(loaded())}))
+"""
+
+
+def test_port_loads_grpc_and_protobuf_only_when_a_grpc_surface_is_used():
+    pytest.importorskip("grpc")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _GRPC_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"before": [], "after": True}
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, PKG))
@@ -151,6 +201,13 @@ def test_port_sources_import_nothing_of_jax(path):
             if top == "cryptography":
                 assert os.path.basename(path) == "encryption.py" and node not in tree.body, \
                     (path, name)
+            # grpc and protobuf: only the modules that serve gRPC, and
+            # those modules only inside a function of any other module
+            rel = os.path.relpath(path, PKG)
+            if top in ("grpc", "google"):
+                assert rel in _GRPC_MODULES, (path, name)
+            if name.startswith(_GRPC_IMPORTS) and rel not in _GRPC_MODULES:
+                assert node not in tree.body, (path, name)
 
 
 _OBS_PROBE = """
@@ -211,6 +268,24 @@ def _apoc_pagerank(ex):
     return ex.execute("CALL apoc.algo.pageRank() YIELD node, score RETURN score")
 
 
+def _qdrant_compat():
+    from nornicdb_tpu_torch.api.qdrant import QdrantCompat
+
+    return QdrantCompat(nornicdb_tpu_torch.storage.MemoryEngine())
+
+
+def _vector_registry():
+    from nornicdb_tpu_torch.vectorspace import VectorSpaceRegistry
+
+    return VectorSpaceRegistry()
+
+
+def _ivf_hnsw():
+    from nornicdb_tpu_torch.search.ivf_hnsw import IVFHNSWIndex
+
+    return IVFHNSWIndex()
+
+
 @pytest.mark.parametrize("make", [
     lambda: nornicdb_tpu_torch.open(),
     lambda: nornicdb_tpu_torch.DB(),
@@ -222,6 +297,9 @@ def _apoc_pagerank(ex):
     lambda: _apoc_pagerank(CypherExecutor(nornicdb_tpu_torch.storage.MemoryEngine())),
     lambda: _heimdall_generate(),
     lambda: _train_encoder(),
+    lambda: _qdrant_compat(),
+    lambda: _vector_registry(),
+    lambda: _ivf_hnsw(),
 ])
 def test_entry_points_default_to_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

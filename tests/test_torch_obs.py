@@ -687,3 +687,111 @@ def test_primitive_costs_within_budget():
     assert counter_us < 50, f"counter inc {counter_us:.1f}us/op"
     assert observe_us < 50, f"histogram observe {observe_us:.1f}us/op"
     assert trace_us < 500, f"trace+span {trace_us:.1f}us/req"
+
+
+def test_cublas_workspaces_resource_reads_zero_without_a_cuda_allocator(monkeypatch):
+    """C40: the card's cuBLAS workspaces are a resource of the ledger; on a
+    host with no CUDA allocator the resource reads 0 bytes and 0
+    workspaces, and the CPU never registers it (resolving ``cpu`` leaves
+    the resource table as it was)."""
+    import torch
+
+    from nornicdb_tpu_torch import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    res = t_dev.CublasWorkspaces(torch.device("cuda", 0))
+    assert res.resource_stats() == {"device_bytes": 0, "workspaces": 0, "workspace_bytes": 0}
+    before = {(e["family"], e["index"]) for e in T.resource_snapshot()}
+    resolve_device("cpu")
+    after = {(e["family"], e["index"]) for e in T.resource_snapshot()}
+    assert after == before and not any(f == "cublas" for f, _ in after)
+
+
+@pytest.mark.parametrize("capability,config,want", [
+    ((9, 0), None, 32 << 20), ((8, 0), None, 2 * (4 << 20) + 8 * (16 << 10)),
+    ((9, 0), ":4096:8", 32 << 20), ((8, 6), ":4096:2:16:8", 2 * (4 << 20) + 8 * (16 << 10)),
+    ((9, 0), ":16:8", 128 << 10)])
+def test_cublas_workspace_size_is_pytorch_s_choice(capability, config, want, monkeypatch):
+    """The size of one workspace as PyTorch chooses it: its Hopper default
+    (32 MiB), its default elsewhere, and ``CUBLAS_WORKSPACE_CONFIG``'s
+    ``:SIZE_KiB:COUNT`` pairs."""
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    if config is not None:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", config)
+    assert t_dev.cublas_workspace_size(capability) == want
+
+
+def _fake_allocator(monkeypatch, snap):
+    """A card 0 of capability (9, 0) whose allocator state is ``snap``;
+    returns the reads of ``memory_snapshot`` so far and the allocator's
+    counters, which a test bumps to stand for an allocation."""
+    reads = []
+    counters = {"allocation.all.allocated": 10, "allocation.all.freed": 4}
+
+    def memory_snapshot():
+        reads.append(1)
+        return snap
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda d=None: (9, 0))
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", memory_snapshot)
+    monkeypatch.setattr(torch.cuda, "memory_stats", lambda d=None: dict(counters))
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    return reads, counters
+
+
+def test_cublas_workspaces_count_the_allocator_s_blocks_of_one_workspace(monkeypatch):
+    """The resource counts the card's active blocks whose requested size is
+    one workspace, on its own device only, and reads nothing else; it
+    reads the allocator's blocks again only once the allocator has
+    allocated or freed since its last read."""
+    ws = 32 << 20
+    snap = [{"device": 0, "address": 1 << 40, "blocks": [
+        {"state": "active_allocated", "requested_size": ws, "size": ws},
+        {"state": "active_allocated", "requested_size": ws, "size": ws},
+        {"state": "inactive", "requested_size": ws, "size": ws},
+        {"state": "active_allocated", "requested_size": 1 << 20, "size": 2 << 20}]},
+        {"device": 1, "address": 1 << 41, "blocks": [
+            {"state": "active_allocated", "requested_size": ws, "size": ws}]}]
+    reads, counters = _fake_allocator(monkeypatch, snap)
+    res = t_dev.CublasWorkspaces(torch.device("cuda", 0))
+    want = {"device_bytes": 2 * ws, "workspaces": 2, "workspace_bytes": ws}
+    assert res.resource_stats() == want
+    assert res.resource_stats() == want and len(reads) == 1
+    snap[0]["blocks"][2]["state"] = "active_allocated"
+    counters["allocation.all.allocated"] += 1
+    assert res.resource_stats() == {**want, "device_bytes": 3 * ws, "workspaces": 3}
+    assert len(reads) == 2
+
+
+def test_cublas_workspaces_leave_out_a_registered_index_s_block(monkeypatch):
+    """An index matrix of exactly one workspace's bytes (1,024 dims at 4,097
+    points: capacity 8,192, 32 MiB) is one allocator block of that size
+    too; the resource leaves out the block that holds a registered
+    resource's tensor, so the matrix is counted once, by its index, and
+    the workspaces beside it still are."""
+    from nornicdb_tpu_torch.search.vector_index import BruteForceIndex
+
+    ws = 32 << 20
+    rng = np.random.default_rng(0)
+    idx = BruteForceIndex(dims=1024, device="cpu")
+    idx.add_batch([(f"p{i}", row) for i, row in enumerate(
+        rng.standard_normal((4097, 1024)).astype(np.float32))])
+    with idx._lock:
+        matrix, _ = idx._device_arrays_locked()
+    assert matrix.numel() * matrix.element_size() == ws
+    t_res.register("brute", "collision", idx)
+    base = 1 << 40
+    snap = [{"device": 0, "address": base, "blocks": [
+        {"state": "active_allocated", "requested_size": ws, "size": ws},
+        {"state": "active_allocated", "requested_size": ws, "size": ws}]},
+        {"device": 0, "address": matrix.untyped_storage().data_ptr(), "blocks": [
+            {"state": "active_allocated", "requested_size": ws, "size": ws}]}]
+    _fake_allocator(monkeypatch, snap)
+    res = t_dev.CublasWorkspaces(torch.device("cuda", 0))
+    try:
+        assert res.resource_stats() == {"device_bytes": 2 * ws, "workspaces": 2,
+                                        "workspace_bytes": ws}
+        assert idx.resource_stats()["device_bytes"] >= ws
+    finally:
+        t_res.unregister("brute", "collision")
